@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``lighthand_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs one card
+
+Phases (any failure raises, exits nonzero and prints no ok line):
+
+1. device and build: the card's name and power limit (nvidia-smi), then
+   both CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc;
+2. K2 (heatmap targets) against its plain twin, B=128 and B=32, atol 1e-5;
+3. K1 (fused aug + targets) against its plain twin at B=128 and B=32,
+   256x256: targets within 1e-5; the f32 variant within 1e-5 (the mean of
+   each image is summed in another order); the bf16 image equal on
+   >= 99.9 % of elements and within max(1 bf16 ulp of the value, 1e-5)
+   everywhere: below |value| = 2^-10 a bf16 ulp is finer than the f32
+   agreement of the two computations;
+4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
+   ``make_fused_train_step`` for 3 steps; K1 must launch 3 times and every
+   loss be finite;
+5. the main path, eval: ``make_eval_step`` twice on a batch of 32 whose last
+   4 rows are padding (n_valid must be 28, K2 must launch), then
+   ``make_predict_step`` once;
+6. reference: the trained W32 in f32 on the card (TF32 off) against the
+   same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
+   the CPU tests hold the port's CPU forward to against JAX);
+7. kernel times (CUDA events, median of 25 after 5 warm-up calls) beside
+   their plain twins' and their bounds, at the main path's batch (32) and
+   at the bench's (128); the B=128 figures make the ``{"kernels": ...}``
+   JSON line. The last line is the ok line.
+
+Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
+matmuls are full f32. The main path's convolutions are bf16, which TF32
+does not touch.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+# Published peaks (NVIDIA data sheets, dense): memory bytes/s and f32
+# (non-tensor-core) operations/s, keyed by a substring of the card's name.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12),
+    "H100 NVL": (3.9e12, 60e12),
+    "H100": (3.35e12, 67e12),  # SXM
+}
+# f32 operations per pixel of K1's function: u8/255 (3), brightness (9),
+# contrast incl. its gray mean (21), saturation (20), hue (~42), the
+# enable gate (9), channel noise (9), normalize (6).
+K1_OPS_PER_PIXEL = 119
+TARGET_OPS_PER_ELEMENT = 10  # 2 sub, 2 abs+cmp, 2 mul, add, mul, exp
+
+B_KERNEL, B_TRAIN, SIZE, JOINTS, HM = 128, 32, 256, 21, 64
+F32_ATOL = 1e-5
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def peaks(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return val
+    print(f"note: no peak table entry for {name!r}; using H100 SXM's")
+    return PEAKS["H100"]
+
+
+def bound_ms(nbytes: float, ops: float, name: str):
+    bw, flops = peaks(name)
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, warmup: int = 5, reps: int = 25) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bf16_ulp(x):
+    import torch
+
+    a = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def k1_inputs(b: int, seed: int):
+    """u8 images, joints and packed draws: the first half of the batch has
+    jitter on, every 4th sample noise on, and sample i takes the i-th of
+    the 24 op orders, so every op sits in every slot (hue before contrast
+    included) among the jittered samples."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, size=(b, SIZE, SIZE, 3), dtype=np.uint8)
+    joints = rng.uniform(-40, SIZE + 40, size=(b, JOINTS, 2))
+    perms = list(itertools.permutations(range(4)))
+    order = np.array([perms[i % 24] for i in range(b)], np.float32)
+    aug = (np.arange(b) < b // 2).astype(np.float32)
+    noise = (np.arange(b) % 4 == 1).astype(np.float32)
+    pn = rng.uniform(0.6, 1.4, (b, 3)) * noise[:, None] + (1 - noise[:, None])
+    params = np.concatenate([aug[:, None], rng.uniform(0.5, 1.5, (b, 3)),
+                             rng.uniform(-0.5, 0.5, (b, 1)), order, pn], 1)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(images).to(dev),
+            torch.from_numpy(joints.astype(np.float32)).to(dev),
+            torch.from_numpy(params.astype(np.float32)).to(dev))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.ops.color import normalize_imagenet
+    from lighthand_tpu_torch.ops.heatmap import generate_target_batch
+    from lighthand_tpu_torch.ops.kernels import _build
+    from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        fused_aug_targets_cuda,
+        fused_aug_targets_plain,
+    )
+    from lighthand_tpu_torch.ops.kernels.heatmap import (
+        generate_target_batch_cuda,
+    )
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_fused_train_step,
+        make_predict_step,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. device and build -------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}")
+
+    # 2. K2 against its plain twin -----------------------------------------
+    rng = np.random.default_rng(0)
+    k2_err = 0.0
+    for b in (B_KERNEL, B_TRAIN):
+        joints = torch.from_numpy(rng.uniform(-40, 300, size=(b, JOINTS, 2))
+                                  .astype(np.float32)).to(dev)
+        got = generate_target_batch_cuda(joints)
+        want = generate_target_batch(joints)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"[K2] B={b}: max|kernel - plain| = {err:.3g} (atol 1e-5)")
+        if got.shape != want.shape or not err <= 1e-5:
+            fail(f"K2 disagrees with its plain twin at B={b}: {err}")
+        k2_err = max(k2_err, err)
+
+    # 3. K1 against its plain twin -----------------------------------------
+    k1_err = 0.0
+    for b, seed in ((B_KERNEL, 1), (B_TRAIN, 2)):
+        images, joints, params = k1_inputs(b, seed)
+        got_img, got_hm = fused_aug_targets_cuda(images, joints, params)
+        want_img, want_hm = fused_aug_targets_plain(images, joints, params)
+        torch.cuda.synchronize()
+        g, w = got_img.float(), want_img.float()
+        diff = (g - w).abs()
+        ulp = bf16_ulp(w)
+        fine = ulp < F32_ATOL
+        ulps = float((diff / ulp * ~fine).max())
+        near0 = float((diff * fine).max())
+        equal = float((diff == 0).float().mean())
+        hm_err = float((got_hm - want_hm).abs().max())
+        print(f"[K1] B={b} bf16: max|diff| {float(diff.max()):.3g}, "
+              f"{ulps:.3g} ulp where a ulp >= {F32_ATOL:g}, {near0:.3g} "
+              f"below; equal {100 * equal:.4f} %; targets {hm_err:.3g}")
+        if not (ulps <= 1.0 and near0 <= F32_ATOL and equal >= 0.999
+                and hm_err <= 1e-5):
+            fail(f"K1 disagrees with its plain twin at B={b}")
+        k1_err = max(k1_err, float(diff.max()), hm_err)
+        if b == B_TRAIN:
+            got32, _ = fused_aug_targets_cuda(images, joints, params,
+                                              out_dtype=torch.float32)
+            want32, _ = fused_aug_targets_plain(images, joints, params,
+                                                out_dtype=torch.float32)
+            err32 = float((got32 - want32).abs().max())
+            print(f"[K1] B={b} f32: max|diff| {err32:.3g} (atol {F32_ATOL:g})")
+            if not err32 <= F32_ATOL:
+                fail(f"K1 f32 variant disagrees with its plain twin: {err32}")
+
+    # 4. main path: train ---------------------------------------------------
+    rng = np.random.default_rng(3)
+    batch = {
+        "image_u8": torch.from_numpy(rng.integers(
+            0, 256, size=(B_TRAIN, SIZE, SIZE, 3), dtype=np.uint8)),
+        "joints": torch.from_numpy(rng.uniform(
+            16, SIZE - 16, size=(B_TRAIN, JOINTS, 2)).astype(np.float32)),
+        "aug_enabled": torch.from_numpy(
+            (np.arange(B_TRAIN) % 2).astype(np.float32)),
+        "noise_enabled": torch.from_numpy(
+            (np.arange(B_TRAIN) % 4 == 1).astype(np.float32)),
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    state = create_train_state(get_model("hrnet_w32"),
+                               torch.Generator().manual_seed(0), lr=1e-3)
+    step = make_fused_train_step(scan_steps=1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    fused_aug_targets_cuda.launches = 0
+    generate_target_batch_cuda.launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, gen, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+    ms_step = statistics.median(step_s[1:]) * 1e3
+    print(f"[train] HRNet-W32 256x256 bs{B_TRAIN} bf16: losses {losses}; "
+          f"step ms {[round(s * 1e3, 2) for s in step_s]}; steady "
+          f"{ms_step:.2f} ms/step = {B_TRAIN / ms_step * 1e3:.1f} img/s")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite train loss: {losses}")
+
+    # 5. main path: eval + predict -----------------------------------------
+    images = normalize_imagenet(batch["image_u8"].float() / 255.0)
+    valid = torch.ones(B_TRAIN, device=dev)
+    valid[-4:] = 0.0
+    eval_batch = {"image": images, "joints": batch["joints"], "valid": valid}
+    eval_step = make_eval_step()
+    eval_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = eval_step(state, eval_batch)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+    joints_px, maxvals = make_predict_step()(state, images)
+    torch.cuda.synchronize()
+    launches = {"fused_aug_targets": fused_aug_targets_cuda.launches,
+                "heatmap_targets": generate_target_batch_cuda.launches}
+    scalars = {k: float(v) for k, v in out.items() if v.ndim == 0}
+    print(f"[eval] {scalars}; eval ms {[round(s * 1e3, 2) for s in eval_s]}"
+          f" = {B_TRAIN / eval_s[-1]:.1f} img/s")
+    print(f"[path] launches {launches}")
+    if launches["fused_aug_targets"] != 3:
+        fail(f"K1 launched {launches['fused_aug_targets']} times in 3 steps")
+    if launches["heatmap_targets"] < 1:
+        fail("the eval step did not launch K2")
+    if scalars["n_valid"] != 28.0 or not all(map(math.isfinite,
+                                                  scalars.values())):
+        fail(f"bad eval metrics: {scalars}")
+    if (tuple(out["pred_joints"].shape) != (B_TRAIN, JOINTS, 2)
+            or tuple(joints_px.shape) != (B_TRAIN, JOINTS, 2)
+            or not torch.isfinite(joints_px).all()
+            or not torch.isfinite(maxvals).all()):
+        fail("bad predict output")
+
+    # 6. reference: the trained weights in f32, card vs CPU ----------------
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    f32 = DTypePolicy.full_precision()
+    cpu_model = get_model("hrnet_w32", policy=f32).eval()
+    cpu_model.load_state_dict(weights)
+    gpu_model = get_model("hrnet_w32", policy=f32).eval()
+    gpu_model.load_state_dict(weights)
+    gpu_model.to(dev, memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 64, 64, 3)).astype(np.float32)).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        ref = cpu_model(x)
+        got = gpu_model(x.to(dev)).cpu()
+        got_bf16 = state.model.eval()(x.to(dev)).float().cpu()
+    err = float((got - ref).abs().max())
+    ok = bool(torch.allclose(got, ref, atol=2e-4, rtol=1e-3))
+    rel16 = float((got_bf16 - ref).abs().max() / ref.abs().max())
+    print(f"[reference] W32 f32 card vs CPU at 64x64: max|diff| {err:.3g} "
+          f"(atol 2e-4, rtol 1e-3: {ok}); bf16 card vs f32 CPU: max|diff| / "
+          f"max|ref| = {rel16:.3g}")
+    if not ok:
+        fail("the port's W32 forward on the card disagrees with the CPU")
+
+    # 7. kernel times and bounds -------------------------------------------
+    def cases(b, seed):
+        """(name, source, replaces, kernel call, plain call, bytes, ops) at
+        batch b: each input read once, each output written once."""
+        images, joints, params = k1_inputs(b, seed)
+        n_px, n_hm = b * SIZE * SIZE, b * JOINTS * HM * HM
+        return (
+            ("fused_aug_targets", "lighthand_tpu_torch/csrc/fused_aug.cu",
+             "lighthand_tpu/ops/pallas/fused_aug.py:151",
+             lambda: fused_aug_targets_cuda(images, joints, params),
+             lambda: fused_aug_targets_plain(images, joints, params),
+             n_px * 3 + params.numel() * 4 + joints.numel() * 4
+             + n_px * 3 * 2 + n_hm * 4,
+             n_px * K1_OPS_PER_PIXEL + n_hm * TARGET_OPS_PER_ELEMENT),
+            ("heatmap_targets", "lighthand_tpu_torch/csrc/heatmap.cu",
+             "lighthand_tpu/ops/pallas/heatmap.py:66",
+             lambda: generate_target_batch_cuda(joints),
+             lambda: generate_target_batch(joints),
+             joints.numel() * 4 + n_hm * 4, n_hm * TARGET_OPS_PER_ELEMENT),
+        )
+
+    errs = {"fused_aug_targets": k1_err, "heatmap_targets": k2_err}
+    rows = []
+    for b, seed in ((B_TRAIN, 2), (B_KERNEL, 1)):
+        for name, src, replaces, fn, plain, nbytes, ops in cases(b, seed):
+            ms, plain_ms = time_ms(fn), time_ms(plain)
+            bound, by = bound_ms(nbytes, ops, kind)
+            print(f"[{name}] B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                  f" ms, bound {bound * 1e3:.2f} us by {by} ("
+                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
+                  f"{100 * bound / ms:.1f} % of bound")
+            if b == B_KERNEL:
+                rows.append({
+                    "name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""Building blocks of the pose backbones, with the JAX package's numerics.
+
+Counterpart of ``lighthand_tpu/models/layers.py``. Submodule names follow
+the reference torch models (``conv1``/``bn1``, ``downsample.0``/``.1``), so
+a ``state_dict`` of the port is a reference checkpoint.
+
+Numerics that follow the JAX package rather than torch's habits:
+
+- a conv runs in the dtype of its input (the policy's compute dtype) with
+  its f32 weights cast to it; padding is k//2 on both sides;
+- BatchNorm is computed in f32 and its output cast back to the input dtype;
+- in training, the running variance is updated with the *biased* batch
+  variance, as Flax's ``nn.BatchNorm`` does. ``nn.BatchNorm2d`` would use
+  the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 0.1  # torch convention; == 1 - flax momentum 0.9
+BN_EPS = 1e-5
+
+
+class Conv2d(nn.Conv2d):
+    """Conv in the input's dtype; weights (and bias) cast to it per call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding)
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                  bias=bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """f32 BatchNorm that updates its running stats the way Flax does."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x32, dim=(0, 2, 3),
+                                           correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+            y = F.batch_norm(x32, None, None, self.weight, self.bias,
+                             True, 0.0, self.eps)
+        else:
+            y = F.batch_norm(x32, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+        return y.to(x.dtype)
+
+
+class ConvBN(nn.Sequential):
+    """``Sequential(conv, bn[, relu])``: the reference's naming for the
+    stem-less conv+BN pairs (transitions, fuse layers, downsample)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 relu: bool = True):
+        layers = [conv(cin, cout, kernel, stride), BatchNorm2d(cout)]
+        if relu:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+
+
+class BasicBlock(nn.Module):
+    """2x 3x3 conv residual block (pose_resnet.py:29-58). expansion = 1."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 3, stride)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = conv(planes, planes, 3)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
+                                  stride, relu=False) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 residual block (pose_resnet.py:61-99). expansion=4."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 1)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = conv(planes, planes, 3, stride)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = conv(planes, planes * self.expansion, 1)
+        self.bn3 = BatchNorm2d(planes * self.expansion)
+        self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
+                                  stride, relu=False) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+def nearest_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """nn.Upsample(scale_factor=factor, mode='nearest') on NCHW
+    (pose_hrnet.py:206); each pixel repeated ``factor`` times per axis."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """torch's default init, drawn from ``generator``: conv weights
+    Uniform(+-1/sqrt(fan_in)) (kaiming_uniform with a=sqrt(5)), biases
+    Uniform(+-1/sqrt(fan_in)), BatchNorm scale 1, bias 0, stats 0/1. The
+    reference never calls its own init (pose_resnet.py:319-320), so this is
+    its effective init and the JAX package's ``TORCH_CONV_KERNEL_INIT``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                         generator=generator)
+                if m.bias is not None:
+                    fan_in = m.weight[0].numel()
+                    bound = 1.0 / math.sqrt(fan_in)
+                    nn.init.uniform_(m.bias, -bound, bound,
+                                     generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()

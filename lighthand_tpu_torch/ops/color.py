@@ -1,0 +1,139 @@
+"""Color augmentation and normalization, plain PyTorch.
+
+Counterpart of ``lighthand_tpu/ops/color.py`` and of the color part of
+``lighthand_tpu/ops/pallas/fused_aug.py:_kernel``: torchvision-style
+ColorJitter (brightness, contrast, saturation, hue via HSV) in a per-sample
+order, FreiHAND per-channel noise, ImageNet normalize. Images are float in
+[0, 1], channels last: ``[..., H, W, 3]``.
+
+The random draws are not made here: factors, the op order and the enable
+gates are arguments (``ops/kernels/fused_aug.py:draw_aug_params`` draws
+them), so these functions are also the plain twin of the CUDA kernel. The
+arithmetic follows the JAX kernel op for op (gray = 0.299 r + 0.587 g +
+0.114 b left to right; divisions kept as divisions; the hue modulo is a
+floor modulo).
+"""
+
+from __future__ import annotations
+
+import torch
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+BRIGHTNESS, CONTRAST, SATURATION, HUE = range(4)  # op index in the order
+
+
+def _per_image(f, img: torch.Tensor, trailing: int = 3):
+    """A per-image factor ([...] or scalar) broadcast over ``trailing`` dims."""
+    if isinstance(f, torch.Tensor) and f.ndim:
+        return f.reshape(f.shape + (1,) * trailing)
+    return f
+
+
+def divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once. On CUDA, PyTorch turns a Python-scalar
+    divisor into a multiply by its reciprocal (two roundings); a tensor
+    divisor divides, as the JAX package and the CUDA kernel do."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def _gray(img: torch.Tensor) -> torch.Tensor:
+    w0, w1, w2 = GRAY_WEIGHTS
+    return w0 * img[..., 0] + w1 * img[..., 1] + w2 * img[..., 2]
+
+
+def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
+    """(img - mean) / std per channel; img [..., 3] float in [0, 1]."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
+    return (img.float() - mean) / std
+
+
+def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
+    return torch.clamp(img * _per_image(factor, img), 0.0, 1.0)
+
+
+def adjust_contrast(img: torch.Tensor, factor) -> torch.Tensor:
+    """Blend with the mean of each image's grayscale (torchvision)."""
+    mean = _per_image(_gray(img).mean(dim=(-2, -1)), img)
+    return torch.clamp(mean + _per_image(factor, img) * (img - mean),
+                       0.0, 1.0)
+
+
+def adjust_saturation(img: torch.Tensor, factor) -> torch.Tensor:
+    gray = _gray(img)[..., None]
+    return torch.clamp(gray + _per_image(factor, img) * (img - gray),
+                       0.0, 1.0)
+
+
+def adjust_hue(img: torch.Tensor, delta) -> torch.Tensor:
+    """Shift hue by ``delta`` (fraction of the full circle) via RGB<->HSV."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    spread = maxc - minc
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, spread / torch.clamp_min(maxc, 1e-12), zero)
+    safe = torch.clamp_min(spread, 1e-12)
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    # torch's float % is a floor modulo, like jnp's (C fmod is not)
+    h = divide(h, 6.0) % 1.0
+    h = torch.where(spread > 0, h, zero)
+    h = (h + _per_image(delta, img, 2)) % 1.0
+
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = i.to(torch.int32) % 6
+
+    def sel(*cands):
+        out = cands[5]
+        for k in (4, 3, 2, 1, 0):
+            out = torch.where(i == k, cands[k], out)
+        return out
+
+    return torch.stack([sel(v, q, p, p, t, v), sel(t, v, v, q, p, p),
+                        sel(p, p, t, v, v, q)], dim=-1)
+
+
+_OPS = (adjust_brightness, adjust_contrast, adjust_saturation, adjust_hue)
+
+
+def color_jitter(img: torch.Tensor, factors: torch.Tensor,
+                 order: torch.Tensor, enable=1.0) -> torch.Tensor:
+    """ColorJitter with given draws.
+
+    img [..., H, W, 3] in [0, 1]; factors [..., 4] = (brightness, contrast,
+    saturation, hue); order [..., 4] = op index (``BRIGHTNESS`` ..
+    ``HUE``) per slot; enable [...] or scalar gates each image as
+    ``out * enable + img * (1 - enable)``. Every op is computed for every
+    slot and the image's own is selected, which keeps a batch free of
+    per-sample control flow."""
+    out = img
+    for slot in range(4):
+        op = _per_image(order[..., slot], img)
+        cands = [fn(out, factors[..., k]) for k, fn in enumerate(_OPS)]
+        out = cands[HUE]
+        for k in (SATURATION, CONTRAST, BRIGHTNESS):
+            out = torch.where(op == k, cands[k], out)
+    e = _per_image(enable, img)
+    return out * e + img * (1.0 - e)
+
+
+def channel_pixel_noise(img: torch.Tensor, factors: torch.Tensor,
+                        enable=1.0) -> torch.Tensor:
+    """FreiHAND per-channel multiplicative noise (frei_dataloader.py:118,
+    142-144): factors [..., 3], gated as ``factors * enable + (1 -
+    enable)``, then clipped to [0, 1]."""
+    e = _per_image(enable, img, 1)
+    pn = factors * e + (1.0 - e)
+    return torch.clamp(img * pn[..., None, None, :], 0.0, 1.0)

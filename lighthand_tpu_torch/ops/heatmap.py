@@ -1,0 +1,57 @@
+"""MSRA Gaussian heatmap targets, plain PyTorch.
+
+Counterpart of ``lighthand_tpu/ops/heatmap.py:generate_target_batch``
+(reference ``src/tools/dataset.py:165-212``): mu = int(p/stride + 0.5),
+truncated toward zero; a 13x13 support |d| <= 3*sigma; the unnormalised
+Gaussian exp(-(dx^2+dy^2) / (2 sigma^2)); a joint whose window lies wholly
+outside the map gives a zero map. This is the plain twin of the CUDA
+kernel in ``ops/kernels/heatmap.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+HEATMAP_SIZE = 64
+FEAT_STRIDE = 4.0
+SIGMA = 2.0
+TMP_SIZE = 6  # = 3 * sigma; Gaussian support is (2*6+1)^2 = 13x13
+
+
+def pack_centers(joints: torch.Tensor, heatmap_size: int = HEATMAP_SIZE,
+                 stride: float = FEAT_STRIDE,
+                 sigma: float = SIGMA) -> torch.Tensor:
+    """[B, J, 2+] pixel joints -> int32 [B, J, 3] = (mu_x, mu_y, valid).
+
+    ``.to(int32)`` truncates toward zero like Python's ``int()``
+    (dataset.py:178-179); floor would differ for negative joints. A joint is
+    dropped iff ul >= H or br < 0 on either axis (dataset.py:181-185)."""
+    tmp = int(3 * sigma)
+    mu = (joints[..., :2].float() / stride + 0.5).to(torch.int32)
+    ul, br = mu - tmp, mu + tmp + 1
+    valid = ~((ul[..., 0] >= heatmap_size) | (ul[..., 1] >= heatmap_size)
+              | (br[..., 0] < 0) | (br[..., 1] < 0))
+    return torch.cat([mu, valid.to(torch.int32)[..., None]], dim=-1)
+
+
+def rasterize_centers(packed: torch.Tensor, heatmap_size: int = HEATMAP_SIZE,
+                      sigma: float = SIGMA) -> torch.Tensor:
+    """int32 [B, J, 3] packed centers -> f32 [B, J, H, H] targets."""
+    tmp = int(3 * sigma)
+    inv = 1.0 / (2.0 * sigma * sigma)
+    idx = torch.arange(heatmap_size, dtype=torch.int32, device=packed.device)
+    dx = idx[None, None, None, :] - packed[..., 0, None, None]
+    dy = idx[None, None, :, None] - packed[..., 1, None, None]
+    g = torch.exp(-(dx.float() ** 2 + dy.float() ** 2) * inv)
+    support = (dx.abs() <= tmp) & (dy.abs() <= tmp)
+    return g * support.float() * packed[..., 2, None, None].float()
+
+
+def generate_target_batch(joints: torch.Tensor,
+                          heatmap_size: int = HEATMAP_SIZE,
+                          stride: float = FEAT_STRIDE,
+                          sigma: float = SIGMA) -> torch.Tensor:
+    """[B, J, 2+] -> f32 [B, J, H, H]."""
+    return rasterize_centers(
+        pack_centers(joints, heatmap_size, stride, sigma), heatmap_size,
+        sigma)

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels (``csrc/``) that take the place of the JAX
+package's Pallas kernels, each with its wrapper and plain twin:
+
+- ``fused_aug.fused_aug_targets_cuda`` (K1) replaces
+  ``lighthand_tpu/ops/pallas/fused_aug.py:fused_aug_targets_pallas``;
+- ``heatmap.generate_target_batch_cuda`` (K2) replaces
+  ``lighthand_tpu/ops/pallas/heatmap.py:generate_target_batch_pallas``.
+"""

@@ -1,0 +1,159 @@
+"""K1: fused u8 -> augmented, normalised image + MSRA targets as a CUDA kernel
+(``csrc/fused_aug.cu``).
+
+Replaces ``lighthand_tpu/ops/pallas/fused_aug.py:fused_aug_targets_pallas``.
+As there, the random draws happen outside the kernel in a tiny ``[B, 12]``
+tensor (``draw_aug_params``) with the same packing:
+
+    0: jitter enable, 1-4: brightness/contrast/saturation/hue factors,
+    5-8: op index per order slot, 9-11: channel-noise factors (pre-gated)
+
+and the kernel is a deterministic function of (u8 image, params, joints).
+The kernel's note says what bounds it on the card and what its design does
+about it. ``fused_aug_targets_plain`` is its plain twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from lighthand_tpu_torch.ops.color import (
+    channel_pixel_noise,
+    color_jitter,
+    divide,
+    normalize_imagenet,
+)
+from lighthand_tpu_torch.ops.heatmap import (
+    FEAT_STRIDE,
+    HEATMAP_SIZE,
+    SIGMA,
+    pack_centers,
+    rasterize_centers,
+)
+from lighthand_tpu_torch.ops.kernels._build import library
+
+NUM_PARAMS = 12
+_TILE = 1024  # pixels per block of the partial-sum pass (kTile, fused_aug.cu)
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def draw_aug_params(generator: torch.Generator, aug_enabled: torch.Tensor,
+                    noise_enabled: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-sample jitter/noise draws, packed [B, 12] f32 on the generator's
+    device, in the ranges of ``fused_aug.py:171-185``: brightness, contrast,
+    saturation in [0.5, 1.5), hue in [-0.5, 0.5), a random permutation of
+    the 4 ops, noise in [0.6, 1.4) gated to 1.0 where ``noise_enabled`` is 0
+    (absent == all 0)."""
+    b = aug_enabled.shape[0]
+    dev = generator.device
+    u = torch.rand((b, 4), generator=generator, device=dev)
+    factors = torch.cat([0.5 + u[:, :3], u[:, 3:] - 0.5], dim=1)
+    order = torch.argsort(torch.rand((b, 4), generator=generator, device=dev),
+                          dim=1).float()
+    pn = 0.6 + 0.8 * torch.rand((b, 3), generator=generator, device=dev)
+    aug = aug_enabled.to(dev, torch.float32)[:, None]
+    if noise_enabled is not None:
+        noise = noise_enabled.to(dev, torch.float32)[:, None]
+        pn = pn * noise + (1.0 - noise)
+    else:
+        pn = torch.ones_like(pn)
+    return torch.cat([aug, factors, order, pn], dim=1)
+
+
+def _check(images_u8: torch.Tensor, joints: torch.Tensor,
+           params: torch.Tensor, out_dtype: torch.dtype) -> None:
+    if images_u8.dtype != torch.uint8 or images_u8.ndim != 4 \
+            or images_u8.shape[-1] != 3:
+        raise ValueError("images_u8 must be uint8 [B, H, W, 3], got "
+                         f"{images_u8.dtype} {tuple(images_u8.shape)}")
+    b = images_u8.shape[0]
+    if joints.ndim != 3 or joints.shape[0] != b or joints.shape[-1] < 2:
+        raise ValueError(f"joints must be [B, J, 2+], got {tuple(joints.shape)}")
+    if params.dtype != torch.float32 or tuple(params.shape) != (b, NUM_PARAMS):
+        raise ValueError(f"params must be f32 [B, {NUM_PARAMS}], got "
+                         f"{params.dtype} {tuple(params.shape)}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}")
+    devices = {images_u8.device, joints.device, params.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {devices}")
+
+
+def fused_aug_targets_plain(images_u8: torch.Tensor, joints: torch.Tensor,
+                            params: torch.Tensor,
+                            heatmap_size: int = HEATMAP_SIZE,
+                            stride: float = FEAT_STRIDE,
+                            sigma: float = SIGMA,
+                            out_dtype: torch.dtype = torch.bfloat16):
+    """The kernel's function in plain PyTorch: (images [B, H, W, 3] in
+    ``out_dtype``, targets f32 [B, J, hm, hm])."""
+    _check(images_u8, joints, params, out_dtype)
+    img = divide(images_u8.float(), 255.0)
+    img = color_jitter(img, params[:, 1:5], params[:, 5:9].to(torch.int32),
+                       enable=params[:, 0])
+    img = channel_pixel_noise(img, params[:, 9:12])
+    images = normalize_imagenet(img).to(out_dtype)
+    packed = pack_centers(joints, heatmap_size, stride, sigma)
+    return images, rasterize_centers(packed, heatmap_size, sigma)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = library("fused_aug")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lh_fused_aug_targets.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i,
+                                         i, ctypes.c_float, p]
+    lib.lh_fused_aug_targets.restype = i
+    return lib
+
+
+def fused_aug_targets_cuda(images_u8: torch.Tensor, joints: torch.Tensor,
+                           params: torch.Tensor,
+                           heatmap_size: int = HEATMAP_SIZE,
+                           stride: float = FEAT_STRIDE,
+                           sigma: float = SIGMA,
+                           out_dtype: torch.dtype = torch.bfloat16):
+    """(images NHWC [B, H, W, 3] in ``out_dtype``, targets f32
+    [B, J, hm, hm]) from a u8 NHWC batch, its joints in pixels and the
+    packed draws of ``draw_aug_params``.
+
+    On CUDA tensors this launches the kernel (or raises); on CPU tensors it
+    computes the plain twin. ``fused_aug_targets_cuda.launches`` counts the
+    kernel launches (one per call; the call is two CUDA launches)."""
+    _check(images_u8, joints, params, out_dtype)
+    if images_u8.device.type == "cpu":
+        return fused_aug_targets_plain(images_u8, joints, params,
+                                       heatmap_size, stride, sigma,
+                                       out_dtype)
+    if images_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {images_u8.device}")
+
+    images_u8 = images_u8.contiguous()
+    params = params.contiguous()
+    b, h, w, _ = images_u8.shape
+    j = joints.shape[1]
+    dev = images_u8.device
+    packed = pack_centers(joints, heatmap_size, stride, sigma).contiguous()
+    out = torch.empty((b, h, w, 3), dtype=out_dtype, device=dev)
+    targets = torch.empty((b, j, heatmap_size, heatmap_size),
+                          dtype=torch.float32, device=dev)
+    partial = torch.empty((b, -(-(h * w) // _TILE)), dtype=torch.float32,
+                          device=dev)
+    tmp = int(3 * sigma)
+    inv = 1.0 / (2.0 * sigma * sigma)
+    with torch.cuda.device(dev):
+        err = _lib().lh_fused_aug_targets(
+            images_u8.data_ptr(), params.data_ptr(), packed.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16),
+            targets.data_ptr(), partial.data_ptr(), b, h, w, j, heatmap_size,
+            tmp, inv, torch.cuda.current_stream().cuda_stream)
+        fused_aug_targets_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"fused_aug kernel launch failed: CUDA error {err}")
+    return out, targets
+
+
+fused_aug_targets_cuda.launches = 0

@@ -1,0 +1,309 @@
+"""The port's train/eval/predict steps against the JAX package's, and the
+port's package rules (device, imports).
+
+Both frameworks start from the same weights (JAX init -> hrnet_from_flax)
+and run on the CPU in f32 (hrnet_tiny, 64x64 input, 16x16 heatmaps), where
+the port's kernel wrappers take their plain twins.
+
+Train-step tolerances, measured (lr 1e-4, 4 samples, 3 calls):
+
+- loss: the first call agrees to ~5e-7 (scan 1) / 7e-6 (scan 2, a mean
+  over two steps), the later ones to 4e-4 / 1.1e-3. One Adam step moves
+  each param by about lr * sign(g), so a gradient near zero whose sign the
+  two frameworks' summation orders decide moves it by 2 lr instead of 0;
+  that noise compounds step by step. The bounds below are those figures
+  with a margin of ~5x.
+- params: per element within 2 * steps * lr (measured 3.8e-4 of 6e-4 for 3
+  steps, 6.2e-4 of 1.2e-3 for 6).
+- BatchNorm running stats follow the (noise-divergent) params: measured
+  max 1.2e-3 (3 steps) and 1.0e-2 (6 steps).
+
+A semantic slip (targets, normalize, loss scale, optimizer wiring, BN
+statistics) moves these by orders of magnitude more; lr 1e-3 would
+amplify the sign noise tenfold (1% loss gap by the third step).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
+from lighthand_tpu.models import get_model as jax_get_model
+from lighthand_tpu.train import create_train_state as jax_create_state
+from lighthand_tpu.train.step import (
+    make_eval_step as jax_eval_step,
+    make_fused_train_step as jax_fused_step,
+    make_predict_step as jax_predict_step,
+)
+from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.models import get_model
+from lighthand_tpu_torch.models.hrnet import HRNetCfg
+from lighthand_tpu_torch.train import (
+    cosine_lr,
+    create_train_state,
+    make_eval_step,
+    make_fused_train_step,
+    make_predict_step,
+    make_targets,
+    make_train_step,
+    set_learning_rate,
+)
+from lighthand_tpu_torch.utils.weights import hrnet_from_flax
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+LR = 1e-4
+T = torch.from_numpy
+
+
+def _pair(lr=LR):
+    """(JAX TrainState, port TrainState) holding the same hrnet_tiny."""
+    jmodel = jax_get_model("hrnet_tiny", policy=JaxPolicy.full_precision())
+    jstate = jax_create_state(jmodel, jax.random.PRNGKey(0),
+                              input_shape=(1, 64, 64, 3), lr=lr)
+    port = get_model("hrnet_tiny", policy=DTypePolicy.full_precision())
+    port.load_state_dict(hrnet_from_flax(_variables(jstate), HRNetCfg.tiny()))
+    return jstate, create_train_state(port, lr=lr, device="cpu")
+
+
+def _variables(jstate):
+    return jax.tree_util.tree_map(
+        lambda a: np.array(a, np.float32),
+        {"params": jstate.params, "batch_stats": jstate.batch_stats})
+
+
+# loss rtol per call, param atol, running-stat atol
+_TOL = {1: ((1e-5, 2e-3, 2e-3), 2 * 3 * LR, 5e-3),
+        2: ((5e-5, 5e-3, 5e-3), 2 * 6 * LR, 3e-2)}
+
+
+@pytest.mark.parametrize("scan_steps", [1, 2])
+def test_fused_train_step_matches_jax(scan_steps):
+    jstate, pstate = _pair()
+    rng = np.random.default_rng(1)
+    lead = (scan_steps,) if scan_steps > 1 else ()
+    images = rng.integers(0, 256, size=lead + (4, 64, 64, 3), dtype=np.uint8)
+    joints = rng.uniform(8, 56, size=lead + (4, 21, 2)).astype(np.float32)
+    off = np.zeros(lead + (4,), np.float32)  # aug and noise off
+    jstep = jax_fused_step(heatmap_size=16, stride=4.0, jitter=True,
+                           scan_steps=scan_steps, compute_dtype=jnp.float32,
+                           use_pallas_aug=False)
+    pstep = make_fused_train_step(heatmap_size=16, scan_steps=scan_steps,
+                                  compute_dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    loss_rtol, param_atol, stat_atol = _TOL[scan_steps]
+    for i, rtol in enumerate(loss_rtol):
+        jstate, jm = jstep(jstate, jax.random.PRNGKey(i),
+                           {"image_u8": jnp.asarray(images),
+                            "joints": jnp.asarray(joints),
+                            "aug_enabled": jnp.asarray(off)})
+        pstate, pm = pstep(pstate, gen, {"image_u8": T(images),
+                                         "joints": T(joints),
+                                         "aug_enabled": T(off),
+                                         "noise_enabled": T(off)})
+        np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                                   rtol=rtol, err_msg=f"call {i}")
+    assert pstate.step == 3 * scan_steps
+
+    want = hrnet_from_flax(_variables(jstate), HRNetCfg.tiny())
+    got = pstate.model.state_dict()
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        stat = k.endswith(("running_mean", "running_var"))
+        np.testing.assert_allclose(
+            got[k].numpy(), w.numpy(), rtol=0,
+            atol=stat_atol if stat else param_atol, err_msg=k)
+
+
+def test_train_step_is_the_fused_step_without_aug():
+    """make_train_step (normalised float images, targets from make_targets)
+    is the fused step fed the same pixels with aug and noise off."""
+    plain_state, fused_state = (
+        create_train_state(get_model("hrnet_tiny", policy=DTypePolicy
+                                     .full_precision()),
+                           torch.Generator().manual_seed(0), lr=LR,
+                           device="cpu") for _ in range(2))
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, size=(4, 64, 64, 3), dtype=np.uint8)
+    joints = T(rng.uniform(8, 56, size=(4, 21, 2)).astype(np.float32))
+    from lighthand_tpu_torch.ops.color import normalize_imagenet
+
+    plain = make_train_step(heatmap_size=16, device="cpu")
+    fused = make_fused_train_step(heatmap_size=16,
+                                  compute_dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        plain_state, pm = plain(plain_state, {
+            "image": normalize_imagenet(T(images).float() / 255.0),
+            "joints": joints})
+        fused_state, fm = fused(fused_state, gen, {
+            "image_u8": T(images), "joints": joints,
+            "aug_enabled": torch.zeros(4)})
+        assert float(pm["loss"]) == float(fm["loss"])
+
+
+def _eval_batch(cols):
+    rng = np.random.default_rng(3 + cols)
+    joints = rng.uniform(8, 56, size=(6, 21, cols)).astype(np.float32)
+    if cols == 3:
+        joints[..., 2] = rng.integers(0, 2, size=(6, 21))
+    return {"image": rng.normal(size=(6, 64, 64, 3)).astype(np.float32),
+            "joints": joints,
+            "valid": np.array([1, 1, 1, 1, 0, 0], np.float32)}
+
+
+def _jax_state_returning(jstate, pred_nchw):
+    """The JAX state with its model replaced by the port's heatmaps, so the
+    decode and metrics compare exactly; the forward itself is held to the
+    JAX forward in tests/test_torch_models.py. (A random-init net has
+    near-tied maxima: a last-ulp forward difference could move an argmax.)"""
+    pred = jnp.asarray(np.transpose(pred_nchw, (0, 2, 3, 1)))
+    return jstate.replace(apply_fn=lambda variables, x, train=False: pred)
+
+
+def _port_pred(pstate, images):
+    pstate.model.eval()
+    with torch.no_grad():
+        return pstate.model(T(images).permute(0, 3, 1, 2)).numpy()
+
+
+@pytest.mark.parametrize("cols", [2, 3])
+def test_eval_step_matches_jax(cols):
+    jstate, pstate = _pair()
+    batch = _eval_batch(cols)
+    got = make_eval_step(heatmap_size=16, device="cpu")(
+        pstate, {k: T(v) for k, v in batch.items()})
+    pred = _port_pred(pstate, batch["image"])
+    want = jax_eval_step(heatmap_size=16, stride=4.0)(
+        _jax_state_returning(jstate, pred),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["pred_joints"].numpy(),
+                                  np.asarray(want["pred_joints"]))
+    assert float(got["n_valid"]) == 4.0
+    for k in ("pck_sum", "pck_count", "epe_count", "n_valid"):
+        assert float(got[k]) == float(want[k]), k
+    for k in ("loss", "loss_sum", "pck", "epe_sum"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_predict_step_matches_jax():
+    jstate, pstate = _pair()
+    images = _eval_batch(2)["image"]
+    got_j, got_v = make_predict_step(device="cpu")(pstate, T(images))
+    want_j, want_v = jax_predict_step(stride=4.0)(
+        _jax_state_returning(jstate, _port_pred(pstate, images)),
+        jnp.asarray(images))
+    np.testing.assert_array_equal(got_j.numpy(), np.asarray(want_j))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+# ----------------------------------------------------------- package rules
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: create_train_state(get_model("hrnet_tiny")),
+    make_fused_train_step, make_train_step, make_eval_step,
+    make_predict_step,
+], ids=["create_train_state", "make_fused_train_step", "make_train_step",
+        "make_eval_step", "make_predict_step"])
+def test_entry_point_without_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _port_files():
+    return sorted((REPO / "lighthand_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "flax", "optax",
+                                    "lighthand_tpu"), (path, name)
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "lighthand_tpu_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import importlib\n"
+            f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'lighthand_tpu')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("style,exc", [("max", NotImplementedError),
+                                       ("per_sample", NotImplementedError),
+                                       ("gaussian", ValueError)])
+def test_unported_target_styles_raise(style, exc):
+    with pytest.raises(exc):
+        make_targets(torch.zeros(1, 21, 2), style=style)
+    with pytest.raises(exc):
+        make_eval_step(target_style=style, device="cpu")
+    with pytest.raises(exc):
+        make_fused_train_step(target_style=style, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"flip": True}, {"rot_deg": 15.0}])
+def test_unported_affine_augmentations_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_fused_train_step(device="cpu", **kw)
+
+
+def test_fused_step_checks_scan_leading_dim():
+    _, pstate = _pair()
+    step = make_fused_train_step(heatmap_size=16, scan_steps=2, device="cpu")
+    batch = {"image_u8": torch.zeros(3, 2, 64, 64, 3, dtype=torch.uint8),
+             "joints": torch.zeros(3, 2, 21, 2),
+             "aug_enabled": torch.zeros(3, 2)}
+    with pytest.raises(ValueError, match="scan_steps"):
+        step(pstate, torch.Generator(), batch)
+
+
+def test_cosine_lr_and_set_learning_rate():
+    assert cosine_lr(1e-3, 0, 100) == 1e-3
+    assert abs(cosine_lr(1e-3, 100, 100)) < 1e-12
+    assert abs(cosine_lr(1e-3, 50, 100) - 5e-4) < 1e-12
+    state = create_train_state(get_model("hrnet_tiny"),
+                               torch.Generator().manual_seed(0), lr=1e-3,
+                               device="cpu")
+    set_learning_rate(state, 1e-5)
+    assert [g["lr"] for g in state.optimizer.param_groups] == [1e-5]
+
+
+def test_create_train_state_seeded_init_is_reproducible():
+    a = create_train_state(get_model("hrnet_tiny"),
+                           torch.Generator().manual_seed(4), device="cpu")
+    b = create_train_state(get_model("hrnet_tiny"),
+                           torch.Generator().manual_seed(4), device="cpu")
+    for (k, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=k)
+    w = a.model.conv2.weight  # torch default init: U(+-1/sqrt(fan_in))
+    assert w.abs().max() <= 1 / np.sqrt(64 * 9) and w.std() > 0
