@@ -7,13 +7,23 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    both CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc;
-2. K2 (heatmap targets) against its plain twin, B=128 and B=32, atol 1e-5;
-3. K1 (fused aug + targets) against its plain twin at B=128 and B=32,
+2. K2 (heatmap targets) against its plain twin, B=128 and B=32, atol 1e-5,
+   and one ragged case: B=5, hm=50 (scalar stores), stride 3.0, joints a
+   [B, J, 3] tensor read through its strides;
+3. K1's division in normalize (reciprocal and one correction) against IEEE
+   division for every numerator it can get, which must give 0 mismatches;
+   K1 (fused aug + targets) against its plain twin at B=128 and B=32,
    256x256: targets within 1e-5; the f32 variant within 1e-5 (the mean of
    each image is summed in another order); the bf16 image equal on
    >= 99.9 % of elements and within max(1 bf16 ulp of the value, 1e-5)
    everywhere: below |value| = 2^-10 a bf16 ulp is finer than the f32
-   agreement of the two computations;
+   agreement of the two computations. Ragged cases under the same
+   tolerances: B=3 at 97x131 (unaligned rows, masked tails), hm=50,
+   stride 3.0, [B, J, 3] joints and op indices outside [0, 3] (clamped,
+   contrast in two slots); B=2 at 300x300 (16 blocks of 704 threads, one
+   block to an SM, where 256x256 runs 16 blocks of 512); and B=2 at 16x16
+   with 40 joints (one block quantising more maps than it keeps in shared
+   memory);
 4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
    ``make_fused_train_step`` for 3 steps; K1 must launch 3 times and every
    loss be finite;
@@ -23,10 +33,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 6. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
-7. kernel times (CUDA events, median of 25 after 5 warm-up calls) beside
-   their plain twins' and their bounds, at the main path's batch (32) and
-   at the bench's (128); the B=128 figures make the ``{"kernels": ...}``
-   JSON line. The last line is the ok line.
+7. kernel times beside their plain twins' and their bounds, at the main
+   path's batch (32) and at the bench's (128): the eager call time (CUDA
+   events around 20 back-to-back calls, over 20) and the device time (the
+   call captured once in a CUDA graph and replayed 20 times between two
+   events, or the profiler's kernel time where capture refuses it); at
+   B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
+   by a 128 MB write before each call. The B=128 figures make the
+   ``{"kernels": ...}`` JSON line. The last line is the ok line.
 
 Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
@@ -79,21 +93,94 @@ def bound_ms(nbytes: float, ops: float, name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, warmup: int = 5, reps: int = 25) -> float:
+def _events():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def eager_ms(fn, calls: int = 20, warmup: int = 5) -> float:
+    """Events around ``calls`` back-to-back calls, over ``calls``: launch
+    cost and device time together, as a caller sees them."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    start, end = _events()
+    start.record()
+    for _ in range(calls):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def capture(fn):
+    """``fn`` captured once in a CUDA graph after a warm-up on a side
+    stream, or None (with the reason printed) where capture refuses it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as exc:
+        print(f"note: CUDA graph capture refused: {exc}")
+        return None
+    return graph
+
+
+def device_ms(fn, graph, calls: int = 20):
+    """(ms per call on the device, how it was measured): graph replays
+    between two events, or the profiler's summed kernel time."""
+    import torch
+
+    if graph is not None:
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = _events()
+        start.record()
+        for _ in range(calls):
+            graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / calls, "cuda graph"
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / calls, "profiler"
+
+
+def flushed_ms(run, flush, calls: int = 20) -> float:
+    """Mean of ``calls`` calls of ``run``, each timed by its own events
+    after ``flush`` has evicted the L2 cache."""
+    import torch
+
+    run()
+    pairs = []
+    for _ in range(calls):
+        flush()
+        start, end = _events()
+        start.record()
+        run()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / calls
 
 
 def bf16_ulp(x):
@@ -103,20 +190,24 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def k1_inputs(b: int, seed: int):
-    """u8 images, joints and packed draws: the first half of the batch has
+def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
+              cols: int = 2, order=None, njoints: int = JOINTS):
+    """u8 images, joints and packed draws: the first half of the batch (its
+    larger half) has
     jitter on, every 4th sample noise on, and sample i takes the i-th of
-    the 24 op orders, so every op sits in every slot (hue before contrast
-    included) among the jittered samples."""
+    the 24 op orders (or row i of ``order``), so every op sits in every
+    slot (hue before contrast included) among the jittered samples."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, size=(b, SIZE, SIZE, 3), dtype=np.uint8)
-    joints = rng.uniform(-40, SIZE + 40, size=(b, JOINTS, 2))
+    images = rng.integers(0, 256, size=(b, h, w, 3), dtype=np.uint8)
+    joints = rng.uniform(-40, max(h, w) + 40, size=(b, njoints, cols))
     perms = list(itertools.permutations(range(4)))
-    order = np.array([perms[i % 24] for i in range(b)], np.float32)
-    aug = (np.arange(b) < b // 2).astype(np.float32)
+    if order is None:
+        order = [perms[i % 24] for i in range(b)]
+    order = np.array(order, np.float32)
+    aug = (np.arange(b) < (b + 1) // 2).astype(np.float32)
     noise = (np.arange(b) % 4 == 1).astype(np.float32)
     pn = rng.uniform(0.6, 1.4, (b, 3)) * noise[:, None] + (1 - noise[:, None])
     params = np.concatenate([aug[:, None], rng.uniform(0.5, 1.5, (b, 3)),
@@ -141,6 +232,7 @@ def main() -> int:
     from lighthand_tpu_torch.ops.heatmap import generate_target_batch
     from lighthand_tpu_torch.ops.kernels import _build
     from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        count_div_mismatches,
         fused_aug_targets_cuda,
         fused_aug_targets_plain,
     )
@@ -178,49 +270,70 @@ def main() -> int:
     # 2. K2 against its plain twin -----------------------------------------
     rng = np.random.default_rng(0)
     k2_err = 0.0
-    for b in (B_KERNEL, B_TRAIN):
-        joints = torch.from_numpy(rng.uniform(-40, 300, size=(b, JOINTS, 2))
+    for b, hm, stride, cols in ((B_KERNEL, HM, 4.0, 2), (B_TRAIN, HM, 4.0, 2),
+                                (5, 50, 3.0, 3)):
+        joints = torch.from_numpy(rng.uniform(-40, 300, size=(b, JOINTS, cols))
                                   .astype(np.float32)).to(dev)
-        got = generate_target_batch_cuda(joints)
-        want = generate_target_batch(joints)
+        got = generate_target_batch_cuda(joints, hm, stride)
+        want = generate_target_batch(joints, hm, stride)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        print(f"[K2] B={b}: max|kernel - plain| = {err:.3g} (atol 1e-5)")
+        print(f"[K2] B={b} hm={hm} stride={stride} joints [B, J, {cols}]: "
+              f"max|kernel - plain| = {err:.3g} (atol 1e-5)")
         if got.shape != want.shape or not err <= 1e-5:
-            fail(f"K2 disagrees with its plain twin at B={b}: {err}")
+            fail(f"K2 disagrees with its plain twin at B={b}, hm={hm}: {err}")
         k2_err = max(k2_err, err)
 
     # 3. K1 against its plain twin -----------------------------------------
+    mismatches = count_div_mismatches(dev)
+    print(f"[K1] normalize's division: {mismatches} of its 3 x "
+          "1,065,353,217 numerators differ from IEEE division")
+    if mismatches:
+        fail("K1's constant division differs from IEEE division")
     k1_err = 0.0
-    for b, seed in ((B_KERNEL, 1), (B_TRAIN, 2)):
-        images, joints, params = k1_inputs(b, seed)
-        got_img, got_hm = fused_aug_targets_cuda(images, joints, params)
-        want_img, want_hm = fused_aug_targets_plain(images, joints, params)
+    ragged_order = [[-1, 5, 1, 1], [1, 2, 5, 1], [3, 0, 2, 1]]
+    k1_cases = (
+        # (B, seed, H, W, joint columns, op orders, hm, stride, joints)
+        (B_KERNEL, 1, SIZE, SIZE, 2, None, HM, 4.0, JOINTS),
+        (B_TRAIN, 2, SIZE, SIZE, 2, None, HM, 4.0, JOINTS),
+        (3, 5, 97, 131, 3, ragged_order, 50, 3.0, JOINTS),
+        (2, 6, 300, 300, 2, None, HM, 4.0, JOINTS),
+        (2, 7, 16, 16, 2, None, 16, 1.0, 40),  # one block, 40 maps
+    )
+    for b, seed, h, w, cols, order, hm, stride, nj in k1_cases:
+        images, joints, params = k1_inputs(b, seed, h, w, cols, order, nj)
+        kw = {"heatmap_size": hm, "stride": stride}
+        got_img, got_hm = fused_aug_targets_cuda(images, joints, params, **kw)
+        want_img, want_hm = fused_aug_targets_plain(images, joints, params,
+                                                    **kw)
         torch.cuda.synchronize()
-        g, w = got_img.float(), want_img.float()
-        diff = (g - w).abs()
-        ulp = bf16_ulp(w)
+        g, w_ = got_img.float(), want_img.float()
+        diff = (g - w_).abs()
+        ulp = bf16_ulp(w_)
         fine = ulp < F32_ATOL
         ulps = float((diff / ulp * ~fine).max())
         near0 = float((diff * fine).max())
         equal = float((diff == 0).float().mean())
         hm_err = float((got_hm - want_hm).abs().max())
-        print(f"[K1] B={b} bf16: max|diff| {float(diff.max()):.3g}, "
+        tag = f"B={b} {h}x{w} hm={hm} J={nj}"
+        print(f"[K1] {tag} bf16: max|diff| {float(diff.max()):.3g}, "
               f"{ulps:.3g} ulp where a ulp >= {F32_ATOL:g}, {near0:.3g} "
               f"below; equal {100 * equal:.4f} %; targets {hm_err:.3g}")
-        if not (ulps <= 1.0 and near0 <= F32_ATOL and equal >= 0.999
-                and hm_err <= 1e-5):
-            fail(f"K1 disagrees with its plain twin at B={b}")
+        if not (got_img.shape == want_img.shape and ulps <= 1.0
+                and near0 <= F32_ATOL and equal >= 0.999 and hm_err <= 1e-5):
+            fail(f"K1 disagrees with its plain twin at {tag}")
         k1_err = max(k1_err, float(diff.max()), hm_err)
-        if b == B_TRAIN:
+        if b != B_KERNEL:
             got32, _ = fused_aug_targets_cuda(images, joints, params,
-                                              out_dtype=torch.float32)
+                                              out_dtype=torch.float32, **kw)
             want32, _ = fused_aug_targets_plain(images, joints, params,
-                                                out_dtype=torch.float32)
+                                                out_dtype=torch.float32, **kw)
             err32 = float((got32 - want32).abs().max())
-            print(f"[K1] B={b} f32: max|diff| {err32:.3g} (atol {F32_ATOL:g})")
+            print(f"[K1] {tag} f32: max|diff| {err32:.3g} "
+                  f"(atol {F32_ATOL:g})")
             if not err32 <= F32_ATOL:
-                fail(f"K1 f32 variant disagrees with its plain twin: {err32}")
+                fail(f"K1 f32 variant disagrees with its plain twin at {tag}: "
+                     f"{err32}")
 
     # 4. main path: train ---------------------------------------------------
     rng = np.random.default_rng(3)
@@ -333,21 +446,34 @@ def main() -> int:
         )
 
     errs = {"fused_aug_targets": k1_err, "heatmap_targets": k2_err}
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for b, seed in ((B_TRAIN, 2), (B_KERNEL, 1)):
         for name, src, replaces, fn, plain, nbytes, ops in cases(b, seed):
-            ms, plain_ms = time_ms(fn), time_ms(plain)
+            ms, plain_ms = eager_ms(fn), eager_ms(plain)
+            graph = capture(fn)
+            dev_ms, how = device_ms(fn, graph)
             bound, by = bound_ms(nbytes, ops, kind)
-            print(f"[{name}] B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms, bound {bound * 1e3:.2f} us by {by} ("
-                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
-                  f"{100 * bound / ms:.1f} % of bound")
+            print(f"[{name}] B={b}: eager {ms:.4f} ms/call, device {dev_ms:.4f}"
+                  f" ms ({how}), plain {plain_ms:.4f} ms, bound "
+                  f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} Gop), {100 * bound / dev_ms:.1f} % of "
+                  f"bound on device time")
+            if b == B_TRAIN:
+                cold = flushed_ms(fn, flush_buf.zero_)
+                cold_dev = ("not measured (no graph)" if graph is None else
+                            f"{flushed_ms(graph.replay, flush_buf.zero_):.4f}"
+                            " ms (cuda graph)")
+                print(f"[{name}] B={b}, L2 flushed before each call: eager "
+                      f"{cold:.4f} ms, device {cold_dev}")
+            del graph
             if b == B_KERNEL:
                 rows.append({
                     "name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+                    "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

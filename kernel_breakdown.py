@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Where the port's two CUDA kernels spend their time, on one NVIDIA GPU.
+
+    python3 kernel_breakdown.py                 # this checkout's kernels
+    python3 kernel_breakdown.py --root DIR      # the kernels of another
+                                                # checkout (e.g. a parent
+                                                # commit unpacked in DIR)
+
+Times K1 (fused aug + targets) and K2 (heatmap targets) at B=32 and B=128,
+256x256, with the inputs and timing of ``chip_smoke.py`` phase 7: the eager
+call time (events around 20 back-to-back calls) and the device time (the
+call captured in a CUDA graph and replayed 20 times). Then K1 at B=128 in
+bf16 under op mixes that isolate its parts: jitter off (load, noise,
+normalize, store, targets), each op four times in every sample, every
+sample jittered with the 24 op orders, and the smoke's mix. It prints the
+ptxas report and, where ``cuobjdump`` is found, K1's SASS instruction and
+division (MUFU.RCP) counts. The last line is one JSON object with every
+number. Without a card it exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+MIXES = {  # name: (enable, op order or None for the 24 orders)
+    "jitter off": (0.0, None),
+    "brightness x4": (1.0, [0, 0, 0, 0]),
+    "saturation x4": (1.0, [2, 2, 2, 2]),
+    "hue x4": (1.0, [3, 3, 3, 3]),
+    "contrast x4": (1.0, [1, 1, 1, 1]),
+    "24 orders, all jittered": (1.0, None),
+}
+
+
+def sass_counts(lib_path: str):
+    """{kernel: [instructions, MUFU.RCP]} of K1's library (its bf16 and f32
+    variants and the division check) from cuobjdump, or None."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = ("division check" if "div_mismatch" in m.group(1)
+                    else "bf16" if "bfloat16" in m.group(1) else "f32")
+            counts[name] = [0, 0]
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name][0] += 1
+            counts[name][1] += "MUFU.RCP" in line
+    return counts
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout whose lighthand_tpu_torch to time")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_breakdown: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    from lighthand_tpu_torch.ops.kernels import _build
+    from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        fused_aug_targets_cuda,
+    )
+    from lighthand_tpu_torch.ops.kernels.heatmap import (
+        generate_target_batch_cuda,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    root = args.root or "."
+    print(f"{smi.splitlines()[0] if smi else kind}; kernels of {root}")
+    for name, log in sorted(_build.build_all().items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}")
+    result = {"root": root, "device": kind, "smi": smi, "times": {},
+              "mixes": {},
+              "sass": sass_counts(str(_build.library_path("fused_aug")))}
+    print(f"[sass] K1 library [instructions, MUFU.RCP]: {result['sass']}")
+
+    def times(fn):
+        eager = cs.eager_ms(fn)
+        dev_ms, how = cs.device_ms(fn, cs.capture(fn))
+        return eager, dev_ms, how
+
+    for b, seed in ((cs.B_TRAIN, 2), (cs.B_KERNEL, 1)):
+        images, joints, params = cs.k1_inputs(b, seed)
+        for name, fn in (
+                ("fused_aug_targets",
+                 lambda: fused_aug_targets_cuda(images, joints, params)),
+                ("heatmap_targets",
+                 lambda: generate_target_batch_cuda(joints))):
+            eager, dev_ms, how = times(fn)
+            result["times"][f"{name} B={b}"] = {"eager_ms": eager,
+                                                "device_ms": dev_ms,
+                                                "how": how}
+            print(f"[{name}] B={b}: eager {eager:.4f} ms/call, device "
+                  f"{dev_ms:.4f} ms ({how})")
+        if b == cs.B_KERNEL:
+            for mix, (enable, order) in MIXES.items():
+                p = params.clone()
+                p[:, 0] = enable
+                if order is not None:
+                    p[:, 5:9] = torch.tensor(order, dtype=torch.float32,
+                                             device=p.device)
+                _, dev_ms, how = times(
+                    lambda: fused_aug_targets_cuda(images, joints, p))
+                result["mixes"][mix] = dev_ms
+                print(f"[K1 mix] B={b} {mix}: device {dev_ms:.4f} ms ({how})")
+            result["mixes"]["smoke mix"] = \
+                result["times"][f"fused_aug_targets B={b}"]["device_ms"]
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -114,10 +114,12 @@ def color_jitter(img: torch.Tensor, factors: torch.Tensor,
 
     img [..., H, W, 3] in [0, 1]; factors [..., 4] = (brightness, contrast,
     saturation, hue); order [..., 4] = op index (``BRIGHTNESS`` ..
-    ``HUE``) per slot; enable [...] or scalar gates each image as
+    ``HUE``) per slot, clamped to that range as ``lax.switch`` clamps it in
+    the JAX kernel; enable [...] or scalar gates each image as
     ``out * enable + img * (1 - enable)``. Every op is computed for every
     slot and the image's own is selected, which keeps a batch free of
     per-sample control flow."""
+    order = order.clamp(BRIGHTNESS, HUE)
     out = img
     for slot in range(4):
         op = _per_image(order[..., slot], img)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from lighthand_tpu_torch.ops.color import divide
+
 HEATMAP_SIZE = 64
 FEAT_STRIDE = 4.0
 SIGMA = 2.0
@@ -25,9 +27,11 @@ def pack_centers(joints: torch.Tensor, heatmap_size: int = HEATMAP_SIZE,
 
     ``.to(int32)`` truncates toward zero like Python's ``int()``
     (dataset.py:178-179); floor would differ for negative joints. A joint is
-    dropped iff ul >= H or br < 0 on either axis (dataset.py:181-185)."""
+    dropped iff ul >= H or br < 0 on either axis (dataset.py:181-185).
+    The division is a true division on every device, as in the kernels
+    (``ops/color.py:divide``)."""
     tmp = int(3 * sigma)
-    mu = (joints[..., :2].float() / stride + 0.5).to(torch.int32)
+    mu = (divide(joints[..., :2].float(), stride) + 0.5).to(torch.int32)
     ul, br = mu - tmp, mu + tmp + 1
     valid = ~((ul[..., 0] >= heatmap_size) | (ul[..., 1] >= heatmap_size)
               | (br[..., 0] < 0) | (br[..., 1] < 0))

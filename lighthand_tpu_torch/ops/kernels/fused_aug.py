@@ -6,7 +6,8 @@ As there, the random draws happen outside the kernel in a tiny ``[B, 12]``
 tensor (``draw_aug_params``) with the same packing:
 
     0: jitter enable, 1-4: brightness/contrast/saturation/hue factors,
-    5-8: op index per order slot, 9-11: channel-noise factors (pre-gated)
+    5-8: op index per order slot (clamped to [0, 3], as ``lax.switch``
+         clamps it), 9-11: channel-noise factors (pre-gated)
 
 and the kernel is a deterministic function of (u8 image, params, joints).
 The kernel's note says what bounds it on the card and what its design does
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +38,45 @@ from lighthand_tpu_torch.ops.heatmap import (
 from lighthand_tpu_torch.ops.kernels._build import library
 
 NUM_PARAMS = 12
-_TILE = 1024  # pixels per block of the partial-sum pass (kTile, fused_aug.cu)
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+# The kernel's constants (kPx, kMaxThreads, kMaxCluster in fused_aug.cu). A
+# cluster above 8 blocks needs the non-portable attribute, which the kernel
+# sets; K1 uses no dynamic shared memory.
+PX_PER_THREAD = 8
+MAX_THREADS = 1024
+MAX_CLUSTER = 16
+# Blocks of up to this many threads fit twice on an SM (64 registers a
+# thread), so one image's loads and stores overlap another's arithmetic.
+SHARED_SM_THREADS = 512
+MAX_BATCH = 65535  # gridDim.y
+
+
+class Geometry(NamedTuple):
+    """One cluster of ``cluster`` blocks of ``threads`` threads per image;
+    thread t of block r holds pixels [8 (r threads + t), + 8)."""
+    cluster: int
+    threads: int
+
+
+def launch_geometry(height: int, width: int) -> Geometry:
+    """K1's launch for one ``height`` x ``width`` image: the smallest
+    power-of-two cluster whose blocks of at most ``SHARED_SM_THREADS``
+    threads hold every pixel, or, past 16 such blocks, 16 blocks of up to
+    ``MAX_THREADS``; the threads are spread evenly over the blocks
+    (256x256: 16 blocks of 512). Raises for an image above
+    ``MAX_CLUSTER * MAX_THREADS * PX_PER_THREAD`` pixels."""
+    groups = -(-(height * width) // PX_PER_THREAD)
+    cluster = 1
+    while cluster < MAX_CLUSTER and -(-groups // cluster) > SHARED_SM_THREADS:
+        cluster *= 2
+    per_block = -(-groups // cluster)
+    threads = max(32, -(-per_block // 32) * 32)
+    if threads > MAX_THREADS:
+        raise ValueError(
+            f"a {height}x{width} image exceeds the kernel's "
+            f"{MAX_CLUSTER * MAX_THREADS * PX_PER_THREAD} pixels per image")
+    return Geometry(cluster, threads)
 
 
 def draw_aug_params(generator: torch.Generator, aug_enabled: torch.Tensor,
@@ -104,10 +143,26 @@ def fused_aug_targets_plain(images_u8: torch.Tensor, joints: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = library("fused_aug")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lh_fused_aug_targets.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i,
-                                         i, ctypes.c_float, p]
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.lh_fused_aug_targets.argtypes = [p, p, p, ll, ll, p, i, p, i, i, i, i,
+                                         i, i, f, f, i, i, p]
     lib.lh_fused_aug_targets.restype = i
+    lib.lh_count_div_mismatches.argtypes = [p, p]
+    lib.lh_count_div_mismatches.restype = i
     return lib
+
+
+def count_div_mismatches(device: torch.device) -> int:
+    """How many of normalize's numerators (x - mean_c for every f32 x in
+    [0, 1], each channel) get other bits from K1's reciprocal-and-correction
+    division than from IEEE division, on the card. K1 relies on 0."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _lib().lh_count_div_mismatches(
+            bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"division check launch failed: CUDA error {err}")
+    return int(bad.item())
 
 
 def fused_aug_targets_cuda(images_u8: torch.Tensor, joints: torch.Tensor,
@@ -122,7 +177,9 @@ def fused_aug_targets_cuda(images_u8: torch.Tensor, joints: torch.Tensor,
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     computes the plain twin. ``fused_aug_targets_cuda.launches`` counts the
-    kernel launches (one per call; the call is two CUDA launches)."""
+    kernel launches: one per call, and no other CUDA work besides the two
+    output allocations (a copy only for joints that are not f32 with a
+    unit last stride)."""
     _check(images_u8, joints, params, out_dtype)
     if images_u8.device.type == "cpu":
         return fused_aug_targets_plain(images_u8, joints, params,
@@ -131,25 +188,28 @@ def fused_aug_targets_cuda(images_u8: torch.Tensor, joints: torch.Tensor,
     if images_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {images_u8.device}")
 
+    b, h, w, _ = images_u8.shape
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} exceeds the kernel's {MAX_BATCH}")
+    geo = launch_geometry(h, w)
     images_u8 = images_u8.contiguous()
     params = params.contiguous()
-    b, h, w, _ = images_u8.shape
+    if joints.dtype != torch.float32 or joints.stride(-1) != 1:
+        joints = joints[..., :2].float().contiguous()
     j = joints.shape[1]
     dev = images_u8.device
-    packed = pack_centers(joints, heatmap_size, stride, sigma).contiguous()
     out = torch.empty((b, h, w, 3), dtype=out_dtype, device=dev)
     targets = torch.empty((b, j, heatmap_size, heatmap_size),
                           dtype=torch.float32, device=dev)
-    partial = torch.empty((b, -(-(h * w) // _TILE)), dtype=torch.float32,
-                          device=dev)
     tmp = int(3 * sigma)
     inv = 1.0 / (2.0 * sigma * sigma)
     with torch.cuda.device(dev):
         err = _lib().lh_fused_aug_targets(
-            images_u8.data_ptr(), params.data_ptr(), packed.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16),
-            targets.data_ptr(), partial.data_ptr(), b, h, w, j, heatmap_size,
-            tmp, inv, torch.cuda.current_stream().cuda_stream)
+            images_u8.data_ptr(), params.data_ptr(), joints.data_ptr(),
+            joints.stride(0), joints.stride(1), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), targets.data_ptr(), b, h, w, j,
+            heatmap_size, tmp, inv, stride, geo.cluster, geo.threads,
+            torch.cuda.current_stream().cuda_stream)
         fused_aug_targets_cuda.launches += 1
     if err:
         raise RuntimeError(f"fused_aug kernel launch failed: CUDA error {err}")

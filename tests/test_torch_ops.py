@@ -67,6 +67,25 @@ def test_pack_centers_truncates_toward_zero():
     np.testing.assert_array_equal(packed[0, :, 2].numpy(), [1, 1, 1])
 
 
+def test_stride_3_targets_match_jax():
+    """At stride 3 a reciprocal multiply would quantise 241.49998 to 81;
+    the twin divides, as the JAX package and the kernels do, and gives 80."""
+    rng = np.random.default_rng(5)
+    joints = rng.uniform(-40, 300, size=(3, 21, 2)).astype(np.float32)
+    joints[0, :4] = [[241.49998, 4.5], [1.5, 241.49998], [-1.5, 7.5],
+                     [190.5, -19.5]]
+    got = heatmap.generate_target_batch(T(joints), 64, 3.0, 2.0).numpy()
+    want = np.asarray(jax_targets(jnp.asarray(joints), heatmap_size=64,
+                                  stride=3.0, sigma=2.0))
+    pallas = np.asarray(generate_target_batch_pallas(
+        jnp.asarray(joints), heatmap_size=64, stride=3.0, sigma=2.0,
+        interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+    packed = heatmap.pack_centers(T(joints), 64, 3.0, 2.0)
+    assert packed[0, 0, 0] == 80 and packed[0, 1, 1] == 80
+
+
 def test_heatmap_wrapper_on_cpu_is_the_plain_twin():
     joints = T(np.random.default_rng(3).uniform(
         -40, 300, size=(2, 21, 3)).astype(np.float32))
@@ -212,6 +231,12 @@ _ORDER_CASES = {
                  [1, 1, 1, 0], [1, 0, 1, 1]),
     "orders_b": ([[3, 2, 1, 0], [1, 0, 3, 2], [0, 3, 2, 1], [2, 0, 1, 3]],
                  [1, 0, 1, 1], [0, 1, 1, 0]),
+    # indices outside [0, 3]: lax.switch clamps -1 to brightness and 5 to
+    # hue; clamping can put contrast in two slots (two image means)
+    "clamped_a": ([[-1, 5, 1, 2], [5, 1, -1, 1], [1, -1, 1, 5],
+                   [2, 1, 5, -1]], [1, 1, 1, 1], [1, 0, 0, 1]),
+    "clamped_b": ([[5, 5, 5, 1], [-1, -1, 2, 1], [1, 1, 1, 1],
+                   [-1, 5, 0, 3]], [1, 1, 0, 1], [0, 1, 0, 0]),
 }
 
 

@@ -225,7 +225,7 @@ def test_entry_point_without_device_raises_without_cuda(entry):
 
 def _port_files():
     return sorted((REPO / "lighthand_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "kernel_breakdown.py"]
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -248,7 +248,8 @@ def test_importing_the_port_loads_no_jax():
         for p in (REPO / "lighthand_tpu_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import importlib\n"
-            f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
+            f"for m in {mods!r} + ['chip_smoke', 'kernel_breakdown']: "
+            "importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'lighthand_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
