@@ -30,17 +30,31 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 5. the main path, eval: ``make_eval_step`` twice on a batch of 32 whose last
    4 rows are padding (n_valid must be 28, K2 must launch), then
    ``make_predict_step`` once;
-6. reference: the trained W32 in f32 on the card (TF32 off) against the
+6. the training entry point: ``lighthand_tpu_torch.cli.train.main`` in a
+   temporary directory, SimpleBaseline ResNet-50 at 256x256, batch 32, bf16,
+   synthetic data (128 train samples, 32 val), 3 microbatches a dispatch:
+   run A trains 2 epochs from scratch (``--reset``), run B resumes with 3
+   epochs at the best epoch + 1. Each epoch is one K=3 dispatch, a ragged
+   K=1 tail step and one eval batch, so K1 must launch 4 times and K2 once
+   for every epoch run. Both runs must print the ``done:`` line, write
+   finite Loss/train and Loss/valid for every epoch run, the checkpoint and
+   ``last_checkpoint.json`` with the model's name and precision, and run B
+   must start at run A's best epoch + 1. Per-epoch wall time, epoch img/s
+   and the device time of the steady K=3 dispatches are printed (a smoke
+   figure, not a benchmark);
+7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
-7. kernel times beside their plain twins' and their bounds, at the main
+8. kernel times beside their plain twins' and their bounds, at the main
    path's batch (32) and at the bench's (128): the eager call time (CUDA
    events around 20 back-to-back calls, over 20) and the device time (the
    call captured once in a CUDA graph and replayed 20 times between two
    events, or the profiler's kernel time where capture refuses it); at
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
-   ``{"kernels": ...}`` JSON line. The last line is the ok line.
+   ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
+   phases 4-5 and of phase 6 (each also under ``launches_by_path``). The
+   last line is the ok line.
 
 Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
@@ -50,12 +64,16 @@ does not touch.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published peaks (NVIDIA data sheets, dense): memory bytes/s and f32
@@ -216,6 +234,92 @@ def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
     return (torch.from_numpy(images).to(dev),
             torch.from_numpy(joints.astype(np.float32)).to(dev),
             torch.from_numpy(params.astype(np.float32)).to(dev))
+
+
+def _scalars(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _by_epoch(rows: list, tag: str) -> dict:
+    return {r["step"]: r["value"] for r in rows if r["tag"] == tag}
+
+
+def cli_phase(counters) -> dict:
+    """Phase 6: two runs of the training CLI; returns each kernel's launches
+    over both runs."""
+    from lighthand_tpu_torch.cli import train as cli_train
+
+    argv = ["--root", "simplebaseline/ours", "--name", "smoke", "--synthetic",
+            "--batch_size", str(B_TRAIN), "--num_our", "128",
+            "--steps-per-dispatch", "3", "--count", "5", "--yes"]
+    run_dir = os.path.join("output", "simplebaseline", "ours", "smoke")
+    launches = {name: 0 for name in counters}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        os.chdir(tmp)
+        try:
+            seen, best = 0, None
+            for tag, extra, epochs in (("A", ["--reset"], 2), ("B", [], 3)):
+                for fn in counters.values():
+                    fn.launches = 0
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli_train.main(argv + extra + ["--epoch", str(epochs)])
+                wall = time.perf_counter() - t0
+                counts = {name: fn.launches for name, fn in counters.items()}
+                text = out.getvalue()
+                print("\n".join(f"[cli {tag}] {line}"
+                                for line in text.splitlines()))
+                rows = _scalars(run_dir)[seen:]
+                seen += len(rows)
+                first = 0 if best is None else best + 1
+                ran = list(range(first, epochs))
+                train, valid = (_by_epoch(rows, "Loss/train"),
+                                _by_epoch(rows, "Loss/valid"))
+                secs = _by_epoch(rows, "perf/epoch_seconds")
+                ips = _by_epoch(rows, "perf/images_per_sec")
+                disp = _by_epoch(rows, "perf/dispatch_ms")
+                print(f"[cli {tag}] {wall:.1f} s in main; epochs {ran}; "
+                      f"epoch wall s {secs}; epoch img/s {ips}; K=3 "
+                      f"dispatch device ms {disp}; launches {counts}")
+                if rc != 0 or "done: train_loss=" not in text:
+                    fail(f"CLI run {tag} printed no done line (rc {rc})")
+                if sorted(train) != ran or sorted(valid) != ran:
+                    fail(f"CLI run {tag}: scalars for epochs {sorted(train)} /"
+                         f" {sorted(valid)}, expected {ran}")
+                losses = list(train.values()) + list(valid.values())
+                if not all(math.isfinite(x) for x in losses):
+                    fail(f"CLI run {tag}: non-finite losses {losses}")
+                if f"Start_epoch: {first}" not in text:
+                    fail(f"CLI run {tag} did not start at epoch {first}")
+                want = {"fused_aug_targets": 4 * len(ran),
+                        "heatmap_targets": len(ran)}
+                if counts != want:
+                    fail(f"CLI run {tag}: launches {counts}, expected {want}"
+                         " (K1 once per optimizer step, K2 once per eval "
+                         "batch)")
+                with open(os.path.join(run_dir, "last_checkpoint.json")) as f:
+                    marker = json.load(f)
+                if (marker.get("model") != {"name": "simplebaseline",
+                                            "precision": "bf16"}
+                        or not os.path.isfile(os.path.join(
+                            run_dir, "checkpoint-good", "state.pt"))):
+                    fail(f"CLI run {tag}: bad checkpoint marker {marker}")
+                best = marker["epoch"]
+                for name in launches:
+                    launches[name] += counts[name]
+                if tag == "A":
+                    steady = [ms for e, ms in disp.items() if e > 0]
+                else:
+                    steady += list(disp.values())
+            print(f"[cli] steady K=3 dispatches: median "
+                  f"{statistics.median(steady):.2f} ms device time "
+                  f"({len(steady)} dispatches, 3 x {B_TRAIN} images each)")
+        finally:
+            os.chdir(cwd)
+    return launches
 
 
 def main() -> int:
@@ -401,7 +505,11 @@ def main() -> int:
             or not torch.isfinite(maxvals).all()):
         fail("bad predict output")
 
-    # 6. reference: the trained weights in f32, card vs CPU ----------------
+    # 6. the training entry point -------------------------------------------
+    cli_launches = cli_phase({"fused_aug_targets": fused_aug_targets_cuda,
+                              "heatmap_targets": generate_target_batch_cuda})
+
+    # 7. reference: the trained weights in f32, card vs CPU ----------------
     weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     f32 = DTypePolicy.full_precision()
     cpu_model = get_model("hrnet_w32", policy=f32).eval()
@@ -424,7 +532,7 @@ def main() -> int:
     if not ok:
         fail("the port's W32 forward on the card disagrees with the CPU")
 
-    # 7. kernel times and bounds -------------------------------------------
+    # 8. kernel times and bounds -------------------------------------------
     def cases(b, seed):
         """(name, source, replaces, kernel call, plain call, bytes, ops) at
         batch b: each input read once, each output written once."""
@@ -470,7 +578,10 @@ def main() -> int:
             if b == B_KERNEL:
                 rows.append({
                     "name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces,
+                    "launches": launches[name] + cli_launches[name],
+                    "launches_by_path": {"steps": launches[name],
+                                         "cli": cli_launches[name]},
                     "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": None})

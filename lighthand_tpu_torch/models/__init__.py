@@ -8,18 +8,20 @@ from torch import nn
 
 from lighthand_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from lighthand_tpu_torch.models.hrnet import HRNetCfg, PoseHRNet
+from lighthand_tpu_torch.models.resnet import PoseResNet
 
 
 def get_model(name: str, num_joints: int = 21,
               policy: DTypePolicy = DEFAULT_POLICY) -> nn.Module:
-    """'hrnet' (= hrnet_w48, the reference cfg.yaml), 'hrnet_w32',
-    'hrnet_w48', 'hrnet_tiny' (test topology), 'hrnet_wN'. The
-    SimpleBaseline names ('simplebaseline', 'resnetN') are not ported yet."""
+    """'simplebaseline' (= resnet50), 'resnet{18,34,50,101,152}', 'hrnet'
+    (= hrnet_w48, the reference cfg.yaml), 'hrnet_w32', 'hrnet_w48',
+    'hrnet_tiny' (test topology), 'hrnet_wN'."""
     name = name.lower()
-    if name in ("simplebaseline", "resnet") or name.startswith("resnet"):
-        raise NotImplementedError(
-            f"{name!r}: SimpleBaseline is not ported yet (ROADMAP.md, "
-            "Queue 1: SimpleBaseline)")
+    if name in ("simplebaseline", "resnet", "resnet50"):
+        return PoseResNet(num_layers=50, num_joints=num_joints, policy=policy)
+    if name.startswith("resnet"):
+        return PoseResNet(num_layers=int(name[len("resnet"):]),
+                          num_joints=num_joints, policy=policy)
     if name in ("hrnet", "hrnet_w48"):
         cfg = HRNetCfg.w48()
     elif name == "hrnet_w32":
@@ -36,4 +38,4 @@ def get_model(name: str, num_joints: int = 21,
                      policy=policy)
 
 
-__all__ = ["get_model", "PoseHRNet", "HRNetCfg"]
+__all__ = ["get_model", "PoseHRNet", "PoseResNet", "HRNetCfg"]

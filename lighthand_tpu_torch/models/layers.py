@@ -64,6 +64,20 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Transposed conv in the input's dtype; weights cast to it per call.
+
+    Torch's ``padding=1`` with a 4x4 stride-2 kernel is Flax's
+    ``ConvTranspose(4, 2, "SAME")`` with the kernel flipped in both spatial
+    dims (``utils/weights.py:resnet_from_flax`` flips it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding)
+
+
 class ConvBN(nn.Sequential):
     """``Sequential(conv, bn[, relu])``: the reference's naming for the
     stem-less conv+BN pairs (transitions, fuse layers, downsample)."""
@@ -123,6 +137,23 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
+class BottleneckCaffe(Bottleneck):
+    """Caffe-style bottleneck: the stride sits on the first 1x1 conv
+    (pose_resnet.py:102-141)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__(inplanes, planes, stride, downsample)
+        self.conv1 = conv(inplanes, planes, 1, stride)
+        self.conv2 = conv(planes, planes, 3)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch MaxPool2d(kernel=3, stride=2, padding=1), as the JAX stem's
+    ``nn.max_pool`` with ((1, 1), (1, 1)) padding."""
+    return F.max_pool2d(x, 3, 2, 1)
+
+
 def nearest_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     """nn.Upsample(scale_factor=factor, mode='nearest') on NCHW
     (pose_hrnet.py:206); each pixel repeated ``factor`` times per axis."""
@@ -130,14 +161,18 @@ def nearest_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """torch's default init, drawn from ``generator``: conv weights
-    Uniform(+-1/sqrt(fan_in)) (kaiming_uniform with a=sqrt(5)), biases
-    Uniform(+-1/sqrt(fan_in)), BatchNorm scale 1, bias 0, stats 0/1. The
-    reference never calls its own init (pose_resnet.py:319-320), so this is
-    its effective init and the JAX package's ``TORCH_CONV_KERNEL_INIT``."""
+    """torch's default init, drawn from ``generator``: conv and transposed
+    conv weights Uniform(+-1/sqrt(fan_in)) (kaiming_uniform with
+    a=sqrt(5)), biases Uniform(+-1/sqrt(fan_in)), BatchNorm scale 1, bias
+    0, stats 0/1. The reference never calls its own init
+    (pose_resnet.py:319-320), so this is its effective init and the JAX
+    package's ``TORCH_CONV_KERNEL_INIT``. For a transposed conv torch takes
+    the fan-in from the output channels; Flax takes it from the input
+    channels, which differs for SimpleBaseline's first deconv (2048 in,
+    256 out)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
                                          generator=generator)
                 if m.bias is not None:

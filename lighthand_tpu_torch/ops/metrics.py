@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 MM_SCALE_PCK = 3.78  # loss.py:107,141,179
+PX_TO_MM_VALID_LOG = 0.26  # the validation log's EPE in mm (method.py:131)
 
 
 def bbox_diagonal(gt_2d: torch.Tensor) -> torch.Tensor:

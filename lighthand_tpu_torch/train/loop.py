@@ -1,0 +1,392 @@
+"""Training loop: counterpart of ``lighthand_tpu/train/loop.py`` (the
+reference's train.py main loop + Runner_t/Runner_v, src/tools/train.py:
+13-121, src/utils/method.py:12-309).
+
+Per epoch: the cosine LR for the epoch -> fused train steps (K1) over the
+loader, K microbatches a dispatch and a ragged tail through a K=1 step ->
+eval steps (K2) over the padded val loader -> early-stopping bookkeeping
+(best val loss, patience counter --count) -> best-only checkpoint.
+Scalars Loss/train & Loss/valid per epoch; the validation log reports EPE
+in mm (x0.26, method.py:131) and PCK% (T=0.2 proportion, method.py:243).
+
+Differences from the JAX package: the device comes from ``--platform``
+(the card unless the caller names the CPU); the per-epoch random draws
+come from one device ``torch.Generator`` seeded with ``seed + epoch`` at
+the start of each epoch, so a resumed run draws what an uninterrupted one
+would; prediction overlays are not written (ROADMAP.md, Queue 1:
+``utils/`` visualisation).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import shutil
+import statistics
+import time
+
+import torch
+
+from lighthand_tpu_torch.config import Config, check_supported
+from lighthand_tpu_torch.core.device import resolve_device
+from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.data import (
+    Loader,
+    build_dataset,
+    preprocess_u8,
+    source_heatmap_styles,
+)
+from lighthand_tpu_torch.models import get_model
+from lighthand_tpu_torch.ops.metrics import PX_TO_MM_VALID_LOG
+from lighthand_tpu_torch.train.checkpoint import (
+    checkpoint_exists,
+    load_weights_only,
+    resume_checkpoint,
+    save_checkpoint,
+)
+from lighthand_tpu_torch.train.profiler import DispatchTimer, StepTimer, trace
+from lighthand_tpu_torch.train.state import (
+    TrainState,
+    cosine_lr,
+    create_train_state,
+    set_learning_rate,
+)
+from lighthand_tpu_torch.train.step import make_eval_step, make_fused_train_step
+from lighthand_tpu_torch.train.watchdog import (
+    StallWatchdog,
+    check_rss_limit,
+    host_rss_gb,
+)
+from lighthand_tpu_torch.utils.logging import (
+    ScalarWriter,
+    close_logger,
+    colored,
+    setup_logger,
+)
+from lighthand_tpu_torch.utils.meters import AverageMeter
+from lighthand_tpu_torch.utils.misc import set_seed
+from lighthand_tpu_torch.utils.progress import Bar
+
+_EVAL_KEYS = ("loss_sum", "n_valid", "pck_sum", "pck_count", "epe_sum",
+              "epe_count")
+
+
+@dataclasses.dataclass
+class EpochResult:
+    train_loss: float
+    val_loss: float
+    pck: float
+    epe_px: float
+    images_per_sec: float
+
+
+def _policy(cfg: Config) -> DTypePolicy:
+    check_supported(cfg)
+    if cfg.model.precision == "f32":
+        return DTypePolicy.full_precision()
+    return DTypePolicy()
+
+
+def _pick_style(styles: set) -> str:
+    """Uniform source tree -> static rasterizer; mixed -> per-sample select."""
+    return next(iter(styles)) if len(styles) == 1 else "per_sample"
+
+
+def _maybe_reset(cfg: Config, logger) -> None:
+    """--reset semantics (argparser.py:121-139): confirm (unless --yes) and
+    wipe the run + tensorboard dirs; the run's log starts anew."""
+    ckpt = os.path.join(cfg.output_dir, "checkpoint-good")
+    if not (os.path.isdir(ckpt) and os.listdir(ckpt)):
+        return
+    if not cfg.train.assume_yes:
+        ans = input("There is resume_point but do you want to delete?")
+        if ans not in ("o", "y", "yes"):
+            return
+    close_logger(logger)
+    for path in (cfg.tensorboard_dir, cfg.output_dir):
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.makedirs(path, exist_ok=True)
+    setup_logger(cfg.name, cfg.output_dir)
+    logger.info(colored("Ignore the check-point model", "green"))
+
+
+class Trainer:
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.policy = _policy(cfg)
+        self.device = resolve_device(cfg.platform)
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        self.logger = setup_logger(cfg.name, cfg.output_dir)
+        t0 = time.time()
+        # set_seed seeds random/numpy globally and gives the init generator;
+        # the reference seeds all host RNGs up front (train.py:15-22)
+        self.state: TrainState = create_train_state(
+            get_model(cfg.model.name, cfg.model.num_joints,
+                      policy=self.policy),
+            set_seed(cfg.train.seed), lr=cfg.train.lr, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.logger.debug(f"init state on {self.device}: "
+                          f"{time.time() - t0:.1f}s")
+
+        self.best_loss = float("inf")
+        self.start_epoch = 0
+        self.count = 0
+        self._setup_checkpoint_state()
+
+        size = cfg.data.image_size
+        hm = cfg.data.heatmap_size
+        stride = size / hm
+        self.scan_steps = max(1, cfg.train.steps_per_dispatch)
+
+        # the target style (MSRA vs max-combine) is a property of the
+        # source tree and picks the steps' rasterizer
+        self.train_src, self.val_src = build_dataset(cfg)
+        train_style = _pick_style(source_heatmap_styles(self.train_src))
+        val_style = _pick_style(source_heatmap_styles(self.val_src))
+        self._dispatch_fields = ["image_u8", "joints", "aug_enabled",
+                                 "noise_enabled"]
+        if train_style == "per_sample":
+            self._dispatch_fields.append("hm_max")
+
+        step_kw = dict(heatmap_size=hm, stride=stride, jitter=True,
+                       target_style=train_style, flip=cfg.train.flip,
+                       rot_deg=cfg.train.rot_aug,
+                       compute_dtype=self.policy.compute_dtype,
+                       device=self.device)
+        self.train_step = make_fused_train_step(
+            scan_steps=self.scan_steps, **step_kw)
+        # K=1 step for the ragged tail of a K-microbatch dispatch
+        self.train_step_k1 = (self.train_step if self.scan_steps == 1
+                              else make_fused_train_step(scan_steps=1,
+                                                         **step_kw))
+        self.eval_step = make_eval_step(heatmap_size=hm, stride=stride,
+                                        target_style=val_style,
+                                        device=self.device)
+        self.writer = ScalarWriter(cfg.tensorboard_dir,
+                                   jsonl_dir=cfg.output_dir)
+        self.dispatch_timer = DispatchTimer(self.device)
+        # exit(86) if no completed dispatch for stall_timeout_s (arms at
+        # the first heartbeat; 0 disables)
+        self.watchdog = StallWatchdog(cfg.train.stall_timeout_s,
+                                      logger=self.logger)
+        if cfg.train.visualize:
+            self.logger.info(
+                "prediction overlays are not ported yet (ROADMAP.md, "
+                "Queue 1: utils/ visualisation); none are written")
+
+    # -- checkpoint / reset / transfer wiring (argparser.py:103-191) --------
+
+    def _setup_checkpoint_state(self):
+        cfg = self.cfg
+        if cfg.train.reset:
+            _maybe_reset(cfg, self.logger)
+        elif checkpoint_exists(cfg.output_dir):
+            self.best_loss, self.start_epoch, self.state, self.count = (
+                resume_checkpoint(
+                    self.state, cfg.output_dir,
+                    restore_optimizer=not cfg.train.reset_optimizer,
+                )
+            )
+            self.logger.info(
+                colored(f"Loading ===> {cfg.output_dir}", "green"))
+        if cfg.train.transfer:
+            src = os.path.join("output", cfg.model.name, "frei", "ori",
+                               "checkpoint-good")
+            self.state = load_weights_only(self.state, src)
+            self.logger.info(colored(f"Transfer_Loading ===> {src}", "green"))
+
+    # -- data ---------------------------------------------------------------
+
+    def make_loaders(self):
+        cfg = self.cfg
+        train_loader = Loader(
+            self.train_src, cfg.data.batch_size, device=self.device,
+            shuffle=True, seed=cfg.data.shuffle_seed,
+            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+        )
+        # drop_last=False + the batch["valid"] mask: the early-stop signal
+        # sees every validation sample
+        val_loader = Loader(
+            self.val_src, cfg.data.batch_size, device=self.device,
+            shuffle=False, num_workers=cfg.data.num_workers,
+            prefetch=cfg.data.prefetch, drop_last=False,
+        )
+        return train_loader, val_loader
+
+    # -- epoch bodies ---------------------------------------------------------
+
+    def _dispatch(self, step, batch, k: int):
+        mark = self.dispatch_timer.start()
+        self.state, metrics = step(self.state, self.generator, batch)
+        self.dispatch_timer.stop(mark, k)
+        return metrics["loss"]
+
+    def run_train_epoch(self, loader: Loader, epoch: int) -> tuple[float, float]:
+        cfg = self.cfg
+        loader.set_epoch(epoch)
+        self.generator.manual_seed(cfg.train.seed + epoch)
+        losses = AverageMeter()
+        timer = StepTimer()
+        bar = Bar(colored(f"{epoch}_TRAIN", "blue"), max=len(loader))
+
+        k = self.scan_steps
+        bsz = cfg.data.batch_size
+        n_images = 0
+        n_dispatch = 0
+        t0 = time.time()
+        pending = []  # (loss, n_images) read one dispatch late
+        microbatches = []
+        trace_ctx = contextlib.ExitStack()
+
+        def drain(limit: int) -> None:
+            while len(pending) > limit:
+                loss, n = pending.pop(0)
+                losses.update(float(loss), n)
+
+        for it, batch in enumerate(loader):
+            microbatches.append(batch)
+            if len(microbatches) < k:
+                bar.next()
+                continue
+            if k == 1:
+                dispatch = {name: microbatches[0][name]
+                            for name in self._dispatch_fields}
+            else:
+                dispatch = {
+                    name: torch.stack([b[name] for b in microbatches])
+                    for name in self._dispatch_fields
+                }
+            microbatches = []
+            loss = self._dispatch(self.train_step, dispatch, k)
+            n_images += k * bsz
+            n_dispatch += 1
+            if cfg.train.trace and epoch == self.start_epoch:
+                # trace dispatches 2-5 (skip the first, warm-up dispatch)
+                if n_dispatch == 2:
+                    trace_ctx.enter_context(
+                        trace(os.path.join(cfg.output_dir, "trace")))
+                elif n_dispatch == 6:
+                    trace_ctx.close()
+            # read losses one dispatch late: keeps the device queue full
+            pending.append((loss, k * bsz))
+            drain(1)
+            self.watchdog.heartbeat()  # a completed loss read = progress
+            timer.tick()
+            if it % cfg.train.logging_steps == 0:
+                bar.suffix = (f"loss: {losses.avg:.6f} | count: {self.count}"
+                              f" | {timer.images_per_sec(k * bsz):.0f} img/s")
+            bar.next()
+        # the ragged tail of microbatches (< k of them) goes through the
+        # K=1 step, so no loader batch is dropped
+        for tail in microbatches:
+            dispatch = {name: tail[name] for name in self._dispatch_fields}
+            loss = self._dispatch(self.train_step_k1, dispatch, 1)
+            n_images += bsz
+            pending.append((loss, bsz))
+            drain(1)
+            self.watchdog.heartbeat()
+        drain(0)
+        trace_ctx.close()
+        bar.finish()
+        elapsed = time.time() - t0
+        ips = n_images / elapsed if elapsed > 0 else 0.0
+        times = self.dispatch_timer.collect()
+        full = [ms for steps, ms in times if steps == k]
+        self.writer.add_scalar("Loss/train", losses.avg, epoch)
+        self.writer.add_scalar("perf/images_per_sec", ips, epoch)
+        if full:
+            self.writer.add_scalar("perf/dispatch_ms",
+                                   statistics.median(full), epoch)
+        self.logger.debug(
+            f"epoch {epoch}: {ips:.1f} img/s, dispatch ms (steps, ms) "
+            f"{[(s, round(ms, 3)) for s, ms in times]}, host rss "
+            f"{host_rss_gb():.1f} GB")
+        return losses.avg, ips
+
+    def run_valid_epoch(self, loader: Loader, epoch: int):
+        losses, pcks, epes = AverageMeter(), AverageMeter(), AverageMeter()
+        bar = Bar(colored(f"{epoch}_VALID", "blue"), max=len(loader))
+        for batch in loader:
+            images = preprocess_u8(batch["image_u8"],
+                                   self.policy.compute_dtype)
+            m = self.eval_step(self.state,
+                               {"image": images, "joints": batch["joints"],
+                                "valid": batch["valid"],
+                                "hm_max": batch["hm_max"]})
+            # exact sums/counts: padding rows of the final ragged batch
+            # carry valid=0 and contribute nothing; one read per batch
+            loss_sum, n_valid, pck_sum, pck_count, epe_sum, epe_count = (
+                torch.stack([m[key] for key in _EVAL_KEYS]).tolist())
+            losses.update_p(loss_sum, n_valid)
+            pcks.update_p(pck_sum, pck_count)
+            epes.update_p(epe_sum, epe_count)
+            self.watchdog.heartbeat()
+            bar.next()
+        bar.finish()
+        self.writer.add_scalar("Loss/valid", losses.avg, epoch)
+        self.logger.debug(
+            f"Test =>> epoch: {epoch} epe: {epes.avg * PX_TO_MM_VALID_LOG:.2f}mm, "
+            f"count: {self.count} / {self.cfg.train.early_stop_count}, "
+            f"total_pck: {pcks.avg * 100:.2f} %, best_loss: {self.best_loss:.7f}"
+        )
+        return losses.avg, pcks.avg * 100, epes.avg
+
+    # -- full run -------------------------------------------------------------
+
+    def fit(self) -> EpochResult:
+        cfg = self.cfg
+        train_loader, val_loader = self.make_loaders()
+        self.logger.info(colored(
+            f"Path: {cfg.output_dir} | Dataset_len: {len(train_loader.source)}"
+            f" | Dataset: {cfg.data.dataset} | Model: {cfg.model.name}"
+            f" | Device: {self.device}"
+            f" | Start_epoch: {self.start_epoch}"
+            f" | Max_count: {cfg.train.early_stop_count}"
+            f" | Max_epoch: {cfg.train.epochs}", "yellow"))
+
+        last = EpochResult(float("nan"), float("nan"), 0.0, 0.0, 0.0)
+        self.watchdog.start()
+        try:
+            for epoch in range(self.start_epoch, cfg.train.epochs):
+                t0 = time.time()
+                lr = cosine_lr(cfg.train.lr, epoch, cfg.train.epochs)
+                self.state = set_learning_rate(self.state, lr)
+
+                train_loss, ips = self.run_train_epoch(train_loader, epoch)
+                val_loss, pck, epe = self.run_valid_epoch(val_loader, epoch)
+                last = EpochResult(train_loss, val_loss, pck, epe, ips)
+                self.writer.add_scalar("perf/epoch_seconds",
+                                       time.time() - t0, epoch)
+
+                is_best = val_loss < self.best_loss
+                self.best_loss = min(val_loss, self.best_loss)
+                if is_best:
+                    self.count = 0
+                    save_checkpoint(self.state, cfg.output_dir, epoch,
+                                    self.best_loss, self.count,
+                                    model_info={
+                                        "name": cfg.model.name,
+                                        "precision": cfg.model.precision,
+                                    })
+                    self.watchdog.heartbeat()  # the save blocks too
+                else:
+                    self.count += 1
+                    if self.count == cfg.train.early_stop_count:
+                        self.logger.info(
+                            f"early stop at epoch {epoch} "
+                            f"(count={self.count})")
+                        break
+                # after the checkpoint decision; flush TensorBoard first,
+                # since the exit path is os._exit
+                self.writer.flush()
+                check_rss_limit(cfg.train.rss_limit_gb, self.logger)
+        finally:
+            self.watchdog.stop()
+            self.writer.close()
+        return last
+
+
+def train_from_config(cfg: Config) -> EpochResult:
+    return Trainer(cfg).fit()

@@ -1,10 +1,15 @@
 """JAX-package weights -> the port's ``state_dict``.
 
-The inverse of ``lighthand_tpu/utils/torch_port.py:pose_hrnet_from_torch``:
-it turns the JAX package's ``{"params", "batch_stats"}`` tree (numpy
-leaves) into the port's (= the reference's) HRNet ``state_dict``.
+The inverse of ``lighthand_tpu/utils/torch_port.py:pose_hrnet_from_torch``
+and ``pose_resnet_from_torch``: it turns the JAX package's ``{"params",
+"batch_stats"}`` tree (numpy leaves) into the port's (= the reference's)
+HRNet or PoseResNet ``state_dict``.
 
 - Flax conv kernel ``[kh, kw, I, O]`` -> torch ``[O, I, kh, kw]``;
+- Flax transposed-conv kernel ``[kh, kw, I, O]`` -> torch ``[I, O, kh, kw]``
+  with both spatial dims flipped: Flax's ``ConvTranspose`` correlates with
+  the kernel as stored, torch's is the gradient of a conv, i.e. correlation
+  with the flipped kernel;
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
   running_var`` (plus ``num_batches_tracked`` = 0).
 """
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from lighthand_tpu_torch.models.hrnet import HRNetCfg
+from lighthand_tpu_torch.models.resnet import RESNET_SPEC
 
 Path = Tuple[str, ...]
 
@@ -31,7 +37,7 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     return out
 
 
-class _StateDictBuilder:
+class _FlaxToTorch:
     def __init__(self, variables: Mapping):
         self.params = _flatten(variables["params"])
         self.stats = _flatten(variables.get("batch_stats", {}))
@@ -50,7 +56,9 @@ class _StateDictBuilder:
     def conv_bn(self, fpath: Path, tconv: str, tbn: str) -> None:
         kernel = self.take(self.params, fpath + ("Conv_0", "kernel"))
         self.sd[f"{tconv}.weight"] = kernel.permute(3, 2, 0, 1).contiguous()
-        p = fpath + ("BatchNorm_0",)
+        self.bn(fpath + ("BatchNorm_0",), tbn)
+
+    def bn(self, p: Path, tbn: str) -> None:
         self.sd[f"{tbn}.weight"] = self.take(self.params, p + ("scale",))
         self.sd[f"{tbn}.bias"] = self.take(self.params, p + ("bias",))
         self.sd[f"{tbn}.running_mean"] = self.take(self.stats, p + ("mean",))
@@ -66,6 +74,12 @@ class _StateDictBuilder:
             self.conv_bn(down, f"{tprefix}.downsample.0",
                          f"{tprefix}.downsample.1")
 
+    def final_layer(self) -> None:
+        kernel = self.take(self.params, ("final_layer", "kernel"))
+        self.sd["final_layer.weight"] = kernel.permute(3, 2, 0, 1).contiguous()
+        self.sd["final_layer.bias"] = self.take(self.params,
+                                                ("final_layer", "bias"))
+
     def finish(self) -> Dict[str, torch.Tensor]:
         leftovers = ["/".join(k) for k in (*self.params, *self.stats)]
         if leftovers:
@@ -77,7 +91,7 @@ def hrnet_from_flax(variables: Mapping,
                     cfg: HRNetCfg | None = None) -> Dict[str, torch.Tensor]:
     """JAX ``PoseHRNet`` variables -> the port's ``PoseHRNet`` state_dict."""
     cfg = cfg or HRNetCfg.w32()
-    b = _StateDictBuilder(variables)
+    b = _FlaxToTorch(variables)
 
     b.conv_bn(("stem1",), "conv1", "bn1")
     b.conv_bn(("stem2",), "conv2", "bn2")
@@ -119,7 +133,28 @@ def hrnet_from_flax(variables: Mapping,
                 b.conv_bn((f"{t}_b{i}",), f"{t}.{i}.0", f"{t}.{i}.1")
         b.conv_bn((f"{t}_b{new}_k0",), f"{t}.{new}.0.0", f"{t}.{new}.0.1")
 
-    kernel = b.take(b.params, ("final_layer", "kernel"))
-    b.sd["final_layer.weight"] = kernel.permute(3, 2, 0, 1).contiguous()
-    b.sd["final_layer.bias"] = b.take(b.params, ("final_layer", "bias"))
+    b.final_layer()
+    return b.finish()
+
+
+def resnet_from_flax(variables: Mapping,
+                     num_layers: int = 50) -> Dict[str, torch.Tensor]:
+    """JAX ``PoseResNet`` variables -> the port's ``PoseResNet`` state_dict
+    (either bottleneck style: both have three convs per block)."""
+    b = _FlaxToTorch(variables)
+    block, layers = RESNET_SPEC[num_layers]
+    n_convs = 3 if block.expansion == 4 else 2
+
+    b.conv_bn(("stem",), "conv1", "bn1")
+    for stage, blocks in enumerate(layers):
+        for i in range(blocks):
+            b.residual_block((f"layer{stage + 1}_block{i}",),
+                             f"layer{stage + 1}.{i}", n_convs)
+    # deconv head: Sequential [deconv, BN, ReLU] x3 -> indices 0, 3, 6
+    for k in range(3):
+        kernel = b.take(b.params, (f"deconv{k}", "ConvTranspose_0", "kernel"))
+        b.sd[f"deconv_layers.{3 * k}.weight"] = (
+            kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous())
+        b.bn((f"deconv{k}", "BatchNorm_0"), f"deconv_layers.{3 * k + 1}")
+    b.final_layer()
     return b.finish()

@@ -170,12 +170,6 @@ def test_get_model_param_counts_match_jax(name, params, w32_template):
         assert sum(int(np.prod(x.shape)) for x in leaves) == params
 
 
-@pytest.mark.parametrize("name", ["simplebaseline", "resnet50", "resnet18"])
-def test_get_model_simplebaseline_not_ported(name):
-    with pytest.raises(NotImplementedError, match="SimpleBaseline"):
-        get_model(name)
-
-
 def test_get_model_unknown_name():
     with pytest.raises(ValueError):
         get_model("vgg16")
