@@ -6,7 +6,14 @@
 Phases (any failure raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   both CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc;
+   both CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc and
+   the host libraries of the data readers (the image codec, the TSV
+   engine) with the host C++ compiler, all at once;
+1b. the codec: every committed fixture image (``tests/fixtures/images``)
+   decoded, gray-decoded, resized to 256 and warped to 224 by the port's
+   codec, each equal to the SHA-256 of cv2's result stored beside it (this
+   machine has no cv2 for the port to lean on); the host ms of a 224x224
+   JPEG decode, of its resize to 256 and of its warp;
 2. K2 (heatmap targets) against its plain twin, B=128 and B=32, atol 1e-5,
    and one ragged case: B=5, hm=50 (scalar stores), stride 3.0, joints a
    [B, J, 3] tensor read through its strides;
@@ -42,6 +49,17 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    must start at run A's best epoch + 1. Per-epoch wall time, epoch img/s
    and the device time of the steady K=3 dispatches are printed (a smoke
    figure, not a benchmark);
+6b. the real-data path: the same CLI on a LightHand99K tree written into
+   a temporary directory (128 train, 32 eval records pointing at the
+   fixture JPEGs), without ``--synthetic``, 2 epochs: the done line,
+   finite losses for both epochs, K1 4 and K2 1 launches an epoch, the
+   decoded-crop cache's hit fraction 1.0 in epoch 2 (read from the log),
+   and the cached rows epoch 2 read equal to a fresh decode; epoch wall
+   seconds and img/s printed beside phase 6's synthetic ones;
+6c. a FreiHAND TSV tree of the fixture bytes through the Loader into one
+   fused step (TSV engine, base64, decode, inverse-map warp, noise rows),
+   then one ``per_sample`` fused step on a GAN + LightHand mix (max-combine
+   targets where ``hm_max`` is set); K1 must launch twice;
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -53,8 +71,9 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5 and of phase 6 (each also under ``launches_by_path``). The
-   last line is the ok line.
+   phases 4-5, 6, 6b and 6c (each also under ``launches_by_path``; each
+   path's counts are zeroed just before it and read just after). The last
+   line is the ok line.
 
 Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
@@ -70,6 +89,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -236,6 +256,89 @@ def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
             torch.from_numpy(params.astype(np.float32)).to(dev))
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(REPO, "tests", "fixtures", "images")
+
+
+def load_manifest() -> list:
+    """The committed fixture images (``tests/fixtures/images``): file,
+    kind, joints and the SHA-256 of cv2's decode, gray decode, resize to
+    256 and warp to 224 (``tests/fixtures/make_images.py``)."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        images = json.load(f)["images"]
+    for e in images:
+        e["path"] = os.path.join(FIXTURES, e["file"])
+    return images
+
+
+def _square_jpegs(size: int = 224) -> list:
+    return [e for e in load_manifest()
+            if e["kind"] == "jpeg" and e["shape"][:2] == [size, size]]
+
+
+def write_lighthand_tree(root: str, n_train: int, n_eval: int) -> None:
+    """A LightHand99K tree: ``{root}/LightHand/annotations/{phase}/
+    CISLAB_{phase}_data.json`` whose records point at the 224x224 fixture
+    JPEGs (in turn) and carry their joints (224-px space, as stored)."""
+    jpegs = _square_jpegs()
+    for phase, n in (("train", n_train), ("eval", n_eval)):
+        d = os.path.join(root, "LightHand", "annotations", phase)
+        os.makedirs(d, exist_ok=True)
+        recs = [{"file_name": jpegs[i % len(jpegs)]["path"],
+                 "joint_2d": jpegs[i % len(jpegs)]["joints"]}
+                for i in range(n)]
+        with open(os.path.join(d, f"CISLAB_{phase}_data.json"), "w") as f:
+            json.dump(recs, f)
+
+
+def write_freihand_tree(directory: str, n: int) -> str:
+    """A FreiHAND TSV tree of ``n`` rows from the fixture JPEG bytes
+    (base64 in the image TSV, center/scale/2d joints in the label TSV);
+    returns the yaml descriptor's path."""
+    import base64
+
+    from lighthand_tpu_torch.data.tsv import tsv_writer
+
+    jpegs = _square_jpegs()
+    img_rows, label_rows, hw_rows = [], [], []
+    for i in range(n):
+        e = jpegs[i % len(jpegs)]
+        with open(e["path"], "rb") as f:
+            b64 = base64.b64encode(f.read()).decode("ascii")
+        key = f"{i:05d}"
+        img_rows.append([key, b64])
+        label_rows.append([key, json.dumps([{
+            "center": [112.0 + i % 5, 112.0 - i % 3],
+            "scale": 0.9 + 0.05 * (i % 4), "2d_joints": e["joints"]}])])
+        hw_rows.append([key, json.dumps([{"height": 224, "width": 224}])])
+    os.makedirs(directory, exist_ok=True)
+    for name, rows in (("img", img_rows), ("label", label_rows),
+                       ("hw", hw_rows)):
+        tsv_writer(rows, os.path.join(directory, f"train.{name}.tsv"))
+    path = os.path.join(directory, "train.yaml")
+    with open(path, "w") as f:
+        f.write("img: train.img.tsv\nlabel: train.label.tsv\n"
+                "hw: train.hw.tsv\n")
+    return path
+
+
+def write_gan_tree(root: str, n: int) -> None:
+    """A GANeratedHands tree of ``n`` samples from the fixture PNGs:
+    ``noObject/0001/{i}_color.png`` + ``{i}_joint2D.txt``."""
+    import shutil
+
+    pngs = [e for e in load_manifest() if e["kind"] == "png"]
+    d = os.path.join(root, "GANeratedHands_Release", "data", "noObject",
+                     "0001")
+    os.makedirs(d, exist_ok=True)
+    for i in range(1, n + 1):
+        e = pngs[i % len(pngs)]
+        shutil.copyfile(e["path"], os.path.join(d, f"{i:04d}_color.png"))
+        with open(os.path.join(d, f"{i:04d}_joint2D.txt"), "w") as f:
+            f.write(",".join(f"{v:.3f}" for xy in e["joints"] for v in xy)
+                    + ",")
+
+
 def _scalars(run_dir: str) -> list:
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -245,11 +348,42 @@ def _by_epoch(rows: list, tag: str) -> dict:
     return {r["step"]: r["value"] for r in rows if r["tag"] == tag}
 
 
-def cli_phase(counters) -> dict:
-    """Phase 6: two runs of the training CLI; returns each kernel's launches
-    over both runs."""
+def run_cli(argv: list, counters, tag: str) -> tuple:
+    """One call of the training CLI's ``main``, every kernel's count zeroed
+    just before it and read just after; its output is printed with ``tag``.
+    Returns (exit code, output, wall seconds, launches)."""
     from lighthand_tpu_torch.cli import train as cli_train
 
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    print("\n".join(f"[{tag}] {line}" for line in text.splitlines()))
+    return rc, text, wall, counts
+
+
+def check_run(what: str, rc: int, text: str, train: dict, valid: dict,
+              ran: list) -> None:
+    """The done line, Loss/train and Loss/valid for exactly the epochs
+    ``ran``, all finite."""
+    if rc != 0 or "done: train_loss=" not in text:
+        fail(f"{what} printed no done line (rc {rc})")
+    if sorted(train) != ran or sorted(valid) != ran:
+        fail(f"{what}: scalars for epochs {sorted(train)} / "
+             f"{sorted(valid)}, expected {ran}")
+    losses = list(train.values()) + list(valid.values())
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite losses {losses}")
+
+
+def cli_phase(counters) -> tuple:
+    """Phase 6: two runs of the training CLI; returns each kernel's launches
+    over both runs, and run A's epoch wall seconds and img/s."""
     argv = ["--root", "simplebaseline/ours", "--name", "smoke", "--synthetic",
             "--batch_size", str(B_TRAIN), "--num_our", "128",
             "--steps-per-dispatch", "3", "--count", "5", "--yes"]
@@ -261,17 +395,9 @@ def cli_phase(counters) -> dict:
         try:
             seen, best = 0, None
             for tag, extra, epochs in (("A", ["--reset"], 2), ("B", [], 3)):
-                for fn in counters.values():
-                    fn.launches = 0
-                out = io.StringIO()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(out):
-                    rc = cli_train.main(argv + extra + ["--epoch", str(epochs)])
-                wall = time.perf_counter() - t0
-                counts = {name: fn.launches for name, fn in counters.items()}
-                text = out.getvalue()
-                print("\n".join(f"[cli {tag}] {line}"
-                                for line in text.splitlines()))
+                rc, text, wall, counts = run_cli(
+                    argv + extra + ["--epoch", str(epochs)], counters,
+                    f"cli {tag}")
                 rows = _scalars(run_dir)[seen:]
                 seen += len(rows)
                 first = 0 if best is None else best + 1
@@ -284,14 +410,7 @@ def cli_phase(counters) -> dict:
                 print(f"[cli {tag}] {wall:.1f} s in main; epochs {ran}; "
                       f"epoch wall s {secs}; epoch img/s {ips}; K=3 "
                       f"dispatch device ms {disp}; launches {counts}")
-                if rc != 0 or "done: train_loss=" not in text:
-                    fail(f"CLI run {tag} printed no done line (rc {rc})")
-                if sorted(train) != ran or sorted(valid) != ran:
-                    fail(f"CLI run {tag}: scalars for epochs {sorted(train)} /"
-                         f" {sorted(valid)}, expected {ran}")
-                losses = list(train.values()) + list(valid.values())
-                if not all(math.isfinite(x) for x in losses):
-                    fail(f"CLI run {tag}: non-finite losses {losses}")
+                check_run(f"CLI run {tag}", rc, text, train, valid, ran)
                 if f"Start_epoch: {first}" not in text:
                     fail(f"CLI run {tag} did not start at epoch {first}")
                 want = {"fused_aug_targets": 4 * len(ran),
@@ -311,6 +430,7 @@ def cli_phase(counters) -> dict:
                 for name in launches:
                     launches[name] += counts[name]
                 if tag == "A":
+                    figures = {"epoch_s": secs, "img_s": ips}
                     steady = [ms for e, ms in disp.items() if e > 0]
                 else:
                     steady += list(disp.values())
@@ -319,7 +439,175 @@ def cli_phase(counters) -> dict:
                   f"({len(steady)} dispatches, 3 x {B_TRAIN} images each)")
         finally:
             os.chdir(cwd)
-    return launches
+    return launches, figures
+
+
+def codec_phase() -> dict:
+    """Phase 1b: every fixture through the port's codec (decode, gray
+    decode, resize to 256, warp to 224) against the SHA-256 of cv2's result
+    stored beside it; all must be equal. Returns host ms per call of the
+    224x224 4:2:0 q95 JPEG decode, its resize to 256 and its warp, one
+    thread, mean of 200 calls."""
+    import hashlib
+
+    import numpy as np
+
+    from lighthand_tpu_torch.data import imageio
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    checked = 0
+    for e in load_manifest():
+        rgb = imageio.imread_rgb(e["path"])
+        got = {"decode": sha(rgb), "gray": sha(imageio.imread_gray(e["path"])),
+               "resize256": sha(imageio.resize_linear(rgb, 256)),
+               "warp224": sha(imageio.warp_affine_inverse(
+                   rgb, np.asarray(e["warp"]), (224, 224)))}
+        bad = [k for k, v in got.items() if v != e["sha256"][k]]
+        if bad:
+            fail(f"codec: {e['file']} differs from cv2 in {bad}")
+        checked += len(got)
+    ref = next(e for e in load_manifest() if e["file"] == "hand_420_q95.jpg")
+    with open(ref["path"], "rb") as f:
+        data = f.read()
+    img = imageio.imdecode_rgb(data)
+    mat = np.asarray(ref["warp"])
+    times = {}
+    for name, fn in (("decode_224_jpeg", lambda: imageio.imdecode_rgb(data)),
+                     ("resize_224_to_256",
+                      lambda: imageio.resize_linear(img, 256)),
+                     ("warp_224", lambda: imageio.warp_affine_inverse(
+                         img, mat, (224, 224)))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        times[name] = (time.perf_counter() - t0) / 200 * 1e3
+    print(f"[codec] {checked} results of {len(load_manifest())} fixtures "
+          f"equal cv2's (bit-exact); host ms per call, one thread: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return times
+
+
+def real_tree_phase(counters, tmp: str) -> tuple:
+    """Phase 6b: the training CLI on a LightHand99K tree of the fixture
+    JPEGs (128 train, 32 eval records), without --synthetic, 2 epochs.
+    Checks the done line, finite losses for both epochs, K1 4 and K2 1
+    launches an epoch, the decoded-crop cache's hit fraction 1.0 in epoch 2
+    (train and eval) and that the cached rows epoch 2 read equal a fresh
+    decode of the tree. Returns the launches and the epoch figures."""
+    import numpy as np
+
+    from lighthand_tpu_torch.config import parse_args
+    from lighthand_tpu_torch.data.cache import cached_sources
+    from lighthand_tpu_torch.data.lighthand import (
+        LightHandDataset,
+        LightHandValSet,
+    )
+    from lighthand_tpu_torch.data.registry import build_dataset
+
+    root = os.path.join(tmp, "datasets")
+    write_lighthand_tree(root, 128, 32)
+    argv = ["--root", "simplebaseline/ours", "--name", "real",
+            "--dataset-root", root, "--batch_size", str(B_TRAIN),
+            "--num_our", "128", "--steps-per-dispatch", "3", "--count", "5",
+            "--epoch", "2", "--reset", "--yes"]
+    run_dir = os.path.join("output", "simplebaseline", "ours", "real")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, text, wall, counts = run_cli(argv, counters, "real")
+        rows = _scalars(run_dir)
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            log = f.read()
+        cfg = parse_args(argv)
+        cfg.output_dir = os.path.join(tmp, run_dir)
+    finally:
+        os.chdir(cwd)
+    train, valid = _by_epoch(rows, "Loss/train"), _by_epoch(rows, "Loss/valid")
+    secs = _by_epoch(rows, "perf/epoch_seconds")
+    ips = _by_epoch(rows, "perf/images_per_sec")
+    print(f"[real] {wall:.1f} s in main; epoch wall s {secs}; epoch img/s "
+          f"{ips}; launches {counts}")
+    check_run("real-tree CLI", rc, text, train, valid, [0, 1])
+    # K1 once per optimizer step, K2 once per eval batch, for 2 epochs
+    want = {"fused_aug_targets": 2 * (128 // B_TRAIN),
+            "heatmap_targets": 2 * math.ceil(32 / B_TRAIN)}
+    if counts != want:
+        fail(f"real-tree CLI: launches {counts}, expected {want}")
+    hits = {(int(e), tag): float(frac) for e, tag, frac in re.findall(
+        r"epoch (\d+): (\w+) cache \S+ hit_fraction ([0-9.]+)", log)}
+    print(f"[real] cache hit fraction by (epoch, loader): {hits}")
+    if hits.get((1, "train")) != 1.0 or hits.get((1, "valid")) != 1.0:
+        fail(f"real-tree CLI: epoch 2 did not read every row from the "
+             f"cache: {hits}")
+    # what epoch 2 read (the cache rows) against a fresh decode of the tree
+    cached = [c for src in build_dataset(cfg) for c in cached_sources(src)]
+    fresh = (LightHandDataset(root, "train", num_our=128,
+                              ratio_of_aug=cfg.data.ratio_of_aug),
+             LightHandValSet(root))
+    if len(cached) != 2:
+        fail(f"real-tree CLI: expected 2 caches, found {len(cached)}")
+    for c, src in zip(cached, fresh):
+        if c.hit_fraction() != 1.0:
+            fail("real-tree cache lost rows after the run")
+        for i in range(len(src)):
+            a, b = c[i], src[i]
+            if not (np.array_equal(a.image, b.image)
+                    and np.array_equal(a.joints, b.joints)
+                    and a.aug_enabled == b.aug_enabled):
+                fail(f"real-tree cache row {i} differs from a fresh decode")
+    print(f"[real] the 160 cached rows epoch 2 read equal a fresh decode")
+    return counts, {"epoch_s": secs, "img_s": ips}
+
+
+def frei_and_mix_phase(state, counters, tmp: str) -> dict:
+    """Phase 6c: a FreiHAND TSV tree of the fixture JPEG bytes read through
+    the Loader (TSV engine bulk reads, base64, decode, the inverse-map
+    warp; every row noise-enabled) into one fused step; then one
+    ``per_sample`` fused step on a GAN + LightHand mix (max-combine targets
+    where ``hm_max`` is set). Returns the launches."""
+    import torch
+
+    from lighthand_tpu_torch.data import ConcatSource, Loader
+    from lighthand_tpu_torch.data.freihand import FreiHandTSVDataset
+    from lighthand_tpu_torch.data.gan import GANeratedDataset
+    from lighthand_tpu_torch.data.lighthand import LightHandDataset
+    from lighthand_tpu_torch.train import make_fused_train_step
+
+    for fn in counters.values():
+        fn.launches = 0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frei = FreiHandTSVDataset(write_freihand_tree(
+        os.path.join(tmp, "frei"), 48), is_train=True)
+    batch = next(iter(Loader(frei, B_TRAIN, device="cuda", shuffle=True)))
+    if not bool((batch["noise_enabled"] == 1).all()):
+        fail("FreiHAND rows are not noise-enabled")
+    state, m = make_fused_train_step()(state, gen, batch)
+    frei_loss = float(m["loss"])
+
+    root = os.path.join(tmp, "mixroot")
+    write_gan_tree(root, 24)
+    write_lighthand_tree(root, 24, 0)
+    mix = ConcatSource(GANeratedDataset(root),
+                       LightHandDataset(root, "train", num_our=24))
+    batch = next(iter(Loader(mix, B_TRAIN, device="cuda", shuffle=True)))
+    sel = batch["hm_max"]
+    if not (0 < float(sel.sum()) < B_TRAIN):
+        fail(f"the mix batch holds one style only: hm_max {sel.tolist()}")
+    step = make_fused_train_step(target_style="per_sample")
+    state, m = step(state, gen, batch)
+    mix_loss = float(m["loss"])
+    counts = {name: fn.launches for name, fn in counters.items()}
+    print(f"[frei+mix] FreiHAND TSV fused step loss {frei_loss:.6f}; "
+          f"per_sample step on GAN + LightHand ({int(sel.sum())} of "
+          f"{B_TRAIN} max-style) loss {mix_loss:.6f}; launches {counts}")
+    if not (math.isfinite(frei_loss) and math.isfinite(mix_loss)):
+        fail("non-finite loss in the FreiHAND or mix step")
+    if counts != {"fused_aug_targets": 2, "heatmap_targets": 0}:
+        fail(f"frei+mix launches {counts}, expected K1 twice")
+    return counts
 
 
 def main() -> int:
@@ -360,8 +648,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -370,6 +659,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
+    missing = [n for n in _build.SOURCES + _build.HOST_SOURCES
+               if not _build.library_path(n).exists()]
+    if missing:
+        fail(f"libraries not built: {missing}")
+
+    # 1b. the host image codec against cv2's stored results ---------------
+    codec_ms = codec_phase()
 
     # 2. K2 against its plain twin -----------------------------------------
     rng = np.random.default_rng(0)
@@ -506,8 +802,20 @@ def main() -> int:
         fail("bad predict output")
 
     # 6. the training entry point -------------------------------------------
-    cli_launches = cli_phase({"fused_aug_targets": fused_aug_targets_cuda,
-                              "heatmap_targets": generate_target_batch_cuda})
+    counters = {"fused_aug_targets": fused_aug_targets_cuda,
+                "heatmap_targets": generate_target_batch_cuda}
+    cli_launches, synth_fig = cli_phase(counters)
+
+    # 6b-6c. the real-data path: a LightHand tree through the CLI, then a
+    # FreiHAND TSV tree and a GAN + LightHand mix through fused steps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        real_launches, real_fig = real_tree_phase(counters, tmp)
+        mix_launches = frei_and_mix_phase(state, counters, tmp)
+    print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
+          f"train images, SimpleBaseline ResNet-50, bf16): synthetic "
+          f"{synth_fig['epoch_s']} / {synth_fig['img_s']}; LightHand tree "
+          f"of fixture JPEGs {real_fig['epoch_s']} / {real_fig['img_s']}; "
+          f"host codec ms {codec_ms}")
 
     # 7. reference: the trained weights in f32, card vs CPU ----------------
     weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
@@ -579,9 +887,13 @@ def main() -> int:
                 rows.append({
                     "name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": launches[name] + cli_launches[name],
+                    "launches": (launches[name] + cli_launches[name]
+                                 + real_launches[name] + mix_launches[name]),
                     "launches_by_path": {"steps": launches[name],
-                                         "cli": cli_launches[name]},
+                                         "cli": cli_launches[name],
+                                         "real_tree_cli": real_launches[name],
+                                         "frei_and_mix_steps":
+                                             mix_launches[name]},
                     "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": None})

@@ -57,7 +57,7 @@ class DataConfig:
     prefetch: int = 2              # device-side double buffering depth
     cache_crops: bool = True       # memmap decoded post-crop samples beside
     # the dataset tree (data/cache.py) — every source is deterministic per
-    # index, so epochs 2+ skip cv2 entirely on this 1-core host
+    # index, so epochs 2+ skip the decode and the crop
 
 
 @dataclasses.dataclass

@@ -2,20 +2,22 @@
 
 Counterpart of ``lighthand_tpu/data/registry.py`` (reference
 ``build_dataset``, src/tools/dataset.py:32-100), with the same routes,
-lengths and seeds for generated data:
+cache tokens, fingerprint paths, lengths and seeds:
 
-  ours, frei, rhd, interhand, gan -> generated data when ``--synthetic`` or
-                                     when the dataset tree is missing
-  mix  -> ours + frei + rhd, each routed on its own (``--ratio_of_other``
-          scales the non-LightHand part)
-  stb  -> unsupported (the reference's STB class is a non-functional stub,
-          dataset_loader.py:422-459)
-  --eval -> a generated stand-in for the Armo wrist-camera set, with
-            visibility, for both loaders
+  frei      -> FreiHAND TSV (--train_yaml), 90/10 random split
+  ours      -> LightHand train + LightHand eval (val_set)
+  rhd       -> RHD training/evaluation splits
+  interhand -> InterHand2.6M train/val
+  gan       -> GANeratedHands, 90/10 random split
+  mix       -> ours + frei + rhd, each routed on its own
+               (``--ratio_of_other`` scales the non-LightHand part)
+  stb       -> unsupported (the reference's STB class is a non-functional
+               stub, dataset_loader.py:422-459)
+  --eval    -> the Armo real wrist-camera set for both loaders
 
-The readers of the real trees are not ported yet (ROADMAP.md, Queue 1:
-dataset sources). Where a tree is present the port raises: it never puts
-generated data in place of a dataset it found.
+``--synthetic``, or a missing dataset tree, routes to generated data.
+Decoded crops are cached beside each tree (``data/cache.py``) unless
+``--no-cache-crops``.
 """
 
 from __future__ import annotations
@@ -24,18 +26,14 @@ import os
 from typing import Tuple
 
 from lighthand_tpu_torch.config import Config
+from lighthand_tpu_torch.data.cache import maybe_cache
 from lighthand_tpu_torch.data.records import (
     ConcatSource,
     Source,
     SubsetSource,
+    random_split_90_10,
 )
 from lighthand_tpu_torch.data.synthetic import SyntheticHands
-
-# where each route finds its tree (lighthand_tpu/data/registry.py)
-_TREES = {"ours": "LightHand", "rhd": "RHD_published_v2",
-          "interhand": "InterHand2.6M_5fps_batch1",
-          "gan": "GANeratedHands_Release"}
-
 
 def _synthetic_pair(cfg: Config) -> Tuple[Source, Source]:
     size = cfg.data.image_size
@@ -48,23 +46,20 @@ def _synthetic_pair(cfg: Config) -> Tuple[Source, Source]:
     return train, val
 
 
-def _tree_not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"found the dataset tree {path!r}, but its reader is not ported yet "
-        "(ROADMAP.md, Queue 1: dataset sources); pass --synthetic to train "
-        "on generated data")
-
-
 def build_dataset(cfg: Config, name: str = None) -> Tuple[Source, Source]:
     """``name`` overrides ``cfg.data.dataset`` for one dispatch (the mix
     route's sub-sources)."""
     root = cfg.data.dataset_root
+    size = cfg.data.image_size
     if cfg.eval.eval:
-        armo = os.path.join(root, "Armo_hand_dataset")
-        if not cfg.data.synthetic and os.path.isdir(armo):
-            raise _tree_not_ported(armo)
-        test = SyntheticHands(length=971, size=cfg.data.image_size,
-                              seed=555, with_visibility=True)
+        if cfg.data.synthetic or not os.path.isdir(
+                os.path.join(root, "Armo_hand_dataset")):
+            test = SyntheticHands(length=971, size=size, seed=555,
+                                  with_visibility=True)
+            return test, test
+        from lighthand_tpu_torch.data.armo import ArmoEvalSet
+
+        test = ArmoEvalSet(root, phase="eval", image_size=size)
         return test, test
 
     name = name or cfg.data.dataset
@@ -83,19 +78,86 @@ def build_dataset(cfg: Config, name: str = None) -> Tuple[Source, Source]:
 
     if cfg.data.synthetic:
         return _synthetic_pair(cfg)
+    cache = cfg.data.cache_crops
+
+    if name == "ours":
+        annos = os.path.join(root, "LightHand", "annotations")
+        if not os.path.isdir(os.path.join(root, "LightHand")):
+            return _synthetic_pair(cfg)
+        from lighthand_tpu_torch.data.lighthand import (
+            LightHandDataset,
+            LightHandValSet,
+        )
+
+        train = LightHandDataset(root, "train", num_our=cfg.data.num_our,
+                                 ratio_of_aug=cfg.data.ratio_of_aug,
+                                 image_size=size)
+        val = LightHandValSet(root, "eval", image_size=size)
+        train = maybe_cache(
+            train, root,
+            f"ours-train|{size}|{cfg.data.num_our}|{cfg.data.ratio_of_aug}",
+            enabled=cache,
+            fingerprint_paths=[
+                os.path.join(annos, "train", "CISLAB_train_data.json"),
+                os.path.join(annos, "train2", "CISLAB_train2_data.json"),
+            ])
+        val = maybe_cache(
+            val, root, f"ours-eval|{size}", enabled=cache,
+            fingerprint_paths=[
+                os.path.join(annos, "eval", "CISLAB_eval_data.json")])
+        return train, val
+
+    if name == "frei":
+        if not os.path.isfile(cfg.data.train_yaml):
+            return _synthetic_pair(cfg)
+        from lighthand_tpu_torch.data.freihand import FreiHandTSVDataset
+
+        full = FreiHandTSVDataset(cfg.data.train_yaml, is_train=True,
+                                  image_size=size)
+        # wrapped BEFORE the split, so cache rows live in full-dataset
+        # index space and both subsets share one memmap
+        fp = [cfg.data.train_yaml]
+        if hasattr(full.img_tsv, "tsv_path"):
+            fp.append(full.img_tsv.tsv_path)
+        full = maybe_cache(
+            full, os.path.dirname(cfg.data.train_yaml) or ".",
+            f"frei-train|{size}|{full.seed}", enabled=cache,
+            fingerprint_paths=fp)
+        return random_split_90_10(full, seed=cfg.data.shuffle_seed)
+
+    if name == "rhd":
+        if not os.path.isdir(os.path.join(root, "RHD_published_v2")):
+            return _synthetic_pair(cfg)
+        from lighthand_tpu_torch.data.rhd import RHDDataset
+
+        return tuple(
+            maybe_cache(RHDDataset(root, ph, size), root,
+                        f"rhd-{ph}|{size}", enabled=cache,
+                        fingerprint_paths=[os.path.join(
+                            root, "RHD_published_v2", ph,
+                            f"anno_{ph}.pickle")])
+            for ph in ("training", "evaluation"))
+
+    if name == "interhand":
+        if not os.path.isdir(os.path.join(root,
+                                          "InterHand2.6M_5fps_batch1")):
+            return _synthetic_pair(cfg)
+        from lighthand_tpu_torch.data.interhand import InterHandDataset
+
+        return (InterHandDataset(root, "train", size),
+                InterHandDataset(root, "val", size))
+
+    if name == "gan":
+        if not os.path.isdir(os.path.join(root, "GANeratedHands_Release")):
+            return _synthetic_pair(cfg)
+        from lighthand_tpu_torch.data.gan import GANeratedDataset
+
+        full = GANeratedDataset(root, size)
+        return random_split_90_10(full, seed=cfg.data.shuffle_seed)
+
     if name == "stb":
         raise NotImplementedError(
             "STB is a non-functional stub in the reference "
             "(dataset_loader.py:422-459: __getitem__ is print()); "
             "not supported here either.")
-    if name == "frei":
-        tree = cfg.data.train_yaml
-        present = os.path.isfile(tree)
-    elif name in _TREES:
-        tree = os.path.join(root, _TREES[name])
-        present = os.path.isdir(tree)
-    else:
-        raise ValueError(f"unknown dataset {name!r}")
-    if not present:
-        return _synthetic_pair(cfg)
-    raise _tree_not_ported(tree)
+    raise ValueError(f"unknown dataset {name!r}")

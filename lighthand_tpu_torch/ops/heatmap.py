@@ -6,6 +6,9 @@ truncated toward zero; a 13x13 support |d| <= 3*sigma; the unnormalised
 Gaussian exp(-(dx^2+dy^2) / (2 sigma^2)); a joint whose window lies wholly
 outside the map gives a zero map. This is the plain twin of the CUDA
 kernel in ``ops/kernels/heatmap.py``.
+
+``generate_heatmap_max_batch`` is the max-combine style of the GAN source
+and the Armo train/val phases.
 """
 
 from __future__ import annotations
@@ -59,3 +62,36 @@ def generate_target_batch(joints: torch.Tensor,
     return rasterize_centers(
         pack_centers(joints, heatmap_size, stride, sigma), heatmap_size,
         sigma)
+
+
+def generate_heatmap_max(joints: torch.Tensor, output_res: int = HEATMAP_SIZE,
+                         num_parts: int = 21) -> torch.Tensor:
+    """Max-combine targets for one sample, [J, 2+] joints in HEATMAP space
+    -> f32 [num_parts, R, R]: ``lighthand_tpu/ops/heatmap.py:
+    generate_heatmap_max`` (reference ``GenerateHeatmap.__call__``,
+    src/datasets/frei_dataloader.py:17-46)."""
+    return generate_heatmap_max_batch(joints[None], output_res, num_parts)[0]
+
+
+def generate_heatmap_max_batch(joints_hm: torch.Tensor,
+                               output_res: int = HEATMAP_SIZE,
+                               num_parts: int = 21) -> torch.Tensor:
+    """[B, J, 2+] joints in HEATMAP space (callers pass joints / stride, as
+    the reference does: ``GenerateHeatmap(64, 21)(joint/4)``,
+    dataset_loader.py:509) -> f32 [B, num_parts, R, R]. sigma = R/64; the
+    center is the joint truncated toward zero; the window is
+    |d| <= int(3 sigma + 1) around it; a joint counts only when x > 0 and
+    its center lies in [0, R) on both axes. Plain PyTorch, as the JAX
+    package computes it in jnp (no Pallas kernel)."""
+    joints = joints_hm[..., :num_parts, :2].float()
+    sigma = output_res / 64.0
+    half = int(3 * sigma + 1)
+    c = torch.trunc(joints).to(torch.int32)
+    idx = torch.arange(output_res, dtype=torch.int32, device=joints.device)
+    dx = idx[None, None, None, :] - c[..., 0, None, None]
+    dy = idx[None, None, :, None] - c[..., 1, None, None]
+    g = torch.exp(-(dx.float() ** 2 + dy.float() ** 2) / (2.0 * sigma ** 2))
+    support = (dx.abs() <= half) & (dy.abs() <= half)
+    valid = ((joints[..., 0] > 0) & (c[..., 0] >= 0) & (c[..., 1] >= 0)
+             & (c[..., 0] < output_res) & (c[..., 1] < output_res))
+    return g * support.float() * valid.float()[..., None, None]

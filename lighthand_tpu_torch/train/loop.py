@@ -37,6 +37,7 @@ from lighthand_tpu_torch.data import (
     preprocess_u8,
     source_heatmap_styles,
 )
+from lighthand_tpu_torch.data.cache import cached_sources
 from lighthand_tpu_torch.models import get_model
 from lighthand_tpu_torch.ops.metrics import PX_TO_MM_VALID_LOG
 from lighthand_tpu_torch.train.checkpoint import (
@@ -223,8 +224,19 @@ class Trainer:
         self.dispatch_timer.stop(mark, k)
         return metrics["loss"]
 
+    def _log_cache(self, epoch: int) -> None:
+        """Log (to log.txt only) the share of each decoded-crop cache that
+        is filled as the epoch starts: the share of its rows the epoch
+        reads back instead of decoding."""
+        for tag, src in (("train", self.train_src), ("valid", self.val_src)):
+            for c in cached_sources(src):
+                self.logger.debug(
+                    f"epoch {epoch}: {tag} cache {c.cache_dir} hit_fraction "
+                    f"{c.hit_fraction():.4f}")
+
     def run_train_epoch(self, loader: Loader, epoch: int) -> tuple[float, float]:
         cfg = self.cfg
+        self._log_cache(epoch)
         loader.set_epoch(epoch)
         self.generator.manual_seed(cfg.train.seed + epoch)
         losses = AverageMeter()

@@ -8,11 +8,12 @@ memory with no copy.
 
 On the card the MSRA targets come from the CUDA kernels: K1 (fused
 augmentation + targets) in ``make_fused_train_step``, K2 (targets) in
-``make_targets``, i.e. the eval step and ``make_train_step``.
+``make_targets``, i.e. the eval step and ``make_train_step``. The
+max-combine targets of the "max" and "per_sample" styles are plain PyTorch
+(``ops/heatmap.py``), as the JAX package computes them in jnp.
 
-Not ported yet (ROADMAP.md, Queue 1): the "max" and "per_sample" target
-styles and the ``flip`` / ``rot_deg`` augmentations; they raise
-``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1): the ``flip`` / ``rot_deg``
+augmentations; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from lighthand_tpu_torch.core.device import resolve_device
 from lighthand_tpu_torch.ops.decode import get_max_preds
+from lighthand_tpu_torch.ops.heatmap import generate_heatmap_max_batch
 from lighthand_tpu_torch.ops.kernels.fused_aug import (
     draw_aug_params,
     fused_aug_targets_cuda,
@@ -39,24 +41,46 @@ from lighthand_tpu_torch.train.state import TrainState
 Batch = Dict[str, torch.Tensor]
 
 TARGET_STYLES = ("msra", "max", "per_sample")
-_LATER = "is not ported yet (ROADMAP.md, Queue 1: target styles and affine ops)"
+_LATER = "is not ported yet (ROADMAP.md, Queue 1: affine ops)"
 
 
 def _check_style(style: str) -> None:
     if style not in TARGET_STYLES:
         raise ValueError(f"style must be one of {TARGET_STYLES}, got {style}")
-    if style != "msra":
-        raise NotImplementedError(f"target style {style!r} {_LATER}")
+
+
+def _max_style(joints_px: torch.Tensor, msra: torch.Tensor, style: str,
+               heatmap_size: int, stride: float,
+               hm_max: torch.Tensor | None) -> torch.Tensor:
+    """The targets of ``style`` given the MSRA ones: "msra" keeps them,
+    "max" replaces them with the max-combine maps of joints / stride,
+    "per_sample" takes the max-combine maps where ``hm_max`` is set."""
+    if style == "msra":
+        return msra
+    mx = generate_heatmap_max_batch(joints_px[..., :2] / stride,
+                                    heatmap_size, joints_px.shape[-2])
+    if style == "max":
+        return mx
+    if hm_max is None:
+        raise ValueError("target style 'per_sample' needs batch['hm_max']")
+    sel = hm_max.float()[:, None, None, None]
+    return mx * sel + msra * (1.0 - sel)
 
 
 def make_targets(joints_px: torch.Tensor, *, style: str = "msra",
                  heatmap_size: int = 64, stride: float = 4.0,
-                 sigma: float = 2.0) -> torch.Tensor:
-    """MSRA targets [B, J, H, H] (src/tools/dataset.py:165-212): the K2
-    kernel on a CUDA tensor, its plain twin on a CPU one."""
+                 sigma: float = 2.0,
+                 hm_max: torch.Tensor | None = None) -> torch.Tensor:
+    """Targets [B, J, H, H] by dataset style: "msra" (src/tools/
+    dataset.py:165-212) from the K2 kernel on a CUDA tensor, its plain twin
+    on a CPU one; "max" the max-combine maps (frei_dataloader.py:17-46,
+    the GAN source and the Armo train/val phases); "per_sample" selects by
+    ``hm_max`` (mixed-source loaders)."""
     _check_style(style)
-    return generate_target_batch_cuda(joints_px[..., :2], heatmap_size,
-                                      stride, sigma)
+    msra = (None if style == "max" else
+            generate_target_batch_cuda(joints_px[..., :2], heatmap_size,
+                                       stride, sigma))
+    return _max_style(joints_px, msra, style, heatmap_size, stride, hm_max)
 
 
 def _nchw(images_nhwc: torch.Tensor) -> torch.Tensor:
@@ -112,12 +136,13 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
     """Fused train step: u8 batch -> K1 (per-sample ColorJitter gated by
     ``aug_enabled``, channel noise gated by ``noise_enabled``, ImageNet
     normalize to ``compute_dtype``, MSRA targets) -> forward/backward ->
-    Adam.
+    Adam. For ``target_style`` "max" the targets are replaced by the
+    max-combine maps, for "per_sample" where the batch's ``hm_max`` is set.
 
     Returns step(state, generator, batch) -> (state, {"loss"}); the batch
     has image_u8 [K?, B, H, W, 3] u8, joints [K?, B, J, 2+], aug_enabled
-    and optional noise_enabled [K?, B], with the leading K only when
-    ``scan_steps`` > 1. The draws come from ``generator``. With K > 1 the
+    and optional noise_enabled [K?, B] (and hm_max [K?, B] for
+    "per_sample"), with the leading K only when ``scan_steps`` > 1. The draws come from ``generator``. With K > 1 the
     step runs K optimizer steps in order and reports their mean loss.
     ``state`` is updated in place."""
     _check_style(target_style)
@@ -127,13 +152,16 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     device = resolve_device(device)
 
-    def one(state, generator, images_u8, joints, aug_enabled, noise_enabled):
+    def one(state, generator, images_u8, joints, aug_enabled, noise_enabled,
+            hm_max):
         if not jitter:
             aug_enabled = torch.zeros_like(aug_enabled)
         params = draw_aug_params(generator, aug_enabled, noise_enabled)
         images, targets = fused_aug_targets_cuda(
             images_u8, joints, params.to(device), heatmap_size, stride, sigma,
             out_dtype=compute_dtype)
+        targets = _max_style(joints, targets, target_style, heatmap_size,
+                             stride, hm_max)
         return _update(state, _nchw(images), targets)
 
     def step(state: TrainState, generator: torch.Generator, batch: Batch):
@@ -141,6 +169,8 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
         fields = [_to(batch[k], device)
                   for k in ("image_u8", "joints", "aug_enabled")]
         fields.append(_to(batch.get("noise_enabled"), device))
+        fields.append(_to(batch.get("hm_max"), device)
+                      if target_style == "per_sample" else None)
         if scan_steps == 1:
             return state, {"loss": one(state, generator, *fields)}
         if fields[0].shape[0] != scan_steps:
@@ -173,7 +203,8 @@ def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
              else valid.float())
         targets = make_targets(joints, style=target_style,
                                heatmap_size=heatmap_size, stride=stride,
-                               sigma=sigma)
+                               sigma=sigma,
+                               hm_max=_to(batch.get("hm_max"), device))
         state.model.eval()
         pred = state.model(_nchw(_to(batch["image"], device))).float()
         per_sample = 0.5 * torch.mean((pred - targets) ** 2, dim=(1, 2, 3))

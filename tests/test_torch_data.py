@@ -114,27 +114,73 @@ def test_build_dataset_stb_and_unknown_raise(tmp_path):
         build_dataset(cfg, name="coco")
 
 
-@pytest.mark.parametrize("dataset,tree", [
-    ("ours", "LightHand"), ("frei", "frei.yaml"), ("rhd", "RHD_published_v2"),
-    ("interhand", "InterHand2.6M_5fps_batch1"),
-    ("gan", "GANeratedHands_Release"), ("mix", "RHD_published_v2"),
-    ("eval", "Armo_hand_dataset")])
-def test_build_dataset_present_tree_raises(tmp_path, dataset, tree):
-    """A dataset tree that is present is never replaced by generated data:
-    its reader is not ported, so the port raises; --synthetic still
-    routes to generated data."""
-    cfg, _ = _cfgs(tmp_path, "ours" if dataset == "eval" else dataset)
-    cfg.eval.eval = dataset == "eval"
-    path = tmp_path / "datasets" / tree
-    if tree.endswith(".yaml"):
-        path.parent.mkdir(parents=True)
-        path.write_text("img: train.img.tsv\n")
-    else:
-        path.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_dataset(cfg)
+def _write_tree(tmp_path, route):
+    """The tree(s) a route reads, under ``{tmp_path}/datasets``."""
+    import chip_smoke
+    from test_torch_sources import (
+        write_armo_tree,
+        write_interhand_tree,
+        write_rhd_tree,
+    )
+
+    root = str(tmp_path / "datasets")
+    if route in ("ours", "mix"):
+        chip_smoke.write_lighthand_tree(root, 12, 5)
+    if route in ("frei", "mix"):
+        chip_smoke.write_freihand_tree(root, 20)
+        (tmp_path / "datasets" / "train.yaml").rename(
+            tmp_path / "datasets" / "frei.yaml")
+    if route in ("rhd", "mix"):
+        for phase in ("training", "evaluation"):
+            write_rhd_tree(root, phase)
+    if route == "interhand":
+        for mode in ("train", "val"):
+            write_interhand_tree(root, mode)
+    if route == "gan":
+        chip_smoke.write_gan_tree(root, 10)
+    if route == "eval":
+        write_armo_tree(root)
+
+
+@pytest.mark.parametrize("route", ["ours", "frei", "rhd", "interhand", "gan",
+                                   "mix", "eval"])
+def test_build_dataset_present_tree_matches_jax(tmp_path, route):
+    """A present dataset tree is read, never replaced by generated data:
+    the port's sources equal the JAX package's (lengths, target styles,
+    every sample, read twice so the second read comes from each side's
+    decoded-crop cache); --synthetic still routes to generated data."""
+    _write_tree(tmp_path, route)
+    cfg, jcfg = _cfgs(tmp_path, "ours" if route == "eval" else route,
+                      ratio_of_aug=0.25, ratio_of_other=0.5)
+    cfg.eval.eval = jcfg.eval.eval = route == "eval"
+    got, want = build_dataset(cfg), jax_build_dataset(jcfg)
+    for src, ref in zip(got, want):
+        assert len(src) == len(ref) > 0
+        assert source_heatmap_styles(src) == jax_styles(ref)
+        assert not isinstance(src, SyntheticHands)
+        for _ in range(2):
+            for i in range(len(src)):
+                _assert_same_sample(src[i], ref[i])
+    if route == "gan":
+        assert source_heatmap_styles(got[0]) == {"max"}
     cfg.data.synthetic = True
-    assert len(build_dataset(cfg)[0]) > 0
+    synth = build_dataset(cfg)[0]
+    for part in (synth.sources if route == "mix" else [synth]):
+        while isinstance(part, SubsetSource):
+            part = part.base
+        assert isinstance(part, SyntheticHands)
+
+
+def test_no_cache_crops_reads_the_tree_uncached(tmp_path):
+    from lighthand_tpu_torch.data.cache import cached_sources
+
+    _write_tree(tmp_path, "ours")
+    cfg, _ = _cfgs(tmp_path, "ours")
+    train, val = build_dataset(cfg)
+    assert len(cached_sources(train)) == len(cached_sources(val)) == 1
+    cfg.data.cache_crops = False
+    train, val = build_dataset(cfg)
+    assert cached_sources(train) == cached_sources(val) == []
 
 
 def test_random_split_and_compositions_match_jax():

@@ -321,6 +321,39 @@ def test_transfer_loads_weights_only(tmp_path, monkeypatch):
         torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
 
 
+@pytest.mark.parametrize("route", ["ours", "gan"])
+def test_trainer_on_a_real_tree_fills_then_reads_the_cache(tmp_path, route):
+    """Two epochs on a generated LightHand tree (MSRA targets): the first
+    fills the decoded-crop cache, the second reads every row from it, which
+    the log reports as hit_fraction 1. On a GAN tree (max targets, no cache
+    on that route, as in the JAX package) the log reports no cache."""
+    import chip_smoke
+
+    root = tmp_path / "datasets"
+    if route == "ours":
+        chip_smoke.write_lighthand_tree(str(root), 16, 5)
+    else:
+        chip_smoke.write_gan_tree(str(root), 20)
+    cfg = _cfg(Config, tmp_path, f"real_{route}", data__synthetic=False,
+               data__dataset=route, data__dataset_root=str(root))
+    trainer = loop.Trainer(cfg)
+    assert trainer._dispatch_fields[-1] == "noise_enabled"  # no per_sample
+    result = trainer.fit()
+    assert np.isfinite([result.train_loss, result.val_loss]).all()
+    with open(os.path.join(cfg.output_dir, "log.txt")) as f:
+        log = f.read()
+    for epoch in (0, 1):
+        lines = [ln for ln in log.splitlines()
+                 if f"epoch {epoch}: train cache" in ln]
+        if route == "gan":
+            assert lines == [] and "cache" not in log
+            continue
+        assert len(lines) == 1, log
+        frac = float(lines[0].rsplit(" ", 1)[1])
+        assert frac == 1.0 if epoch == 1 else frac < 1.0
+    assert sorted(_scalars(cfg, "Loss/train")) == [0, 1]
+
+
 def test_cli_main_on_the_cpu_prints_done(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert cli_train.main([

@@ -239,7 +239,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "flax", "optax",
-                                    "lighthand_tpu"), (path, name)
+                                    "lighthand_tpu", "cv2", "PIL"), (
+                                        path, name)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -251,7 +252,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {mods!r} + ['chip_smoke', 'kernel_breakdown']: "
             "importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'lighthand_tpu')]\n"
+            "('jax', 'lighthand_tpu', 'cv2', 'PIL')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code, str(REPO)],
                          capture_output=True, text=True, timeout=120,
@@ -259,16 +260,116 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("style,exc", [("max", NotImplementedError),
-                                       ("per_sample", NotImplementedError),
+@pytest.mark.parametrize("style,exc", [("max", None), ("per_sample", None),
                                        ("gaussian", ValueError)])
 def test_unported_target_styles_raise(style, exc):
-    with pytest.raises(exc):
-        make_targets(torch.zeros(1, 21, 2), style=style)
-    with pytest.raises(exc):
-        make_eval_step(target_style=style, device="cpu")
-    with pytest.raises(exc):
-        make_fused_train_step(target_style=style, device="cpu")
+    """Only an unknown style raises: "max" and "per_sample" are ported."""
+    calls = (lambda: make_targets(torch.zeros(1, 21, 2), style=style,
+                                  hm_max=torch.ones(1)),
+             lambda: make_eval_step(target_style=style, device="cpu"),
+             lambda: make_fused_train_step(target_style=style, device="cpu"))
+    for call in calls:
+        if exc is None:
+            call()
+        else:
+            with pytest.raises(exc):
+                call()
+
+
+@pytest.mark.parametrize("hm,stride,njoints", [(64, 4.0, 21), (16, 4.0, 21),
+                                               (50, 3.0, 21), (32, 2.0, 14)])
+@pytest.mark.parametrize("style", ["max", "per_sample", "msra"])
+def test_make_targets_styles_match_jax(style, hm, stride, njoints):
+    """Max-combine maps (sigma = hm/64, truncated centers, |d| <= 3s+1, a
+    joint only when x > 0 and in bounds) and the per-sample select, with
+    joints on and off the map edges, within 1e-6."""
+    from lighthand_tpu.train.step import make_targets as jax_make_targets
+
+    rng = np.random.default_rng(hm + njoints)
+    joints = rng.uniform(-20, hm * stride + 20, size=(6, njoints, 3))
+    joints[0, :4, 0] = [0.0, -0.5, 1e-3, hm * stride - 0.01]
+    joints = joints.astype(np.float32)
+    hm_max = np.array([1, 0, 1, 1, 0, 0], np.float32)
+    got = make_targets(T(joints), style=style, heatmap_size=hm, stride=stride,
+                       hm_max=T(hm_max))
+    want = jax_make_targets(jnp.asarray(joints), style=style,
+                            heatmap_size=hm, stride=stride,
+                            hm_max=jnp.asarray(hm_max))
+    assert tuple(got.shape) == want.shape == (6, njoints, hm, hm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    if style == "max" and njoints == 21:  # the one-sample form
+        from lighthand_tpu.ops.heatmap import generate_heatmap_max as jax_one
+
+        from lighthand_tpu_torch.ops.heatmap import generate_heatmap_max
+
+        np.testing.assert_allclose(
+            generate_heatmap_max(T(joints[0] / stride), hm).numpy(),
+            np.asarray(jax_one(jnp.asarray(joints[0] / stride), hm)),
+            rtol=0, atol=1e-6)
+
+
+def test_per_sample_needs_hm_max():
+    with pytest.raises(ValueError, match="hm_max"):
+        make_targets(torch.zeros(1, 21, 2), style="per_sample")
+
+
+@pytest.mark.parametrize("style", ["per_sample", "max"])
+def test_fused_train_step_max_styles_match_jax(style):
+    """The fused step with max-combine targets (K1's image, targets
+    replaced where hm_max is set) against the JAX package's jnp chain, one
+    step each. Jitter and noise are off, so neither side draws anything
+    that reaches the image (the injected draws are the identity)."""
+    jstate, pstate = _pair()
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, size=(4, 64, 64, 3), dtype=np.uint8)
+    joints = rng.uniform(4, 60, size=(4, 21, 2)).astype(np.float32)
+    off = np.zeros(4, np.float32)
+    hm_max = np.array([1, 0, 0, 1], np.float32)
+    jstep = jax_fused_step(heatmap_size=16, stride=4.0, jitter=True,
+                           target_style=style, compute_dtype=jnp.float32,
+                           use_pallas_aug=False)
+    pstep = make_fused_train_step(heatmap_size=16, target_style=style,
+                                  compute_dtype=torch.float32, device="cpu")
+    jstate, jm = jstep(jstate, jax.random.PRNGKey(0),
+                       {"image_u8": jnp.asarray(images),
+                        "joints": jnp.asarray(joints),
+                        "aug_enabled": jnp.asarray(off),
+                        "noise_enabled": jnp.asarray(off),
+                        "hm_max": jnp.asarray(hm_max)})
+    pstate, pm = pstep(pstate, torch.Generator().manual_seed(0),
+                       {"image_u8": T(images), "joints": T(joints),
+                        "aug_enabled": T(off), "noise_enabled": T(off),
+                        "hm_max": T(hm_max)})
+    np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    want = hrnet_from_flax(_variables(jstate), HRNetCfg.tiny())
+    got = pstate.model.state_dict()
+    for k, w in want.items():
+        if k.endswith(("num_batches_tracked", "running_mean",
+                       "running_var")):
+            continue
+        # one Adam step moves a param by about lr * sign(g): a sign the
+        # two summation orders decide differently is 2 lr apart
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=0,
+                                   atol=2 * LR * (1 + 1e-3), err_msg=k)
+
+
+def test_eval_step_per_sample_matches_jax():
+    jstate, pstate = _pair()
+    rng = np.random.default_rng(6)
+    images = rng.normal(size=(4, 64, 64, 3)).astype(np.float32)
+    joints = rng.uniform(4, 60, size=(4, 21, 2)).astype(np.float32)
+    hm_max = np.array([0, 1, 1, 0], np.float32)
+    jm = jax_eval_step(heatmap_size=16, target_style="per_sample")(
+        jstate, {"image": jnp.asarray(images), "joints": jnp.asarray(joints),
+                 "hm_max": jnp.asarray(hm_max)})
+    pm = make_eval_step(heatmap_size=16, target_style="per_sample",
+                        device="cpu")(pstate, {"image": T(images),
+                                               "joints": T(joints),
+                                               "hm_max": T(hm_max)})
+    np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("kw", [{"flip": True}, {"rot_deg": 15.0}])
