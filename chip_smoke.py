@@ -6,7 +6,7 @@
 Phases (any failure raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   both CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc and
+   the three CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc and
    the host libraries of the data readers (the image codec, the TSV
    engine) with the host C++ compiler, all at once;
 1b. the codec: every committed fixture image (``tests/fixtures/images``)
@@ -31,12 +31,23 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    block to an SM, where 256x256 runs 16 blocks of 512); and B=2 at 16x16
    with 40 joints (one block quantising more maps than it keeps in shared
    memory);
+2b. the int8 conv (``csrc/int8_conv.cu``) against its plain twin, bit for
+   bit (0 differing values), bf16 and f32 output: every distinct quantized
+   conv shape of ResNet-50 (53 convs) and HRNet-W32 (292), read by hooks,
+   at batch 32, 256x256, and ragged cases (N=3 at 97x131 with the 7x7 and
+   3x3 stems, Cout 40, 33 and 100, Cin 8); the twin runs on the card with
+   cuDNN off (im2col + DGEMM, exact on integers);
 4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
    ``make_fused_train_step`` for 3 steps; K1 must launch 3 times and every
    loss be finite;
 5. the main path, eval: ``make_eval_step`` twice on a batch of 32 whose last
    4 rows are padding (n_valid must be 28, K2 must launch), then
    ``make_predict_step`` once;
+4b. int8 training: HRNet-W32, ``DTypePolicy.int8_fwd()``, 3 fused steps:
+   finite losses, K1 3 launches, the int8 kernel 3 x 292;
+5b. int8 serving: phase 4's W32 weights predicted under bf16 and under
+   int8_fwd (``load_state_dict``), the share of joints within 1 heatmap px
+   of each other printed; 292 int8 launches;
 6. the training entry point: ``lighthand_tpu_torch.cli.train.main`` in a
    temporary directory, SimpleBaseline ResNet-50 at 256x256, batch 32, bf16,
    synthetic data (128 train samples, 32 val), 3 microbatches a dispatch:
@@ -60,6 +71,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    fused step (TSV engine, base64, decode, inverse-map warp, noise rows),
    then one ``per_sample`` fused step on a GAN + LightHand mix (max-combine
    targets where ``hm_max`` is set); K1 must launch twice;
+6d. the eval entry point: ``lighthand_tpu_torch.cli.eval.main`` on 6b's run
+   (SimpleBaseline ResNet-50, bf16 checkpoint) over an Armo tree of the
+   fixture JPEGs (64 records, 16 a category, some joints hidden, 2 short
+   records dropped), with the checkpoint's precision, with ``--precision
+   int8_fwd`` and with ``--test``: exit 0, evaluation.json's categories and
+   counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
+   the --test AUC lines, 53 int8 launches a batch under int8_fwd and none
+   otherwise; img/s of each run;
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -71,9 +90,18 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 6, 6b and 6c (each also under ``launches_by_path``; each
-   path's counts are zeroed just before it and read just after). The last
-   line is the ok line.
+   phases 4-5, 4b, 5b, 6, 6b, 6c and 6d (each also under
+   ``launches_by_path``; each path's counts are zeroed just before it and
+   read just after);
+8b. the int8 conv at the heaviest shape (by operations a forward) of
+   ResNet-50 and of HRNet-W32, batch 32: eager and device time, its twin's
+   time, its bound (int8 tensor-core operations or bytes), the GEMM of
+   ``torch._int_mm`` on the im2col of the same operands (checked equal to
+   the kernel) and cuDNN's bf16 conv of the shape; the shape with more
+   operations a call makes the kernels line's ``int8_conv`` row;
+8c. the eval forward of ResNet-50 and HRNet-W32 at bs32 under bf16 and
+   int8_fwd, with the profiler's device time by kernel and the device's
+   busy share of it. The last line is the ok line.
 
 Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
@@ -96,12 +124,13 @@ import sys
 import tempfile
 import time
 
-# Published peaks (NVIDIA data sheets, dense): memory bytes/s and f32
-# (non-tensor-core) operations/s, keyed by a substring of the card's name.
+# Published peaks (NVIDIA data sheets, dense): memory bytes/s, f32
+# (non-tensor-core) operations/s and int8 tensor-core operations/s, keyed
+# by a substring of the card's name.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),  # SXM
+    "H100 PCIe": (2.0e12, 51e12, 1513e12),
+    "H100 NVL": (3.9e12, 60e12, 1671e12),
+    "H100": (3.35e12, 67e12, 1979e12),  # SXM
 }
 # f32 operations per pixel of K1's function: u8/255 (3), brightness (9),
 # contrast incl. its gray mean (21), saturation (20), hue (~42), the
@@ -125,9 +154,13 @@ def peaks(name: str):
     return PEAKS["H100"]
 
 
-def bound_ms(nbytes: float, ops: float, name: str):
-    bw, flops = peaks(name)
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+def bound_ms(nbytes: float, ops: float, name: str, int8: bool = False):
+    """The least time for the work: bytes over the memory rate or the
+    operations over the peak rate of their type (f32, or int8 tensor-core
+    operations), whichever is larger."""
+    bw, flops, int8_ops = peaks(name)
+    rate = int8_ops if int8 else flops
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -339,6 +372,38 @@ def write_gan_tree(root: str, n: int) -> None:
                     + ",")
 
 
+POSE_CATEGORIES = ("Standard", "Occlusion_by_Pinky", "Occlusion_by_Thumb",
+                   "Occlusion_by_Both")
+
+
+def write_armo_tree(root: str, n: int, n_bad: int = 2) -> None:
+    """An Armo eval tree: ``{root}/Armo_hand_dataset/rgb/{id}.jpg`` (the
+    224x224 fixture JPEGs in turn) and ``annotations.json`` with ``n``
+    records cycling through the four pose categories, normalized joints,
+    every 5th record's last 1-3 joints not visible, then ``n_bad`` records
+    with fewer than 21 coordinates, which the reader drops."""
+    import shutil
+
+    jpegs = _square_jpegs()
+    rgb = os.path.join(root, "Armo_hand_dataset", "rgb")
+    os.makedirs(rgb, exist_ok=True)
+    annos = {}
+    for i in range(n + n_bad):
+        e = jpegs[i % len(jpegs)]
+        shutil.copyfile(e["path"], os.path.join(rgb, f"im{i:04d}.jpg"))
+        coords = [[x / 224.0, y / 224.0] for x, y in e["joints"]]
+        hidden = 1 + i % 3 if i % 5 == 0 else 0
+        visible = [1.0] * (21 - hidden) + [0.0] * hidden
+        if i >= n:
+            coords = coords[:10 + i - n]
+        annos[f"k{i:04d}"] = {"coordinates": coords, "visible": visible,
+                              "pose_ctgy": POSE_CATEGORIES[i % 4],
+                              "image_id": f"im{i:04d}"}
+    with open(os.path.join(root, "Armo_hand_dataset", "annotations.json"),
+              "w") as f:
+        json.dump(annos, f)
+
+
 def _scalars(run_dir: str) -> list:
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -348,20 +413,29 @@ def _by_epoch(rows: list, tag: str) -> dict:
     return {r["step"]: r["value"] for r in rows if r["tag"] == tag}
 
 
-def run_cli(argv: list, counters, tag: str) -> tuple:
-    """One call of the training CLI's ``main``, every kernel's count zeroed
-    just before it and read just after; its output is printed with ``tag``.
-    Returns (exit code, output, wall seconds, launches)."""
-    from lighthand_tpu_torch.cli import train as cli_train
-
+def zero(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+
+
+def read(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def run_cli(argv: list, counters, tag: str, entry: str = "train") -> tuple:
+    """One call of the training (or eval) CLI's ``main``, every kernel's
+    count zeroed just before it and read just after; its output is printed
+    with ``tag``. Returns (exit code, output, wall seconds, launches)."""
+    import importlib
+
+    cli = importlib.import_module(f"lighthand_tpu_torch.cli.{entry}")
+    zero(counters)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli_train.main(argv)
+        rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters.items()}
+    counts = read(counters)
     text = out.getvalue()
     print("\n".join(f"[{tag}] {line}" for line in text.splitlines()))
     return rc, text, wall, counts
@@ -414,7 +488,7 @@ def cli_phase(counters) -> tuple:
                 if f"Start_epoch: {first}" not in text:
                     fail(f"CLI run {tag} did not start at epoch {first}")
                 want = {"fused_aug_targets": 4 * len(ran),
-                        "heatmap_targets": len(ran)}
+                        "heatmap_targets": len(ran), "int8_conv": 0}
                 if counts != want:
                     fail(f"CLI run {tag}: launches {counts}, expected {want}"
                          " (K1 once per optimizer step, K2 once per eval "
@@ -533,7 +607,7 @@ def real_tree_phase(counters, tmp: str) -> tuple:
     check_run("real-tree CLI", rc, text, train, valid, [0, 1])
     # K1 once per optimizer step, K2 once per eval batch, for 2 epochs
     want = {"fused_aug_targets": 2 * (128 // B_TRAIN),
-            "heatmap_targets": 2 * math.ceil(32 / B_TRAIN)}
+            "heatmap_targets": 2 * math.ceil(32 / B_TRAIN), "int8_conv": 0}
     if counts != want:
         fail(f"real-tree CLI: launches {counts}, expected {want}")
     hits = {(int(e), tag): float(frac) for e, tag, frac in re.findall(
@@ -576,8 +650,7 @@ def frei_and_mix_phase(state, counters, tmp: str) -> dict:
     from lighthand_tpu_torch.data.lighthand import LightHandDataset
     from lighthand_tpu_torch.train import make_fused_train_step
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero(counters)
     gen = torch.Generator(device="cuda").manual_seed(5)
     frei = FreiHandTSVDataset(write_freihand_tree(
         os.path.join(tmp, "frei"), 48), is_train=True)
@@ -599,15 +672,399 @@ def frei_and_mix_phase(state, counters, tmp: str) -> dict:
     step = make_fused_train_step(target_style="per_sample")
     state, m = step(state, gen, batch)
     mix_loss = float(m["loss"])
-    counts = {name: fn.launches for name, fn in counters.items()}
+    counts = read(counters)
     print(f"[frei+mix] FreiHAND TSV fused step loss {frei_loss:.6f}; "
           f"per_sample step on GAN + LightHand ({int(sel.sum())} of "
           f"{B_TRAIN} max-style) loss {mix_loss:.6f}; launches {counts}")
     if not (math.isfinite(frei_loss) and math.isfinite(mix_loss)):
         fail("non-finite loss in the FreiHAND or mix step")
-    if counts != {"fused_aug_targets": 2, "heatmap_targets": 0}:
+    if counts != {"fused_aug_targets": 2, "heatmap_targets": 0,
+                  "int8_conv": 0}:
         fail(f"frei+mix launches {counts}, expected K1 twice")
     return counts
+
+# --------------------------------------------------------------- int8 conv
+
+
+def quant_conv_shapes(name: str) -> dict:
+    """{(Cin, H, W, Cout, k, stride): uses} of the quantized convs of model
+    ``name`` at SIZE x SIZE, read by hooks from a batch-1 forward on the
+    card (before any counted path)."""
+    import torch
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.models.layers import QuantConv2d
+
+    model = get_model(name, policy=DTypePolicy.int8_fwd()).eval().to(
+        "cuda", memory_format=torch.channels_last)
+    shapes = {}
+
+    def hook(mod, args):
+        x = args[0]
+        key = (x.shape[1], x.shape[2], x.shape[3], mod.out_channels,
+               mod.kernel_size[0], mod.stride[0])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for m in model.modules():
+        if isinstance(m, QuantConv2d):
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(1, 3, SIZE, SIZE, device="cuda").to(
+            memory_format=torch.channels_last))
+    return shapes
+
+
+def conv_ops(n: int, shape) -> int:
+    """2 N Ho Wo Cout k^2 Cin: a multiply and an add per weight and pixel."""
+    cin, h, w, cout, k, s = shape
+    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+    return 2 * n * ho * wo * cout * k * k * cin
+
+
+def int8_inputs(n: int, shape, seed: int):
+    """s8 activations (channels_last, on the card), s8 weights [Cout, k, k,
+    Cin] and f32 scales of one conv shape, drawn from ``seed``."""
+    import numpy as np
+    import torch
+
+    cin, h, w, cout, k, _ = shape
+    rng = np.random.default_rng(seed)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin),
+                                        dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin),
+                                        dtype=np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-3, cout).astype(np.float32))
+    return (x_q.cuda().permute(0, 3, 1, 2), w_q.cuda(), scale.cuda())
+
+
+def int8_twin(x_q, w_q, scale, stride, pad, out_dtype):
+    """The plain twin on the card with cuDNN off: the float64 conv then goes
+    to im2col + cuBLAS DGEMM, exact on integers (no FFT or Winograd)."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_plain
+
+    with torch.backends.cudnn.flags(enabled=False):
+        return int8_conv2d_plain(x_q, w_q, scale, stride, pad, out_dtype)
+
+
+def int8_check_phase(shapes: dict) -> int:
+    """Phase 2b: the int8 kernel against its twin, bit for bit (0 differing
+    values), in bf16 and f32 output: every distinct quantized conv shape of
+    ResNet-50 and HRNet-W32 at batch 32, and ragged cases. Returns the
+    largest |kernel - twin| (0 where it passes)."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_cuda
+
+    distinct = sorted({key for model in shapes.values() for key in model})
+    ragged = [  # (N, (Cin, H, W, Cout, k, stride))
+        (3, (3, 97, 131, 64, 7, 2)),     # N=3, 97x131, the 7x7 stem, Cin 3
+        (3, (3, 97, 131, 64, 3, 2)),     # the 3x3 stem on an odd size
+        (3, (64, 97, 131, 40, 3, 2)),    # Cout 40: a part-filled 64 tile
+        (2, (48, 33, 17, 33, 1, 2)),     # odd Cout, 1x1 stride 2, odd size
+        (5, (32, 15, 15, 100, 3, 1)),    # Cin 32, Cout 100
+        (1, (8, 9, 11, 24, 3, 2)),       # Cin 8: byte gathers
+    ]
+    cases = [(B_TRAIN, key) for key in distinct] + ragged
+    err = 0.0
+    for i, (n, key) in enumerate(cases):
+        x_q, w_q, scale = int8_inputs(n, key, 100 + i)
+        k, stride = key[4], key[5]
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = int8_conv2d_cuda(x_q, w_q, scale, stride, k // 2,
+                                   out_dtype)
+            want = int8_twin(x_q, w_q, scale, stride, k // 2, out_dtype)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            if got.shape != want.shape or bad:
+                fail(f"int8 conv differs from its twin at N={n} {key} "
+                     f"{out_dtype}: {bad} values")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        del x_q, w_q, scale, got, want
+    print(f"[int8] kernel equals its twin bit for bit on {len(cases)} shapes "
+          f"x (bf16, f32): {len(distinct)} distinct conv shapes of "
+          f"ResNet-50 and HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE}, and "
+          f"{len(ragged)} ragged ones; max |kernel - twin| {err}")
+    return err
+
+
+def int8_train_phase(batch, counters, n_quant: int) -> dict:
+    """Phase 4b: HRNet-W32 256x256 bs32 under DTypePolicy.int8_fwd(), 3
+    fused train steps. Every loss finite; K1 3 launches, the int8 kernel 3
+    x the model's quantized convs. Returns the launches."""
+    import torch
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_fused_train_step,
+    )
+
+    state = create_train_state(
+        get_model("hrnet_w32", policy=DTypePolicy.int8_fwd()),
+        torch.Generator().manual_seed(0), lr=1e-3)
+    step = make_fused_train_step(scan_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    zero(counters)
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, gen, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+    counts = read(counters)
+    print(f"[int8 train] HRNet-W32 {SIZE}x{SIZE} bs{B_TRAIN} int8_fwd: "
+          f"losses {losses}; step ms {[round(t * 1e3, 2) for t in step_s]};"
+          f" launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite int8 train loss: {losses}")
+    want = {"fused_aug_targets": 3, "heatmap_targets": 0,
+            "int8_conv": 3 * n_quant}
+    if counts != want:
+        fail(f"int8 train launches {counts}, expected {want}")
+    return counts
+
+
+def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
+    """Phase 5b: phase 4's trained W32 served under bf16 and under
+    int8_fwd (the same weights through load_state_dict); prints the share
+    of joints whose two predictions lie within 1 heatmap px of each other
+    on both axes. The int8 predict launches the kernel once per quantized
+    conv."""
+    import torch
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.train import create_train_state, make_predict_step
+
+    model = get_model("hrnet_w32", policy=DTypePolicy.int8_fwd())
+    model.load_state_dict(state.model.state_dict())
+    int8_state = create_train_state(model)
+    predict = make_predict_step()
+    zero(counters)
+    bf16_joints, _ = predict(state, images)
+    int8_joints, maxvals = predict(int8_state, images)
+    torch.cuda.synchronize()
+    counts = read(counters)
+    stride = SIZE / HM
+    near = ((bf16_joints - int8_joints).abs() <= stride).all(-1)
+    share = float(near.float().mean())
+    print(f"[int8 serve] W32 after phase 4: {100 * share:.2f} % of "
+          f"{near.numel()} joints within 1 heatmap px of the bf16 "
+          f"prediction; launches {counts}")
+    if (not torch.isfinite(int8_joints).all()
+            or not torch.isfinite(maxvals).all()):
+        fail("non-finite int8 predictions")
+    if counts != {"fused_aug_targets": 0, "heatmap_targets": 0,
+                  "int8_conv": n_quant}:
+        fail(f"int8 serving launches {counts}, expected {n_quant} int8")
+    return counts
+
+
+def _pck_rows(path: str) -> list:
+    with open(path) as f:
+        return [line.rstrip(";").split(";") for line in f.read().splitlines()]
+
+
+def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
+    """Phase 6d: ``lighthand_tpu_torch.cli.eval.main`` on phase 6b's run
+    tree (SimpleBaseline ResNet-50, bf16) over an Armo tree of the fixture
+    JPEGs (64 records, 16 per category, some joints hidden, plus 2 short
+    records that are dropped), three times: with the checkpoint's precision,
+    with ``--precision int8_fwd`` and with ``--test``. Checks exit code 0,
+    evaluation.json's categories and counts, the three pck_eval files (5
+    rows of finite AUC and EPE and 100 PCK values), the --test AUC lines,
+    and int8 launches of 53 per batch under int8_fwd and none otherwise.
+    Returns the launches summed over the three runs and img/s per run."""
+    import numpy as np
+
+    armo = os.path.join(tmp, "armo")
+    n_rec = 64
+    write_armo_tree(armo, n_rec)
+    argv = ["--root", "simplebaseline/ours", "--name", "real", "--eval",
+            "--dataset-root", armo, "--batch_size", str(B_TRAIN)]
+    batches = math.ceil(n_rec / B_TRAIN)
+    run_dir = os.path.join(tmp, "output", "simplebaseline", "ours", "real")
+    total = {name: 0 for name in counters}
+    ips = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for tag, extra in (("bf16", []), ("int8_fwd", ["--precision",
+                                                       "int8_fwd"]),
+                           ("test", ["--test"])):
+            for f in os.listdir(tmp):
+                if f.startswith("pck_eval_"):
+                    os.remove(f)
+            rc, text, wall, counts = run_cli(argv + extra, counters,
+                                             f"eval {tag}", entry="eval")
+            ips[tag] = n_rec / wall
+            print(f"[eval {tag}] {wall:.2f} s in main = {ips[tag]:.1f} "
+                  f"img/s ({n_rec} images, bs{B_TRAIN}); launches {counts}")
+            if rc != 0:
+                fail(f"eval CLI ({tag}) exited {rc}")
+            want = {"fused_aug_targets": 0, "heatmap_targets": 0,
+                    "int8_conv": n_quant * batches if tag == "int8_fwd"
+                    else 0}
+            if counts != want:
+                fail(f"eval CLI ({tag}): launches {counts}, expected {want}")
+            for name in total:
+                total[name] += counts[name]
+            if tag == "test":
+                lines = [ln for ln in text.splitlines() if "auc=" in ln]
+                if len(lines) != 3 or not all(
+                        math.isfinite(float(v)) for ln in lines
+                        for v in re.findall(r"=(-?[0-9.]+)", ln)):
+                    fail(f"eval CLI --test: bad AUC lines {lines}")
+                with open(os.path.join(tmp, "final_model", "simplebaseline",
+                                       "ours", "real", "test.json")) as f:
+                    flat = json.load(f)[0]
+                if np.asarray(flat["gt"]).shape != (1, n_rec, 21, 2):
+                    fail("eval CLI --test: bad test.json")
+                continue
+            with open(os.path.join(run_dir, "evaluation.json")) as f:
+                store = json.load(f)[0]
+            counts_by_cat = {c: len(v["gt"]) for c, v in store.items()}
+            if counts_by_cat != {c: n_rec // 4 for c in POSE_CATEGORIES}:
+                fail(f"eval CLI ({tag}): categories {counts_by_cat}")
+            files = sorted(f for f in os.listdir(tmp)
+                           if f.startswith("pck_eval_"))
+            if len(files) != 3:
+                fail(f"eval CLI ({tag}): pck files {files}")
+            for name in files:
+                rows = _pck_rows(os.path.join(tmp, name))
+                if ([r[0] for r in rows] != list(POSE_CATEGORIES)
+                        + ["mean_auc"]
+                        or any(len(r) != 104 for r in rows)
+                        or not all(math.isfinite(float(v)) for r in rows
+                                   for v in r[2:])):
+                    fail(f"eval CLI ({tag}): bad rows in {name}")
+            mean = _pck_rows(os.path.join(tmp, files[0]))[-1]
+            print(f"[eval {tag}] {files[0]}: mean_auc AUC {mean[2]} EPE "
+                  f"{mean[3]} mm")
+    finally:
+        os.chdir(cwd)
+    return total, ips
+
+
+def int8_times(kind: str, shape, seed: int) -> dict:
+    """Phase 8b at one conv shape, batch 32: the kernel's eager and device
+    time (CUDA graph replay), its twin's time, its bound, the time of
+    ``torch._int_mm`` on the same operands after im2col (the GEMM alone;
+    where its shape rules allow it) and of the cuDNN bf16 conv of the
+    shape, which the bf16 policy runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv2d_cuda,
+        out_size,
+    )
+
+    cin, h, w, cout, k, stride = shape
+    pad = k // 2
+    x_q, w_q, scale = int8_inputs(B_TRAIN, shape, seed)
+    fn = lambda: int8_conv2d_cuda(x_q, w_q, scale, stride, pad)  # noqa: E731
+    ms = eager_ms(fn)
+    graph = capture(fn)
+    dev_ms, how = device_ms(fn, graph)
+    del graph
+    plain_ms = eager_ms(lambda: int8_twin(x_q, w_q, scale, stride, pad,
+                                          torch.bfloat16), calls=5)
+    ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
+    m = B_TRAIN * ho * wo
+    ops = conv_ops(B_TRAIN, shape)
+    nbytes = x_q.numel() + w_q.numel() + 4 * cout + 2 * m * cout
+    bound, by = bound_ms(nbytes, ops, kind, int8=True)
+
+    kk = cin * k * k
+    library_ms = None
+    if kk % 8 == 0 and cout % 8 == 0 and m > 16:
+        cols = F.unfold(x_q.float(), k, padding=pad, stride=stride)
+        a = cols.transpose(1, 2).reshape(m, kk).to(torch.int8).contiguous()
+        del cols
+        b = w_q.permute(0, 3, 1, 2).reshape(cout, kk).contiguous().t()
+        try:
+            acc = torch._int_mm(a, b)
+        except RuntimeError as exc:  # a yardstick only; the port never calls it
+            print(f"note: torch._int_mm refused {shape}: {exc}")
+        else:
+            ref = (acc.float() * scale).to(torch.bfloat16)
+            got = fn().permute(0, 2, 3, 1).reshape(m, cout)
+            if not torch.equal(ref, got):
+                fail(f"torch._int_mm and the int8 kernel disagree at {shape}")
+            library_ms = eager_ms(lambda: torch._int_mm(a, b))
+            graph = capture(lambda: torch._int_mm(a, b))
+            lib_dev, _ = device_ms(lambda: torch._int_mm(a, b), graph)
+            del graph, acc, ref
+        del a, b
+    x16 = torch.randn(B_TRAIN, cin, h, w, device="cuda").to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    w16 = torch.randn(cout, cin, k, k, device="cuda").to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    conv = lambda: F.conv2d(x16, w16, None, stride, pad)  # noqa: E731
+    cudnn_ms = eager_ms(conv)
+    graph = capture(conv)
+    cudnn_dev, _ = device_ms(conv, graph)
+    del graph
+    print(f"[int8_conv] N={B_TRAIN} Cin={cin} {h}x{w} Cout={cout} k={k} "
+          f"s={stride}: eager {ms:.4f} ms, device {dev_ms:.4f} ms ({how}), "
+          f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by} "
+          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
+          f"{100 * bound / dev_ms:.1f} % of bound; torch._int_mm "
+          + (f"{library_ms:.4f} ms eager, {lib_dev:.4f} ms device"
+             if library_ms is not None else "not timed")
+          + f"; cuDNN bf16 conv {cudnn_ms:.4f} ms eager, {cudnn_dev:.4f} ms "
+          "device")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "cudnn_bf16_ms": cudnn_dev, "shape": list(shape)}
+
+
+def forward_times() -> None:
+    """Phase 8c: the eval-mode forward of ResNet-50 and HRNet-W32 at bs32,
+    256x256, under bf16 and under int8_fwd (the same random weights):
+    CUDA events around 10 forwards after 3 warm-ups; then the profiler's
+    device time of 3 forwards by kernel, its sum over the event time (the
+    device's busy share) and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.models.layers import init_weights
+
+    x = torch.randn(B_TRAIN, 3, SIZE, SIZE, device="cuda").to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    for name in ("resnet50", "hrnet_w32"):
+        times = {}
+        for tag, policy in (("bf16", DTypePolicy()),
+                            ("int8_fwd", DTypePolicy.int8_fwd())):
+            model = get_model(name, policy=policy)
+            init_weights(model, torch.Generator().manual_seed(0))
+            model = model.eval().to("cuda", memory_format=torch.channels_last)
+            with torch.no_grad():
+                times[tag] = eager_ms(lambda: model(x), calls=10, warmup=3)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        model(x)
+                    torch.cuda.synchronize()
+            kernels = sorted(((e.self_device_time_total / 3e3, e.count // 3,
+                               e.key) for e in prof.key_averages()
+                              if e.self_device_time_total > 0), reverse=True)
+            busy = sum(ms for ms, _, _ in kernels)
+            print(f"[forward] {name} {tag}: {times[tag]:.3f} ms a forward "
+                  f"(events), {busy:.3f} ms of kernels (profiler) = "
+                  f"{100 * busy / times[tag]:.1f} % busy; top kernels (ms a "
+                  "forward, launches): " + "; ".join(
+                      f"{key[:48]} {ms:.3f} x{n}"
+                      for ms, n, key in kernels[:6]))
+        print(f"[forward] {name} bs{B_TRAIN} {SIZE}x{SIZE} eval: bf16 "
+              f"{times['bf16']:.3f} ms, int8_fwd {times['int8_fwd']:.3f} ms "
+              f"per forward")
 
 
 def main() -> int:
@@ -631,6 +1088,7 @@ def main() -> int:
     from lighthand_tpu_torch.ops.kernels.heatmap import (
         generate_target_batch_cuda,
     )
+    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_cuda
     from lighthand_tpu_torch.train import (
         create_train_state,
         make_eval_step,
@@ -735,6 +1193,19 @@ def main() -> int:
                 fail(f"K1 f32 variant disagrees with its plain twin at {tag}: "
                      f"{err32}")
 
+    # 2b. the int8 conv against its plain twin ----------------------------
+    shapes = {name: quant_conv_shapes(name)
+              for name in ("resnet50", "hrnet_w32")}
+    n_quant = {name: sum(uses.values()) for name, uses in shapes.items()}
+    print(f"[int8] quantized convs: {n_quant}; distinct shapes: "
+          f"{ {name: len(uses) for name, uses in shapes.items()} }")
+    if n_quant != {"resnet50": 53, "hrnet_w32": 292}:
+        fail(f"quantized conv counts {n_quant}, expected 53 and 292")
+    int8_err = int8_check_phase(shapes)
+    counters = {"fused_aug_targets": fused_aug_targets_cuda,
+                "heatmap_targets": generate_target_batch_cuda,
+                "int8_conv": int8_conv2d_cuda}
+
     # 4. main path: train ---------------------------------------------------
     rng = np.random.default_rng(3)
     batch = {
@@ -753,8 +1224,7 @@ def main() -> int:
     step = make_fused_train_step(scan_steps=1)
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    fused_aug_targets_cuda.launches = 0
-    generate_target_batch_cuda.launches = 0
+    zero(counters)
     losses, step_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -782,8 +1252,7 @@ def main() -> int:
         eval_s.append(time.perf_counter() - t0)
     joints_px, maxvals = make_predict_step()(state, images)
     torch.cuda.synchronize()
-    launches = {"fused_aug_targets": fused_aug_targets_cuda.launches,
-                "heatmap_targets": generate_target_batch_cuda.launches}
+    launches = read(counters)
     scalars = {k: float(v) for k, v in out.items() if v.ndim == 0}
     print(f"[eval] {scalars}; eval ms {[round(s * 1e3, 2) for s in eval_s]}"
           f" = {B_TRAIN / eval_s[-1]:.1f} img/s")
@@ -792,6 +1261,8 @@ def main() -> int:
         fail(f"K1 launched {launches['fused_aug_targets']} times in 3 steps")
     if launches["heatmap_targets"] < 1:
         fail("the eval step did not launch K2")
+    if launches["int8_conv"]:
+        fail("the bf16 path launched the int8 conv")
     if scalars["n_valid"] != 28.0 or not all(map(math.isfinite,
                                                   scalars.values())):
         fail(f"bad eval metrics: {scalars}")
@@ -801,21 +1272,28 @@ def main() -> int:
             or not torch.isfinite(maxvals).all()):
         fail("bad predict output")
 
+    # 4b-5b. the int8_fwd policy: training, then serving phase 4's weights
+    int8_launches = int8_train_phase(batch, counters, n_quant["hrnet_w32"])
+    serve_launches = int8_serving_phase(state, images, counters,
+                                        n_quant["hrnet_w32"])
+
     # 6. the training entry point -------------------------------------------
-    counters = {"fused_aug_targets": fused_aug_targets_cuda,
-                "heatmap_targets": generate_target_batch_cuda}
     cli_launches, synth_fig = cli_phase(counters)
 
-    # 6b-6c. the real-data path: a LightHand tree through the CLI, then a
-    # FreiHAND TSV tree and a GAN + LightHand mix through fused steps
+    # 6b-6d. the real-data path: a LightHand tree through the CLI, then a
+    # FreiHAND TSV tree and a GAN + LightHand mix through fused steps, then
+    # the eval entry point on 6b's run over an Armo tree
     with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
         real_launches, real_fig = real_tree_phase(counters, tmp)
         mix_launches = frei_and_mix_phase(state, counters, tmp)
+        eval_launches, eval_ips = eval_cli_phase(counters, tmp,
+                                                 n_quant["resnet50"])
     print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
           f"train images, SimpleBaseline ResNet-50, bf16): synthetic "
           f"{synth_fig['epoch_s']} / {synth_fig['img_s']}; LightHand tree "
           f"of fixture JPEGs {real_fig['epoch_s']} / {real_fig['img_s']}; "
-          f"host codec ms {codec_ms}")
+          f"host codec ms {codec_ms}; eval CLI img/s (ResNet-50, 64 Armo "
+          f"images) {eval_ips}")
 
     # 7. reference: the trained weights in f32, card vs CPU ----------------
     weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
@@ -861,6 +1339,10 @@ def main() -> int:
              joints.numel() * 4 + n_hm * 4, n_hm * TARGET_OPS_PER_ELEMENT),
         )
 
+    paths = {"steps": launches, "int8_steps": int8_launches,
+             "int8_serving": serve_launches, "cli": cli_launches,
+             "real_tree_cli": real_launches,
+             "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches}
     errs = {"fused_aug_targets": k1_err, "heatmap_targets": k2_err}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -884,19 +1366,39 @@ def main() -> int:
                       f"{cold:.4f} ms, device {cold_dev}")
             del graph
             if b == B_KERNEL:
+                by_path = {p: c[name] for p, c in paths.items()}
                 rows.append({
                     "name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": (launches[name] + cli_launches[name]
-                                 + real_launches[name] + mix_launches[name]),
-                    "launches_by_path": {"steps": launches[name],
-                                         "cli": cli_launches[name],
-                                         "real_tree_cli": real_launches[name],
-                                         "frei_and_mix_steps":
-                                             mix_launches[name]},
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": None})
+
+    # 8b-8c. the int8 conv at the heaviest shape of each net, and the nets'
+    # forward under bf16 and int8_fwd
+    timed = {}
+    for i, (name, uses) in enumerate(sorted(shapes.items())):
+        heavy = max(uses, key=lambda key: conv_ops(B_TRAIN, key) * uses[key])
+        print(f"[int8_conv] {name}'s heaviest shape (Cin, H, W, Cout, k, s)"
+              f" {heavy}: {uses[heavy]} uses, "
+              f"{conv_ops(B_TRAIN, heavy) * uses[heavy] / 1e9:.1f} Gop a "
+              "forward at bs32")
+        timed[name] = int8_times(kind, heavy, 900 + i)
+    forward_times()
+    row = max(timed.values(), key=lambda t: conv_ops(B_TRAIN, t["shape"]))
+    by_path = {p: c["int8_conv"] for p, c in paths.items()}
+    rows.append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "lighthand_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "lighthand_tpu/ops/quant.py:54",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": int8_err, "ms": row["ms"],
+        "device_ms": row["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "cudnn_bf16_ms": row["cudnn_bf16_ms"], "shape": row["shape"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

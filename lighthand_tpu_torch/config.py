@@ -6,9 +6,8 @@ these differences:
 - ``--platform`` takes ``cpu`` or ``cuda`` and is kept in
   ``Config.platform``; without it the entry points run on the card, and
   raise where there is none;
-- ``--mesh-data`` / ``--mesh-model`` other than one device, and
-  ``--precision all_bf16`` / ``int8_fwd``, raise ``NotImplementedError``
-  (ROADMAP.md, Queue 1: multi-GPU; the all_bf16 and int8_fwd policies);
+- ``--mesh-data`` / ``--mesh-model`` other than one device raise
+  ``NotImplementedError`` (ROADMAP.md, Queue 1: multi-GPU);
 - no ``jax.config`` call.
 
 The reference splits configuration across argparse (argparser.py:27-100),
@@ -149,7 +148,7 @@ class Config:
 
 
 SINGLE_DEVICE_MESH = ((-1, 1), (1, 1))  # (data, model) on one card
-PORTED_PRECISIONS = ("bf16", "f32")
+PORTED_PRECISIONS = ("bf16", "f32", "all_bf16", "int8_fwd")
 
 
 def check_supported(cfg: Config) -> None:

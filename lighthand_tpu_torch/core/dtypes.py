@@ -4,6 +4,18 @@ Counterpart of ``lighthand_tpu/core/dtypes.py``. Parameters stay f32; each
 conv runs in ``compute_dtype`` with its weights cast to it; BatchNorm is
 computed in f32 and its output cast back to ``compute_dtype``; the final
 logits come out in ``output_dtype``.
+
+``bn_dtype`` is kept for the policy's name and fields, and changes no
+number: the JAX package's ``nn.BatchNorm(dtype=bn_dtype)`` keeps Flax's
+``force_float32_reductions=True``, so it computes its statistics and its
+normalisation in f32 and casts only the result to ``bn_dtype``, which the
+block then casts to ``compute_dtype`` (bf16 either way). ``all_bf16`` is
+therefore numerically the default policy in both packages, and the port's
+``BatchNorm2d`` (f32 inside, output in the input's dtype) serves both.
+
+``quant_fwd`` runs every backbone conv (the JAX package's ``ConvBN``) as
+an int8 forward with a straight-through backward (``ops/quant.py``); the
+deconv head and the final 1x1 stay in ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -18,10 +30,21 @@ class DTypePolicy:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     output_dtype: torch.dtype = torch.float32  # final heatmap logits / loss
+    bn_dtype: torch.dtype = torch.float32
+    quant_fwd: bool = False
+    act_clip: float = 8.0  # symmetric activation clip for quant_fwd
 
     @classmethod
     def full_precision(cls) -> "DTypePolicy":
         return cls(compute_dtype=torch.float32)
+
+    @classmethod
+    def all_bf16(cls) -> "DTypePolicy":
+        return cls(bn_dtype=torch.bfloat16)
+
+    @classmethod
+    def int8_fwd(cls) -> "DTypePolicy":
+        return cls(quant_fwd=True)
 
 
 DEFAULT_POLICY = DTypePolicy()

@@ -90,7 +90,8 @@ class HighResolutionModule(nn.Module):
     (pose_hrnet.py:101-265)."""
 
     def __init__(self, cfg: HRNetStageCfg, in_channels: List[int],
-                 multi_scale_output: bool):
+                 multi_scale_output: bool,
+                 policy: DTypePolicy = DEFAULT_POLICY):
         super().__init__()
         block = _BLOCKS[cfg.block]
         exp = block.expansion
@@ -98,8 +99,8 @@ class HighResolutionModule(nn.Module):
         for i in range(cfg.num_branches):
             planes = cfg.num_channels[i]
             blocks = [block(in_channels[i], planes, 1,
-                            in_channels[i] != planes * exp)]
-            blocks += [block(planes * exp, planes)
+                            in_channels[i] != planes * exp, policy)]
+            blocks += [block(planes * exp, planes, policy=policy)
                        for _ in range(1, cfg.num_blocks[i])]
             self.branches.append(nn.Sequential(*blocks))
         self.out_channels = [c * exp for c in cfg.num_channels]
@@ -114,13 +115,14 @@ class HighResolutionModule(nn.Module):
                     row.append(None)
                 elif j > i:
                     # coarser -> finer: 1x1 conv + BN, then nearest 2^(j-i)
-                    row.append(ConvBN(chans[j], chans[i], 1, relu=False))
+                    row.append(ConvBN(chans[j], chans[i], 1, relu=False,
+                                      policy=policy))
                 else:
                     # finer -> coarser: (i-j) stride-2 3x3 hops; the
                     # intermediate hops keep C_j and ReLU, the last -> C_i
                     hops = [ConvBN(chans[j], chans[i] if k == i - j - 1
                                    else chans[j], 3, 2,
-                                   relu=k != i - j - 1)
+                                   relu=k != i - j - 1, policy=policy)
                             for k in range(i - j)]
                     row.append(nn.Sequential(*hops))
             self.fuse_layers.append(nn.ModuleList(row))
@@ -150,24 +152,24 @@ class PoseHRNet(nn.Module):
         self.cfg = cfg
         self.policy = policy
         # Stem: 2x 3x3 s2 conv (pose_hrnet.py:282-288) -> 1/4 resolution
-        self.conv1 = conv(3, 64, 3, 2)
+        self.conv1 = conv(3, 64, 3, 2, policy=policy)
         self.bn1 = BatchNorm2d(64)
-        self.conv2 = conv(64, 64, 3, 2)
+        self.conv2 = conv(64, 64, 3, 2, policy=policy)
         self.bn2 = BatchNorm2d(64)
         # layer1: 4x Bottleneck(64) -> 256 channels (pose_hrnet.py:289)
         self.layer1 = nn.Sequential(
-            Bottleneck(64, 64, 1, True),
-            *[Bottleneck(256, 64) for _ in range(3)])
+            Bottleneck(64, 64, 1, True, policy),
+            *[Bottleneck(256, 64, policy=policy) for _ in range(3)])
 
-        self.transition1 = self._make_transition([256], cfg.stage2)
+        self.transition1 = self._make_transition([256], cfg.stage2, policy)
         self.stage2, chans = self._make_stage(
-            cfg.stage2, self._widths(cfg.stage2), True)
-        self.transition2 = self._make_transition(chans, cfg.stage3)
+            cfg.stage2, self._widths(cfg.stage2), True, policy)
+        self.transition2 = self._make_transition(chans, cfg.stage3, policy)
         self.stage3, chans = self._make_stage(
-            cfg.stage3, self._widths(cfg.stage3), True)
-        self.transition3 = self._make_transition(chans, cfg.stage4)
+            cfg.stage3, self._widths(cfg.stage3), True, policy)
+        self.transition3 = self._make_transition(chans, cfg.stage4, policy)
         self.stage4, chans = self._make_stage(
-            cfg.stage4, self._widths(cfg.stage4), False)
+            cfg.stage4, self._widths(cfg.stage4), False, policy)
 
         # final 1x1 conv on the highest-resolution branch (pose_hrnet.py:323)
         self.final_layer = conv(chans[0], cfg.num_joints,
@@ -180,18 +182,18 @@ class PoseHRNet(nn.Module):
 
     @staticmethod
     def _make_stage(cfg: HRNetStageCfg, in_channels: List[int],
-                    multi_scale_output: bool):
+                    multi_scale_output: bool, policy: DTypePolicy):
         modules = []
         for m in range(cfg.num_modules):
             mso = multi_scale_output or m != cfg.num_modules - 1
-            mod = HighResolutionModule(cfg, in_channels, mso)
+            mod = HighResolutionModule(cfg, in_channels, mso, policy)
             in_channels = mod.out_channels
             modules.append(mod)
         return nn.Sequential(*modules), in_channels
 
     @staticmethod
-    def _make_transition(prev: List[int],
-                         cur: HRNetStageCfg) -> nn.ModuleList:
+    def _make_transition(prev: List[int], cur: HRNetStageCfg,
+                         policy: DTypePolicy) -> nn.ModuleList:
         """pose_hrnet.py:333-372: identity (None) on branches of matching
         width, conv+BN+ReLU on a width change, and each new branch a chain
         of stride-2 3x3 convs from the last previous branch."""
@@ -200,11 +202,12 @@ class PoseHRNet(nn.Module):
         for i, c in enumerate(widths):
             if i < len(prev):
                 layers.append(None if prev[i] == c
-                              else ConvBN(prev[i], c, 3, 1))
+                              else ConvBN(prev[i], c, 3, 1, policy=policy))
             else:
                 hops = i + 1 - len(prev)
                 layers.append(nn.Sequential(*[
-                    ConvBN(prev[-1], c if k == hops - 1 else prev[-1], 3, 2)
+                    ConvBN(prev[-1], c if k == hops - 1 else prev[-1], 3, 2,
+                           policy=policy)
                     for k in range(hops)]))
         return nn.ModuleList(layers)
 

@@ -11,7 +11,11 @@ Numerics that follow the JAX package rather than torch's habits:
 - BatchNorm is computed in f32 and its output cast back to the input dtype;
 - in training, the running variance is updated with the *biased* batch
   variance, as Flax's ``nn.BatchNorm`` does. ``nn.BatchNorm2d`` would use
-  the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5.
+  the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5;
+- under a policy with ``quant_fwd``, every conv the JAX package wraps in
+  ``ConvBN`` (stems, block convs, downsamples, HRNet's transitions and
+  fuse layers) is a ``QuantConv2d``: the same ``weight`` parameter and
+  ``state_dict`` key, an int8 forward (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lighthand_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
+from lighthand_tpu_torch.ops.quant import int8_conv
 
 BN_MOMENTUM = 0.1  # torch convention; == 1 - flax momentum 0.9
 BN_EPS = 1e-5
@@ -35,8 +42,31 @@ class Conv2d(nn.Conv2d):
                         self.padding)
 
 
+class QuantConv2d(Conv2d):
+    """int8-forward conv (``ops/quant.py:int8_conv``, STE backward) with the
+    parameters of the ``Conv2d`` it replaces, so the bf16 and int8_fwd
+    policies share checkpoints. No bias: no backbone conv has one."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 policy: DTypePolicy):
+        super().__init__(cin, cout, kernel, stride=stride,
+                         padding=kernel // 2, bias=False)
+        self.act_clip = policy.act_clip
+        self.compute_dtype = policy.compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_conv(x, self.weight, self.stride[0], self.padding[0],
+                         self.act_clip, self.compute_dtype)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
-         bias: bool = False) -> Conv2d:
+         bias: bool = False, policy: DTypePolicy | None = None) -> Conv2d:
+    """A conv with torch's padding k//2; a ``QuantConv2d`` where ``policy``
+    (given only for the JAX package's ``ConvBN`` convs) has ``quant_fwd``."""
+    if policy is not None and policy.quant_fwd:
+        if bias:
+            raise ValueError("a quantized conv has no bias")
+        return QuantConv2d(cin, cout, kernel, stride, policy)
     return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
                   bias=bias)
 
@@ -83,8 +113,9 @@ class ConvBN(nn.Sequential):
     stem-less conv+BN pairs (transitions, fuse layers, downsample)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 relu: bool = True):
-        layers = [conv(cin, cout, kernel, stride), BatchNorm2d(cout)]
+                 relu: bool = True, policy: DTypePolicy = DEFAULT_POLICY):
+        layers = [conv(cin, cout, kernel, stride, policy=policy),
+                  BatchNorm2d(cout)]
         if relu:
             layers.append(nn.ReLU())
         super().__init__(*layers)
@@ -96,14 +127,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False,
+                 policy: DTypePolicy = DEFAULT_POLICY):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 3, stride)
+        self.conv1 = conv(inplanes, planes, 3, stride, policy=policy)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv(planes, planes, 3)
+        self.conv2 = conv(planes, planes, 3, policy=policy)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
-                                  stride, relu=False) if downsample else None)
+                                  stride, relu=False, policy=policy)
+                           if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -118,16 +151,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False,
+                 policy: DTypePolicy = DEFAULT_POLICY):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 1)
+        self.conv1 = conv(inplanes, planes, 1, policy=policy)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv(planes, planes, 3, stride)
+        self.conv2 = conv(planes, planes, 3, stride, policy=policy)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = conv(planes, planes * self.expansion, 1)
+        self.conv3 = conv(planes, planes * self.expansion, 1, policy=policy)
         self.bn3 = BatchNorm2d(planes * self.expansion)
         self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
-                                  stride, relu=False) if downsample else None)
+                                  stride, relu=False, policy=policy)
+                           if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -142,10 +177,11 @@ class BottleneckCaffe(Bottleneck):
     (pose_resnet.py:102-141)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
-        super().__init__(inplanes, planes, stride, downsample)
-        self.conv1 = conv(inplanes, planes, 1, stride)
-        self.conv2 = conv(planes, planes, 3)
+                 downsample: bool = False,
+                 policy: DTypePolicy = DEFAULT_POLICY):
+        super().__init__(inplanes, planes, stride, downsample, policy)
+        self.conv1 = conv(inplanes, planes, 1, stride, policy=policy)
+        self.conv2 = conv(planes, planes, 3, policy=policy)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

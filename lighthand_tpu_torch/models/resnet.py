@@ -56,15 +56,16 @@ class PoseResNet(nn.Module):
             block = BottleneckCaffe
         self.policy = policy
         # Stem: 7x7 s2 conv + BN + ReLU + 3x3 s2 max-pool
-        self.conv1 = conv(3, 64, 7, 2)
+        self.conv1 = conv(3, 64, 7, 2, policy=policy)
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), layers, (1, 2, 2, 2))):
             out = planes * block.expansion
             seq = [block(inplanes, planes, stride,
-                         stride != 1 or inplanes != out)]
-            seq += [block(out, planes) for _ in range(1, blocks)]
+                         stride != 1 or inplanes != out, policy)]
+            seq += [block(out, planes, policy=policy)
+                    for _ in range(1, blocks)]
             setattr(self, f"layer{stage + 1}", nn.Sequential(*seq))
             inplanes = out
         # Deconv head: Sequential [deconv, BN, ReLU] x3 (pose_resnet.py:207-232)

@@ -4,5 +4,11 @@ package's Pallas kernels, each with its wrapper and plain twin:
 - ``fused_aug.fused_aug_targets_cuda`` (K1) replaces
   ``lighthand_tpu/ops/pallas/fused_aug.py:fused_aug_targets_pallas``;
 - ``heatmap.generate_target_batch_cuda`` (K2) replaces
-  ``lighthand_tpu/ops/pallas/heatmap.py:generate_target_batch_pallas``.
+  ``lighthand_tpu/ops/pallas/heatmap.py:generate_target_batch_pallas``;
+
+and one with no Pallas counterpart:
+
+- ``int8_conv.int8_conv2d_cuda``, the int8 convolution of the
+  ``int8_fwd`` policy, which the JAX package leaves to XLA
+  (``lighthand_tpu/ops/quant.py:54``).
 """

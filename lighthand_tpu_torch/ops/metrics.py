@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 
 MM_SCALE_PCK = 3.78  # loss.py:107,141,179
+PX_TO_MM_EVAL = 3.7795275591  # offline eval's EPE in mm (argparser.py:377,386,399)
+MM_THRESH_SCALE_EVAL = 2.83464567  # offline eval's mm grid (argparser.py:336)
 PX_TO_MM_VALID_LOG = 0.26  # the validation log's EPE in mm (method.py:131)
 
 

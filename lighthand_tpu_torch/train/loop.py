@@ -86,6 +86,10 @@ def _policy(cfg: Config) -> DTypePolicy:
     check_supported(cfg)
     if cfg.model.precision == "f32":
         return DTypePolicy.full_precision()
+    if cfg.model.precision == "all_bf16":
+        return DTypePolicy.all_bf16()  # numerically the bf16 policy
+    if cfg.model.precision == "int8_fwd":
+        return DTypePolicy.int8_fwd()  # int8 forward convs, STE backward
     return DTypePolicy()
 
 

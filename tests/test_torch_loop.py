@@ -89,8 +89,8 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh-data", "4"], ["--mesh-model", "2"], ["--precision", "all_bf16"],
-    ["--precision", "int8_fwd"]])
+    ["--mesh-data", "4"], ["--mesh-model", "2"], ["--mesh-data", "2"],
+    ["--mesh-data", "8", "--mesh-model", "2"]])
 def test_parse_args_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args(argv)
@@ -304,6 +304,25 @@ def test_last_checkpoint_model_info(tmp_path):
                       "model": {"name": "resnet18", "precision": "f32"}}
     assert read_model_info(ckpt) == marker["model"]
     assert read_model_info(str(tmp_path / "nowhere")) is None
+
+
+@pytest.mark.parametrize("precision", ["all_bf16", "int8_fwd"])
+def test_trainer_runs_the_all_bf16_and_int8_policies(tmp_path, precision):
+    """The Trainer maps the precisions as the JAX one does (int8_fwd: every
+    backbone conv quantized), trains with finite losses and records the
+    precision for the eval CLI's serving policy."""
+    from lighthand_tpu_torch.models.layers import QuantConv2d
+
+    cfg = _cfg(Config, tmp_path, precision, epochs=1,
+               model__precision=precision)
+    trainer = loop.Trainer(cfg)
+    n_quant = sum(isinstance(m, QuantConv2d)
+                  for m in trainer.state.model.modules())
+    assert n_quant == (20 if precision == "int8_fwd" else 0)
+    result = trainer.fit()
+    assert np.isfinite([result.train_loss, result.val_loss]).all()
+    assert read_model_info(os.path.join(cfg.output_dir, "checkpoint-good")
+                           ) == {"name": "resnet18", "precision": precision}
 
 
 def test_transfer_loads_weights_only(tmp_path, monkeypatch):

@@ -1,0 +1,276 @@
+"""The port's int8_fwd and all_bf16 policies against the JAX package's, on
+the CPU, where the int8 kernel's wrapper computes its plain twin: the
+conv, its straight-through backward and the policies' plumbing.
+
+Measured here (and held as stated):
+
+- ``int8_conv`` (quantize, the s8 conv, the dequantizing epilogue) equals
+  ``lighthand_tpu.ops.quant.int8_conv`` bit for bit on every shape tested,
+  in f32 and bf16: 0 differing values. Held exactly.
+- The straight-through gradient equals the port's plain conv gradient
+  exactly (held exactly). Against JAX's: f32 max |diff| 3.0e-7 (dx, of
+  magnitude 2.3) and 9.5e-6 (dw, of magnitude 28), i.e. 3.4e-7 relative;
+  bf16 equal. Held at 1e-5 relative to each gradient's largest value.
+
+The models under these policies are held in tests/test_torch_quant_models.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from lighthand_tpu.cli.eval import serving_policy as jax_serving_policy
+from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
+from lighthand_tpu.ops.quant import int8_conv as jax_int8_conv
+from lighthand_tpu_torch.cli.eval import serving_policy
+from lighthand_tpu_torch.config import parse_args
+from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.models.layers import Conv2d
+from lighthand_tpu_torch.ops.kernels.int8_conv import (
+    int8_conv2d_cuda,
+    int8_conv2d_plain,
+)
+from lighthand_tpu_torch.ops.quant import (
+    int8_conv,
+    quantize_activation,
+    quantize_weight,
+)
+from lighthand_tpu_torch.train.loop import _policy
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+# (N, H, W, Cin, Cout, k, stride): the stems (7x7 s2 and 3x3 s2 at Cin 3),
+# 3x3 s1, 1x1 s2, 3x3 s2 on an odd size, and a 3x3 512 -> 512 conv
+SHAPES = [(2, 33, 35, 3, 16, 7, 2), (2, 32, 32, 3, 16, 3, 2),
+          (2, 16, 16, 64, 64, 3, 1), (2, 16, 16, 256, 512, 1, 2),
+          (2, 17, 15, 8, 24, 3, 2), (1, 9, 11, 512, 512, 3, 1)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs files in parallel workers, and
+    torch's default of one thread per core oversubscribes the machine."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _conv_inputs(shape, seed=0):
+    n, h, w, cin, cout, k, _ = shape
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, h, w, cin)) * 3).astype(np.float32)
+    wt = (rng.normal(size=(k, k, cin, cout)) * 0.05).astype(np.float32)
+    return x, wt
+
+
+def _jax_conv(x, wt, k, s, dt):
+    p = k // 2
+    pad = ((p, p), (p, p)) if k > 1 else "VALID"
+    return jax_int8_conv(jnp.asarray(x).astype(dt), jnp.asarray(wt), (s, s),
+                         pad, 8.0, dt)
+
+
+def _torch_x(x, dt):
+    return torch.from_numpy(x).to(dt).permute(0, 3, 1, 2)
+
+
+def _torch_w(wt):
+    return torch.from_numpy(wt).permute(3, 2, 0, 1).contiguous()
+
+
+# ------------------------------------------------------------ the conv
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_int8_conv_matches_jax_bit_exact(shape, dtype):
+    jdt, tdt = DTYPES[dtype]
+    x, wt = _conv_inputs(shape)
+    k, s = shape[5], shape[6]
+    want = np.asarray(_jax_conv(x, wt, k, s, jdt).astype(jnp.float32))
+    got = int8_conv(_torch_x(x, tdt), _torch_w(wt), s, k // 2, 8.0, tdt)
+    assert got.dtype == tdt
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    assert int((got != want).sum()) == 0
+
+
+def test_quantize_matches_the_jax_formulas():
+    """Weights per output channel from the f32 master (floor 1e-8), the
+    activations at the static clip; both clamped to +-127."""
+    x, wt = _conv_inputs((2, 8, 8, 16, 8, 3, 1), seed=3)
+    wt[..., 0] = 0.0  # an all-zero channel takes the 1e-8 floor
+    w_q, s_w = quantize_weight(_torch_w(wt))
+    s_w_j = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(wt)), axis=(0, 1, 2)),
+                        1e-8) / 127.0
+    w_q_j = jnp.clip(jnp.round(jnp.asarray(wt) / s_w_j), -127, 127)
+    np.testing.assert_array_equal(s_w.numpy(), np.asarray(s_w_j))
+    np.testing.assert_array_equal(w_q.permute(1, 2, 3, 0).numpy(),
+                                  np.asarray(w_q_j).astype(np.int8))
+    x[0, 0, 0, :4] = [100.0, -100.0, 0.5 * 8 / 127, -8.0]
+    x_q = quantize_activation(_torch_x(x, torch.float32), 8.0)
+    x_q_j = jnp.clip(jnp.round(jnp.asarray(x) * (1.0 / (8.0 / 127.0))),
+                     -127, 127)
+    np.testing.assert_array_equal(x_q.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(x_q_j).astype(np.int8))
+    assert x_q.dtype == w_q.dtype == torch.int8
+    assert int(x_q.abs().max()) == 127
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_wrapper_on_cpu_is_the_plain_twin(out_dtype):
+    rng = np.random.default_rng(4)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (3, 5, 13, 9),
+                                        dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (7, 3, 3, 5),
+                                        dtype=np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, 7).astype(np.float32))
+    before = int8_conv2d_cuda.launches
+    got = int8_conv2d_cuda(x_q, w_q, scale, 2, 1, out_dtype)
+    want = int8_conv2d_plain(x_q, w_q, scale, 2, 1, out_dtype)
+    assert int8_conv2d_cuda.launches == before  # no launch on the CPU
+    assert got.shape == (3, 7, 7, 5) and got.dtype == out_dtype
+    assert torch.equal(got, want)
+    # the plain twin is exact: the integer conv, then the epilogue
+    acc = F.conv2d(x_q.long().double(), w_q.permute(0, 3, 1, 2).double(),
+                   None, 2, 1)
+    assert torch.equal(acc, acc.round())
+    assert torch.equal(want, (acc.float() * scale[:, None, None])
+                       .to(out_dtype))
+
+
+@pytest.mark.parametrize("what", ["x_dtype", "w_dtype", "cin", "scale_dtype",
+                                  "scale_shape", "out_dtype", "stride",
+                                  "window", "ndim", "device"])
+def test_int8_wrapper_rejects_bad_input(what):
+    x_q = torch.zeros((1, 4, 8, 8), dtype=torch.int8)
+    w_q = torch.zeros((6, 3, 3, 4), dtype=torch.int8)
+    scale = torch.ones(6)
+    kw = {"stride": 1, "padding": 1, "out_dtype": torch.bfloat16}
+    exc = ValueError
+    if what == "x_dtype":
+        x_q, exc = x_q.float(), TypeError
+    elif what == "w_dtype":
+        w_q, exc = w_q.float(), TypeError
+    elif what == "cin":
+        w_q = torch.zeros((6, 3, 3, 5), dtype=torch.int8)
+    elif what == "scale_dtype":
+        scale = scale.double()
+    elif what == "scale_shape":
+        scale = torch.ones(5)
+    elif what == "out_dtype":
+        kw["out_dtype"] = torch.float16
+    elif what == "stride":
+        kw["stride"] = 0
+    elif what == "window":
+        w_q = torch.zeros((6, 11, 11, 4), dtype=torch.int8)
+        kw["padding"] = 0
+    elif what == "ndim":
+        x_q = x_q[0]
+    elif what == "device":
+        x_q = x_q.to("meta")
+    with pytest.raises(exc):
+        int8_conv2d_cuda(x_q, w_q, scale, **kw)
+
+
+# ------------------------------------------------------ the STE backward
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_int8_conv_ste_gradient_exact(dtype):
+    """The backward is exactly the plain conv's (the port's Conv2d) vjp at
+    (x, w): dx in x's dtype, dw in w's (f32), on an arbitrary cotangent."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    x = _torch_x(rng.normal(size=(2, 12, 12, 8)).astype(np.float32), tdt)
+    w = _torch_w((rng.normal(size=(3, 3, 8, 16)) * 0.1).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 16, 6, 6)).astype(np.float32))
+
+    conv = Conv2d(8, 16, 3, stride=2, padding=1, bias=False)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+    xp = x.clone().requires_grad_()
+    conv(xp).backward(g.to(tdt))
+
+    xq, wq = x.clone().requires_grad_(), w.clone().requires_grad_()
+    int8_conv(xq, wq, 2, 1, 8.0, tdt).backward(g.to(tdt))
+    assert xq.grad.dtype == tdt and wq.grad.dtype == torch.float32
+    assert torch.equal(xq.grad, xp.grad)
+    assert torch.equal(wq.grad, conv.weight.grad)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_int8_conv_ste_gradient_matches_jax(dtype):
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 12, 12, 8)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 8, 16)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(2, 6, 6, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jax_int8_conv(a, b, (2, 2),
+                                                ((1, 1), (1, 1)), 8.0, jdt),
+                     jnp.asarray(x).astype(jdt), jnp.asarray(w))
+    dxj, dwj = vjp(jnp.asarray(g).astype(jdt))
+    xt = _torch_x(x, tdt).requires_grad_()
+    wt = _torch_w(w).requires_grad_()
+    int8_conv(xt, wt, 2, 1, 8.0, tdt).backward(
+        torch.from_numpy(g).to(tdt).permute(0, 3, 1, 2))
+    for got, want in ((xt.grad.float().permute(0, 2, 3, 1).numpy(),
+                       np.asarray(dxj.astype(jnp.float32))),
+                      (wt.grad.permute(2, 3, 1, 0).numpy(),
+                       np.asarray(dwj))):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------------------------------- policies
+
+
+def test_policy_constructors_match_jax():
+    for ours, theirs in ((DTypePolicy(), JaxPolicy()),
+                         (DTypePolicy.all_bf16(), JaxPolicy.all_bf16()),
+                         (DTypePolicy.int8_fwd(), JaxPolicy.int8_fwd()),
+                         (DTypePolicy.full_precision(),
+                          JaxPolicy.full_precision())):
+        assert ours.quant_fwd == theirs.quant_fwd
+        assert ours.act_clip == theirs.act_clip
+        for field in ("param_dtype", "compute_dtype", "output_dtype",
+                      "bn_dtype"):
+            assert (str(getattr(ours, field)).removeprefix("torch.")
+                    == jnp.dtype(getattr(theirs, field)).name), field
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32", "all_bf16",
+                                       "int8_fwd"])
+def test_training_accepts_every_precision(precision):
+    cfg = parse_args(["--precision", precision])
+    want = {"bf16": DTypePolicy(), "f32": DTypePolicy.full_precision(),
+            "all_bf16": DTypePolicy.all_bf16(),
+            "int8_fwd": DTypePolicy.int8_fwd()}[precision]
+    assert _policy(cfg) == want
+
+
+_INFOS = {"f32": {"name": "simplebaseline", "precision": "f32"},
+          "bf16": {"name": "simplebaseline", "precision": "bf16"},
+          "none": None, "nameless": {"precision": "f32"}}
+
+
+@pytest.mark.parametrize("info", sorted(_INFOS))
+@pytest.mark.parametrize("precision", ["bf16", "f32", "all_bf16",
+                                       "int8_fwd"])
+def test_serving_policy_matches_jax(precision, info):
+    """--precision int8_fwd forces the quantized forward on any checkpoint;
+    otherwise the checkpoint's recorded precision wins, then the CLI's."""
+    got = serving_policy(precision, _INFOS[info])
+    want = jax_serving_policy(precision, _INFOS[info])
+    assert got.quant_fwd == want.quant_fwd
+    assert got.compute_dtype == {jnp.dtype(jnp.float32): torch.float32,
+                                 jnp.dtype(jnp.bfloat16): torch.bfloat16}[
+                                     jnp.dtype(want.compute_dtype)]
+    if precision == "int8_fwd":
+        assert got.quant_fwd
+    if info == "f32" and precision != "int8_fwd":
+        assert got.compute_dtype == torch.float32

@@ -239,8 +239,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "flax", "optax",
-                                    "lighthand_tpu", "cv2", "PIL"), (
-                                        path, name)
+                                    "orbax", "lighthand_tpu", "cv2",
+                                    "PIL"), (path, name)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -252,7 +252,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {mods!r} + ['chip_smoke', 'kernel_breakdown']: "
             "importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'lighthand_tpu', 'cv2', 'PIL')]\n"
+            "('jax', 'lighthand_tpu', 'cv2', 'PIL', 'orbax')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code, str(REPO)],
                          capture_output=True, text=True, timeout=120,
