@@ -6,7 +6,7 @@
 Phases (any failure raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   the three CUDA kernels built from ``lighthand_tpu_torch/csrc`` with nvcc and
+   the three CUDA libraries built from ``lighthand_tpu_torch/csrc`` with nvcc and
    the host libraries of the data readers (the image codec, the TSV
    engine) with the host C++ compiler, all at once;
 1b. the codec: every committed fixture image (``tests/fixtures/images``)
@@ -28,15 +28,23 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    tolerances: B=3 at 97x131 (unaligned rows, masked tails), hm=50,
    stride 3.0, [B, J, 3] joints and op indices outside [0, 3] (clamped,
    contrast in two slots); B=2 at 300x300 (16 blocks of 704 threads, one
-   block to an SM, where 256x256 runs 16 blocks of 512); and B=2 at 16x16
+   block to an SM, where 256x256 runs 16 blocks of 512); B=2 at 16x16
    with 40 joints (one block quantising more maps than it keeps in shared
-   memory);
-2b. the int8 conv (``csrc/int8_conv.cu``) against its plain twin, bit for
-   bit (0 differing values), bf16 and f32 output: every distinct quantized
+   memory); and B=2 at 384x384 and at 517x771, above the 131,072 pixels
+   the register kernel holds (its threads then walk 2 and 4 groups of 8
+   pixels);
+2b. both int8 kernels (``csrc/int8_conv.cu``) against their plain twins,
+   bit for bit (0 differing values): the weight quantize (w_q, s_w,
+   scale) from f32 master weights with an all-zero channel, then the conv
+   on bf16 and f32 activations (with x * inv = k + 0.5 ties, values beyond
+   the clip and zeros) into bf16 and f32 output: every distinct quantized
    conv shape of ResNet-50 (53 convs) and HRNet-W32 (292), read by hooks,
    at batch 32, 256x256, and ragged cases (N=3 at 97x131 with the 7x7 and
-   3x3 stems, Cout 40, 33 and 100, Cin 8); the twin runs on the card with
-   cuDNN off (im2col + DGEMM, exact on integers);
+   3x3 stems, Cout 40, 33, 48 and 100, Cin 8, 48 and 96); the twin runs on
+   the card with cuDNN off (im2col + DGEMM, exact on integers);
+2c. a ``QuantConv2d`` on the card equals the same module on the CPU, bit
+   for bit, at ResNet-50's and HRNet-W32's heaviest shapes, bf16 and f32:
+   the weight scale divides on both devices;
 4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
    ``make_fused_train_step`` for 3 steps; K1 must launch 3 times and every
    loss be finite;
@@ -44,10 +52,11 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    4 rows are padding (n_valid must be 28, K2 must launch), then
    ``make_predict_step`` once;
 4b. int8 training: HRNet-W32, ``DTypePolicy.int8_fwd()``, 3 fused steps:
-   finite losses, K1 3 launches, the int8 kernel 3 x 292;
+   finite losses, K1 3 launches, each int8 kernel (the weight quantize
+   and the conv) 3 x 292;
 5b. int8 serving: phase 4's W32 weights predicted under bf16 and under
    int8_fwd (``load_state_dict``), the share of joints within 1 heatmap px
-   of each other printed; 292 int8 launches;
+   of each other printed; 292 launches of each int8 kernel;
 6. the training entry point: ``lighthand_tpu_torch.cli.train.main`` in a
    temporary directory, SimpleBaseline ResNet-50 at 256x256, batch 32, bf16,
    synthetic data (128 train samples, 32 val), 3 microbatches a dispatch:
@@ -77,8 +86,8 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    records dropped), with the checkpoint's precision, with ``--precision
    int8_fwd`` and with ``--test``: exit 0, evaluation.json's categories and
    counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
-   the --test AUC lines, 53 int8 launches a batch under int8_fwd and none
-   otherwise; img/s of each run;
+   the --test AUC lines, 53 launches of each int8 kernel a batch under
+   int8_fwd and none otherwise; img/s of each run;
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -93,15 +102,24 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    phases 4-5, 4b, 5b, 6, 6b, 6c and 6d (each also under
    ``launches_by_path``; each path's counts are zeroed just before it and
    read just after);
-8b. the int8 conv at the heaviest shape (by operations a forward) of
-   ResNet-50 and of HRNet-W32, batch 32: eager and device time, its twin's
-   time, its bound (int8 tensor-core operations or bytes), the GEMM of
-   ``torch._int_mm`` on the im2col of the same operands (checked equal to
-   the kernel) and cuDNN's bf16 conv of the shape; the shape with more
-   operations a call makes the kernels line's ``int8_conv`` row;
+8b. both int8 kernels at the heaviest conv shape (by operations a
+   forward) of ResNet-50 and of HRNet-W32, batch 32, bf16 activations:
+   eager and device time, the twin's time and the bound (int8 tensor-core
+   operations or bytes, bf16 in and out, for the conv; 5 bytes a weight
+   for the weight quantize); for the conv, the GEMM of ``torch._int_mm``
+   on the pre-quantized im2col of the same operands (checked equal to the
+   kernel) and cuDNN's bf16 conv of the shape; the shape with more
+   operations a call makes the kernels line's ``int8_conv`` and
+   ``quantize_weight`` rows;
 8c. the eval forward of ResNet-50 and HRNet-W32 at bs32 under bf16 and
-   int8_fwd, with the profiler's device time by kernel and the device's
-   busy share of it. The last line is the ok line.
+   int8_fwd, with the profiler's device time by kernel, the device's busy
+   share of it and its count of device kernels a forward, which must not
+   be larger under int8_fwd than under bf16;
+8d. the quantized convs of a forward, every distinct shape of both nets
+   at bs32 weighted by its uses: device ms of the weight quantize and the
+   conv together and of the conv alone, each shape's plan, and the host us
+   a call of ``quant_forward`` beside a bf16 conv with its weight cast.
+   The last line is the ok line.
 
 Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
@@ -137,9 +155,13 @@ PEAKS = {
 # enable gate (9), channel noise (9), normalize (6).
 K1_OPS_PER_PIXEL = 119
 TARGET_OPS_PER_ELEMENT = 10  # 2 sub, 2 abs+cmp, 2 mul, add, mul, exp
+# f32 operations per weight of the weight quantize: |w| and its max, then
+# the division, the rounding and the two-sided clamp.
+WEIGHT_OPS_PER_VALUE = 6
 
 B_KERNEL, B_TRAIN, SIZE, JOINTS, HM = 128, 32, 256, 21, 64
 F32_ATOL = 1e-5
+ACT_CLIP = 8.0  # the int8_fwd policy's static activation clip
 
 
 def fail(msg: str) -> None:
@@ -488,7 +510,8 @@ def cli_phase(counters) -> tuple:
                 if f"Start_epoch: {first}" not in text:
                     fail(f"CLI run {tag} did not start at epoch {first}")
                 want = {"fused_aug_targets": 4 * len(ran),
-                        "heatmap_targets": len(ran), "int8_conv": 0}
+                        "heatmap_targets": len(ran), "int8_conv": 0,
+                        "quantize_weight": 0}
                 if counts != want:
                     fail(f"CLI run {tag}: launches {counts}, expected {want}"
                          " (K1 once per optimizer step, K2 once per eval "
@@ -607,7 +630,8 @@ def real_tree_phase(counters, tmp: str) -> tuple:
     check_run("real-tree CLI", rc, text, train, valid, [0, 1])
     # K1 once per optimizer step, K2 once per eval batch, for 2 epochs
     want = {"fused_aug_targets": 2 * (128 // B_TRAIN),
-            "heatmap_targets": 2 * math.ceil(32 / B_TRAIN), "int8_conv": 0}
+            "heatmap_targets": 2 * math.ceil(32 / B_TRAIN), "int8_conv": 0,
+            "quantize_weight": 0}
     if counts != want:
         fail(f"real-tree CLI: launches {counts}, expected {want}")
     hits = {(int(e), tag): float(frac) for e, tag, frac in re.findall(
@@ -679,7 +703,7 @@ def frei_and_mix_phase(state, counters, tmp: str) -> dict:
     if not (math.isfinite(frei_loss) and math.isfinite(mix_loss)):
         fail("non-finite loss in the FreiHAND or mix step")
     if counts != {"fused_aug_targets": 2, "heatmap_targets": 0,
-                  "int8_conv": 0}:
+                  "int8_conv": 0, "quantize_weight": 0}:
         fail(f"frei+mix launches {counts}, expected K1 twice")
     return counts
 
@@ -722,72 +746,144 @@ def conv_ops(n: int, shape) -> int:
     return 2 * n * ho * wo * cout * k * k * cin
 
 
-def int8_inputs(n: int, shape, seed: int):
-    """s8 activations (channels_last, on the card), s8 weights [Cout, k, k,
-    Cin] and f32 scales of one conv shape, drawn from ``seed``."""
+def int8_inputs(n: int, shape, seed: int, dtype=None, device="cuda"):
+    """A conv shape's operands on the card, drawn from ``seed``: activations
+    ``x`` [N, Cin, H, W] (channels_last) in ``dtype`` (bf16 by default), at
+    3 sigma with x * inv = k + 0.5 ties, values beyond +-act_clip and exact
+    zeros planted in the first values; f32 master weights [Cout, Cin, k, k]
+    (channels_last, as the models hold them on the card) with one all-zero
+    output channel (the 1e-8 floor)."""
     import numpy as np
     import torch
 
     cin, h, w, cout, k, _ = shape
     rng = np.random.default_rng(seed)
-    x_q = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin),
-                                        dtype=np.int8))
-    w_q = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin),
-                                        dtype=np.int8))
-    scale = torch.from_numpy(rng.uniform(1e-6, 1e-3, cout).astype(np.float32))
-    return (x_q.cuda().permute(0, 3, 1, 2), w_q.cuda(), scale.cuda())
+    x = (rng.normal(size=(n, h, w, cin)) * 3).astype(np.float32)
+    inv = np.float32(127.0 / ACT_CLIP)
+    near = np.float32((np.arange(-127, 127) + 0.5) / inv)
+    ties = near[(near * inv) - np.floor(near * inv) == 0.5]
+    special = np.concatenate([ties, [ACT_CLIP, -ACT_CLIP, 8.5, -8.5, 100.0,
+                                     -100.0, 4.0, -4.0, 0.0, -0.0]])
+    flat = x.reshape(-1)
+    flat[:min(len(special), flat.size)] = special[:flat.size]
+    wt = (rng.normal(size=(cout, cin, k, k)) * 0.05).astype(np.float32)
+    wt[min(1, cout - 1)] = 0.0
+    dev = torch.device(device)
+    xt = torch.from_numpy(x).to(dev).to(dtype or torch.bfloat16)
+    return (xt.permute(0, 3, 1, 2),
+            torch.from_numpy(wt).to(dev).contiguous(
+                memory_format=torch.channels_last))
 
 
-def int8_twin(x_q, w_q, scale, stride, pad, out_dtype):
-    """The plain twin on the card with cuDNN off: the float64 conv then goes
-    to im2col + cuBLAS DGEMM, exact on integers (no FFT or Winograd)."""
+def int8_twin(x, w_q, scale, stride, pad, out_dtype):
+    """The conv's plain twin on the card with cuDNN off: the float64 conv
+    then goes to im2col + cuBLAS DGEMM, exact on integers (no FFT or
+    Winograd)."""
     import torch
 
     from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_plain
 
     with torch.backends.cudnn.flags(enabled=False):
-        return int8_conv2d_plain(x_q, w_q, scale, stride, pad, out_dtype)
+        return int8_conv2d_plain(x, w_q, scale, ACT_CLIP, stride, pad,
+                                 out_dtype)
 
 
-def int8_check_phase(shapes: dict) -> int:
-    """Phase 2b: the int8 kernel against its twin, bit for bit (0 differing
-    values), in bf16 and f32 output: every distinct quantized conv shape of
-    ResNet-50 and HRNet-W32 at batch 32, and ragged cases. Returns the
-    largest |kernel - twin| (0 where it passes)."""
+def int8_check_phase(shapes: dict) -> tuple:
+    """Phase 2b: both int8 kernels against their twins, bit for bit (0
+    differing values): the weight kernel's w_q, s_w and scale, then the
+    conv (from the kernel's w_q and scale) on bf16 and f32 activations, in
+    bf16 and f32 output; every distinct quantized conv shape of ResNet-50
+    and HRNet-W32 at batch 32, and ragged cases. Returns the largest
+    |kernel - twin| of each kernel (0 where it passes)."""
     import torch
 
-    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_cuda
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        conv_plan,
+        int8_conv2d_cuda,
+        quantize_weight_cuda,
+        quantize_weight_plain,
+    )
 
     distinct = sorted({key for model in shapes.values() for key in model})
     ragged = [  # (N, (Cin, H, W, Cout, k, stride))
         (3, (3, 97, 131, 64, 7, 2)),     # N=3, 97x131, the 7x7 stem, Cin 3
         (3, (3, 97, 131, 64, 3, 2)),     # the 3x3 stem on an odd size
-        (3, (64, 97, 131, 40, 3, 2)),    # Cout 40: a part-filled 64 tile
-        (2, (48, 33, 17, 33, 1, 2)),     # odd Cout, 1x1 stride 2, odd size
+        (3, (64, 97, 131, 40, 3, 2)),    # Cout 40: a part-filled tile
+        (2, (48, 33, 17, 33, 1, 2)),     # odd Cout, Cin 48: the simple path
         (5, (32, 15, 15, 100, 3, 1)),    # Cin 32, Cout 100
         (1, (8, 9, 11, 24, 3, 2)),       # Cin 8: byte gathers
+        (2, (96, 20, 20, 48, 3, 1)),     # 32-channel chunks, Cout 48
+        (3, (64, 97, 131, 64, 3, 1)),    # ragged tiles of 128 columns
     ]
     cases = [(B_TRAIN, key) for key in distinct] + ragged
-    err = 0.0
+    err_w = err_c = 0.0
+    paths = {}
     for i, (n, key) in enumerate(cases):
-        x_q, w_q, scale = int8_inputs(n, key, 100 + i)
         k, stride = key[4], key[5]
-        for out_dtype in (torch.bfloat16, torch.float32):
-            got = int8_conv2d_cuda(x_q, w_q, scale, stride, k // 2,
-                                   out_dtype)
-            want = int8_twin(x_q, w_q, scale, stride, k // 2, out_dtype)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w = int8_inputs(n, key, 100 + i, dtype)
+            got_w = quantize_weight_cuda(w, ACT_CLIP)
+            want_w = quantize_weight_plain(w, ACT_CLIP)
             torch.cuda.synchronize()
+            for name, a, b in zip(("w_q", "s_w", "scale"), got_w, want_w):
+                if a.shape != b.shape or bool((a != b).any()):
+                    fail(f"weight kernel's {name} differs from its twin at "
+                         f"{key}: {int((a != b).sum())} values")
+                err_w = max(err_w, float((a.float() - b.float()).abs().max()))
+            w_q, _, scale = got_w
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, stride,
+                                       k // 2, out_dtype)
+                want = int8_twin(x, w_q, scale, stride, k // 2, out_dtype)
+                torch.cuda.synchronize()
+                bad = int((got != want).sum())
+                if got.shape != want.shape or bad:
+                    fail(f"int8 conv differs from its twin at N={n} {key} "
+                         f"{dtype} -> {out_dtype}: {bad} values")
+                err_c = max(err_c, float((got.float() - want.float()).abs()
+                                         .max()))
+            path = conv_plan(x, w_q, stride, k // 2)["path"]
+            paths[path] = paths.get(path, 0) + 1
+            del x, w, got_w, want_w, got, want
+    print(f"[int8] both kernels equal their twins bit for bit on "
+          f"{len(cases)} shapes x (bf16, f32 activations) x (bf16, f32 "
+          f"output): {len(distinct)} distinct conv shapes of ResNet-50 and "
+          f"HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE}, and {len(ragged)} "
+          f"ragged ones; conv paths {paths}; max |kernel - twin| weights "
+          f"{err_w}, conv {err_c}")
+    return err_w, err_c
+
+
+def quant_module_phase() -> None:
+    """Phase 2c: a ``QuantConv2d`` on the card equals the same module on the
+    CPU, bit for bit, at ResNet-50's and HRNet-W32's heaviest shapes under
+    both compute dtypes: the weight scale divides on both devices (on a CUDA
+    tensor a Python-scalar divisor would be a reciprocal multiply, an ulp
+    off in about one channel in twenty)."""
+    import torch
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models.layers import QuantConv2d
+
+    for shape in ((256, 16, 16, 256, 3, 1), (32, 64, 64, 32, 3, 1)):
+        cin, h, w, cout, k, stride = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wt = int8_inputs(2, shape, 7, dtype)
+            policy = DTypePolicy(compute_dtype=dtype, quant_fwd=True)
+            cpu = QuantConv2d(cin, cout, k, stride, policy)
+            with torch.no_grad():
+                cpu.weight.copy_(wt.cpu())
+                want = cpu(x.cpu().contiguous())
+                card = QuantConv2d(cin, cout, k, stride, policy).to(
+                    "cuda", memory_format=torch.channels_last)
+                card.weight.copy_(wt)
+                got = card(x).cpu()
             bad = int((got != want).sum())
+            print(f"[int8 module] QuantConv2d {shape} {dtype}: card vs CPU "
+                  f"{bad} differing values of {got.numel()}")
             if got.shape != want.shape or bad:
-                fail(f"int8 conv differs from its twin at N={n} {key} "
-                     f"{out_dtype}: {bad} values")
-            err = max(err, float((got.float() - want.float()).abs().max()))
-        del x_q, w_q, scale, got, want
-    print(f"[int8] kernel equals its twin bit for bit on {len(cases)} shapes "
-          f"x (bf16, f32): {len(distinct)} distinct conv shapes of "
-          f"ResNet-50 and HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE}, and "
-          f"{len(ragged)} ragged ones; max |kernel - twin| {err}")
-    return err
+                fail(f"QuantConv2d on the card differs from the CPU at "
+                     f"{shape} {dtype}")
 
 
 def int8_train_phase(batch, counters, n_quant: int) -> dict:
@@ -822,7 +918,7 @@ def int8_train_phase(batch, counters, n_quant: int) -> dict:
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite int8 train loss: {losses}")
     want = {"fused_aug_targets": 3, "heatmap_targets": 0,
-            "int8_conv": 3 * n_quant}
+            "int8_conv": 3 * n_quant, "quantize_weight": 3 * n_quant}
     if counts != want:
         fail(f"int8 train launches {counts}, expected {want}")
     return counts
@@ -859,8 +955,9 @@ def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
             or not torch.isfinite(maxvals).all()):
         fail("non-finite int8 predictions")
     if counts != {"fused_aug_targets": 0, "heatmap_targets": 0,
-                  "int8_conv": n_quant}:
-        fail(f"int8 serving launches {counts}, expected {n_quant} int8")
+                  "int8_conv": n_quant, "quantize_weight": n_quant}:
+        fail(f"int8 serving launches {counts}, expected {n_quant} of each "
+             "int8 kernel")
     return counts
 
 
@@ -906,9 +1003,9 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
                   f"img/s ({n_rec} images, bs{B_TRAIN}); launches {counts}")
             if rc != 0:
                 fail(f"eval CLI ({tag}) exited {rc}")
+            n_int8 = n_quant * batches if tag == "int8_fwd" else 0
             want = {"fused_aug_targets": 0, "heatmap_targets": 0,
-                    "int8_conv": n_quant * batches if tag == "int8_fwd"
-                    else 0}
+                    "int8_conv": n_int8, "quantize_weight": n_int8}
             if counts != want:
                 fail(f"eval CLI ({tag}): launches {counts}, expected {want}")
             for name in total:
@@ -950,42 +1047,52 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
     return total, ips
 
 
-def int8_times(kind: str, shape, seed: int) -> dict:
-    """Phase 8b at one conv shape, batch 32: the kernel's eager and device
-    time (CUDA graph replay), its twin's time, its bound, the time of
-    ``torch._int_mm`` on the same operands after im2col (the GEMM alone;
-    where its shape rules allow it) and of the cuDNN bf16 conv of the
-    shape, which the bf16 policy runs."""
+def int8_times(kind: str, shape, seed: int) -> tuple:
+    """Phase 8b at one conv shape, batch 32, bf16 activations (the int8_fwd
+    policy's): for the conv and for the weight kernel, the eager and device
+    time (CUDA graph replay), the twin's time and the bound; for the conv
+    also the time of ``torch._int_mm`` on the pre-quantized im2col of the
+    same operands (the GEMM alone; checked equal to the kernel) and of
+    cuDNN's bf16 conv of the shape, which the bf16 policy runs. Returns
+    (conv figures, weight kernel figures)."""
     import torch
     import torch.nn.functional as F
 
     from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        conv_plan,
         int8_conv2d_cuda,
         out_size,
+        quantize_activation,
+        quantize_weight_cuda,
+        quantize_weight_plain,
     )
 
     cin, h, w, cout, k, stride = shape
     pad = k // 2
-    x_q, w_q, scale = int8_inputs(B_TRAIN, shape, seed)
-    fn = lambda: int8_conv2d_cuda(x_q, w_q, scale, stride, pad)  # noqa: E731
+    x, wt = int8_inputs(B_TRAIN, shape, seed)
+    w_q, _, scale = quantize_weight_cuda(wt, ACT_CLIP)
+    fn = lambda: int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, stride,  # noqa
+                                  pad)
     ms = eager_ms(fn)
     graph = capture(fn)
     dev_ms, how = device_ms(fn, graph)
     del graph
-    plain_ms = eager_ms(lambda: int8_twin(x_q, w_q, scale, stride, pad,
+    plain_ms = eager_ms(lambda: int8_twin(x, w_q, scale, stride, pad,
                                           torch.bfloat16), calls=5)
     ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
     m = B_TRAIN * ho * wo
     ops = conv_ops(B_TRAIN, shape)
-    nbytes = x_q.numel() + w_q.numel() + 4 * cout + 2 * m * cout
+    # bf16 activations in, s8 weights and f32 scales, bf16 out
+    nbytes = 2 * x.numel() + w_q.numel() + 4 * cout + 2 * m * cout
     bound, by = bound_ms(nbytes, ops, kind, int8=True)
 
     kk = cin * k * k
-    library_ms = None
+    library_ms = lib_dev = None
     if kk % 8 == 0 and cout % 8 == 0 and m > 16:
+        x_q = quantize_activation(x, ACT_CLIP)
         cols = F.unfold(x_q.float(), k, padding=pad, stride=stride)
         a = cols.transpose(1, 2).reshape(m, kk).to(torch.int8).contiguous()
-        del cols
+        del cols, x_q
         b = w_q.permute(0, 3, 1, 2).reshape(cout, kk).contiguous().t()
         try:
             acc = torch._int_mm(a, b)
@@ -1001,27 +1108,124 @@ def int8_times(kind: str, shape, seed: int) -> dict:
             lib_dev, _ = device_ms(lambda: torch._int_mm(a, b), graph)
             del graph, acc, ref
         del a, b
-    x16 = torch.randn(B_TRAIN, cin, h, w, device="cuda").to(
-        torch.bfloat16, memory_format=torch.channels_last)
-    w16 = torch.randn(cout, cin, k, k, device="cuda").to(
-        torch.bfloat16, memory_format=torch.channels_last)
+    x16 = x.contiguous(memory_format=torch.channels_last)
+    w16 = wt.to(torch.bfloat16)
     conv = lambda: F.conv2d(x16, w16, None, stride, pad)  # noqa: E731
     cudnn_ms = eager_ms(conv)
     graph = capture(conv)
     cudnn_dev, _ = device_ms(conv, graph)
     del graph
+    plan = conv_plan(x, w_q, stride, pad)
     print(f"[int8_conv] N={B_TRAIN} Cin={cin} {h}x{w} Cout={cout} k={k} "
-          f"s={stride}: eager {ms:.4f} ms, device {dev_ms:.4f} ms ({how}), "
-          f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by} "
-          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
+          f"s={stride} {plan}: eager {ms:.4f} ms, device {dev_ms:.4f} ms "
+          f"({how}), plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by "
+          f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
           f"{100 * bound / dev_ms:.1f} % of bound; torch._int_mm "
           + (f"{library_ms:.4f} ms eager, {lib_dev:.4f} ms device"
              if library_ms is not None else "not timed")
           + f"; cuDNN bf16 conv {cudnn_ms:.4f} ms eager, {cudnn_dev:.4f} ms "
           "device")
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-            "cudnn_bf16_ms": cudnn_dev, "shape": list(shape)}
+    conv_fig = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_dev,
+                "library_eager_ms": library_ms, "cudnn_bf16_ms": cudnn_dev,
+                "shape": list(shape), "plan": plan}
+
+    wf = lambda: quantize_weight_cuda(wt, ACT_CLIP)  # noqa: E731
+    w_ms = eager_ms(wf)
+    graph = capture(wf)
+    w_dev, w_how = device_ms(wf, graph)
+    del graph
+    w_plain = eager_ms(lambda: quantize_weight_plain(wt, ACT_CLIP))
+    nw = wt.numel()
+    # f32 in, s8 out, s_w and scale out; |w|, max, divide, round, clamp
+    w_bytes, w_ops = 5 * nw + 8 * cout, WEIGHT_OPS_PER_VALUE * nw
+    w_bound, w_by = bound_ms(w_bytes, w_ops, kind)
+    print(f"[quantize_weight] {cout}x{cin}x{k}x{k}: eager {w_ms:.4f} ms, "
+          f"device {w_dev:.4f} ms ({w_how}), plain {w_plain:.4f} ms, bound "
+          f"{w_bound * 1e3:.3f} us by {w_by} ({w_bytes / 1e6:.2f} MB), "
+          f"{100 * w_bound / w_dev:.1f} % of bound")
+    weight_fig = {"ms": w_ms, "device_ms": w_dev, "plain_ms": w_plain,
+                  "bound_ms": w_bound, "bound_by": w_by, "library_ms": None,
+                  "shape": [cout, cin, k, k]}
+    return conv_fig, weight_fig
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Host microseconds a call: ``calls`` calls between two clock reads
+    (the card keeps up at the small shape it is used at), synchronised
+    around."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def quant_conv_breakdown(shapes: dict) -> dict:
+    """Phase 8d: a forward's quantized convs, every distinct shape of
+    ResNet-50 and HRNet-W32 at batch 32 with bf16 activations: the device
+    time (CUDA graph replay) of ``ops/quant.py:quant_forward`` (the weight
+    quantize and the conv) and of the conv alone, times the shape's uses,
+    summed a forward, with each shape's plan; then the host microseconds a
+    call of ``quant_forward`` and of a bf16 conv with its weight cast (4 x
+    32 x 16 x 16, 3x3), the host work a quantized conv adds to an eager
+    forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from lighthand_tpu_torch.ops import quant
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        conv_plan,
+        int8_conv2d_cuda,
+        quantize_weight_cuda,
+    )
+
+    result = {}
+    for name, uses in sorted(shapes.items()):
+        rows = []
+        for shape, u in sorted(uses.items()):
+            cin, h, w, cout, k, s = shape
+            x, wt = int8_inputs(B_TRAIN, shape, 7)
+            w_q, _, scale = quantize_weight_cuda(wt, ACT_CLIP)
+
+            def whole():
+                return quant.quant_forward(x, wt, s, k // 2, ACT_CLIP,
+                                           torch.bfloat16)
+
+            def conv():
+                return int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, s, k // 2)
+            rows.append((shape, u, device_ms(whole, capture(whole))[0],
+                         device_ms(conv, capture(conv))[0],
+                         conv_plan(x, w_q, s, k // 2)))
+            del x, wt, w_q, scale
+        total = sum(u * ms for _, u, ms, _, _ in rows)
+        conv_total = sum(u * ms for _, u, _, ms, _ in rows)
+        result[name] = {"quantized_conv_ms": total, "conv_ms": conv_total}
+        print(f"[int8 convs] {name} bs{B_TRAIN}: {total:.4f} ms device time "
+              f"a forward in quantized convs ({len(rows)} shapes, "
+              f"{sum(u for _, u, _, _, _ in rows)} convs), the conv kernel "
+              f"alone {conv_total:.4f} ms; the heaviest (shape x uses: ms "
+              "a call whole / conv, plan):")
+        for shape, u, ms, c_ms, plan in sorted(
+                rows, key=lambda r: -r[1] * r[2])[:6]:
+            print(f"    {shape} x{u}: {ms:.4f} / {c_ms:.4f} ms {plan}")
+    x = torch.randn(4, 32, 16, 16, device="cuda").to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    wt = torch.randn(32, 32, 3, 3, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    result["host_us"] = {
+        "quant_forward": host_us(lambda: quant.quant_forward(
+            x, wt, 1, 1, ACT_CLIP, torch.bfloat16)),
+        "bf16_cast_and_conv": host_us(lambda: F.conv2d(
+            x, wt.to(torch.bfloat16), None, 1, 1))}
+    print(f"[int8 convs] host us a call: {result['host_us']}")
+    return result
 
 
 def forward_times() -> None:
@@ -1029,7 +1233,10 @@ def forward_times() -> None:
     256x256, under bf16 and under int8_fwd (the same random weights):
     CUDA events around 10 forwards after 3 warm-ups; then the profiler's
     device time of 3 forwards by kernel, its sum over the event time (the
-    device's busy share) and the kernels that take the most."""
+    device's busy share), the kernels that take the most and the count of
+    device kernels a forward, which must not be larger under int8_fwd (a
+    quantized conv launches two kernels, the weight quantize and the conv;
+    a bf16 conv launches a weight cast and cuDNN's conv)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1040,7 +1247,7 @@ def forward_times() -> None:
     x = torch.randn(B_TRAIN, 3, SIZE, SIZE, device="cuda").to(
         torch.bfloat16, memory_format=torch.channels_last)
     for name in ("resnet50", "hrnet_w32"):
-        times = {}
+        times, launches = {}, {}
         for tag, policy in (("bf16", DTypePolicy()),
                             ("int8_fwd", DTypePolicy.int8_fwd())):
             model = get_model(name, policy=policy)
@@ -1056,15 +1263,22 @@ def forward_times() -> None:
                                e.key) for e in prof.key_averages()
                               if e.self_device_time_total > 0), reverse=True)
             busy = sum(ms for ms, _, _ in kernels)
+            launches[tag] = sum(n for _, n, _ in kernels)
+            wq = sum(ms for ms, _, key in kernels if "quantize_weight" in key)
             print(f"[forward] {name} {tag}: {times[tag]:.3f} ms a forward "
                   f"(events), {busy:.3f} ms of kernels (profiler) = "
-                  f"{100 * busy / times[tag]:.1f} % busy; top kernels (ms a "
-                  "forward, launches): " + "; ".join(
+                  f"{100 * busy / times[tag]:.1f} % busy, {launches[tag]} "
+                  f"device kernels a forward; weight quantize {wq:.3f} ms "
+                  f"({100 * wq / times[tag]:.2f} % of the forward); top "
+                  "kernels (ms a forward, launches): " + "; ".join(
                       f"{key[:48]} {ms:.3f} x{n}"
                       for ms, n, key in kernels[:6]))
         print(f"[forward] {name} bs{B_TRAIN} {SIZE}x{SIZE} eval: bf16 "
               f"{times['bf16']:.3f} ms, int8_fwd {times['int8_fwd']:.3f} ms "
-              f"per forward")
+              f"per forward; device kernels {launches}")
+        if launches["int8_fwd"] > launches["bf16"]:
+            fail(f"{name}: int8_fwd launches {launches['int8_fwd']} device "
+                 f"kernels a forward, bf16 {launches['bf16']}")
 
 
 def main() -> int:
@@ -1084,11 +1298,15 @@ def main() -> int:
         count_div_mismatches,
         fused_aug_targets_cuda,
         fused_aug_targets_plain,
+        launch_geometry,
     )
     from lighthand_tpu_torch.ops.kernels.heatmap import (
         generate_target_batch_cuda,
     )
-    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_cuda
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv2d_cuda,
+        quantize_weight_cuda,
+    )
     from lighthand_tpu_torch.train import (
         create_train_state,
         make_eval_step,
@@ -1157,6 +1375,9 @@ def main() -> int:
         (3, 5, 97, 131, 3, ragged_order, 50, 3.0, JOINTS),
         (2, 6, 300, 300, 2, None, HM, 4.0, JOINTS),
         (2, 7, 16, 16, 2, None, 16, 1.0, 40),  # one block, 40 maps
+        # above 16 x 1024 x 8 pixels: threads walk 2 and 4 pixel groups
+        (2, 8, 384, 384, 2, None, HM, 4.0, JOINTS),
+        (2, 9, 517, 771, 2, ragged_order[:2], HM, 4.0, JOINTS),
     )
     for b, seed, h, w, cols, order, hm, stride, nj in k1_cases:
         images, joints, params = k1_inputs(b, seed, h, w, cols, order, nj)
@@ -1173,7 +1394,7 @@ def main() -> int:
         near0 = float((diff * fine).max())
         equal = float((diff == 0).float().mean())
         hm_err = float((got_hm - want_hm).abs().max())
-        tag = f"B={b} {h}x{w} hm={hm} J={nj}"
+        tag = f"B={b} {h}x{w} hm={hm} J={nj} {launch_geometry(h, w)}"
         print(f"[K1] {tag} bf16: max|diff| {float(diff.max()):.3g}, "
               f"{ulps:.3g} ulp where a ulp >= {F32_ATOL:g}, {near0:.3g} "
               f"below; equal {100 * equal:.4f} %; targets {hm_err:.3g}")
@@ -1201,10 +1422,13 @@ def main() -> int:
           f"{ {name: len(uses) for name, uses in shapes.items()} }")
     if n_quant != {"resnet50": 53, "hrnet_w32": 292}:
         fail(f"quantized conv counts {n_quant}, expected 53 and 292")
-    int8_err = int8_check_phase(shapes)
+    weight_err, int8_err = int8_check_phase(shapes)
+    # 2c. fault 3: the weight scale on the card is the CPU's
+    quant_module_phase()
     counters = {"fused_aug_targets": fused_aug_targets_cuda,
                 "heatmap_targets": generate_target_batch_cuda,
-                "int8_conv": int8_conv2d_cuda}
+                "int8_conv": int8_conv2d_cuda,
+                "quantize_weight": quantize_weight_cuda}
 
     # 4. main path: train ---------------------------------------------------
     rng = np.random.default_rng(3)
@@ -1261,8 +1485,8 @@ def main() -> int:
         fail(f"K1 launched {launches['fused_aug_targets']} times in 3 steps")
     if launches["heatmap_targets"] < 1:
         fail("the eval step did not launch K2")
-    if launches["int8_conv"]:
-        fail("the bf16 path launched the int8 conv")
+    if launches["int8_conv"] or launches["quantize_weight"]:
+        fail("the bf16 path launched an int8 kernel")
     if scalars["n_valid"] != 28.0 or not all(map(math.isfinite,
                                                   scalars.values())):
         fail(f"bad eval metrics: {scalars}")
@@ -1376,8 +1600,8 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": None})
 
-    # 8b-8c. the int8 conv at the heaviest shape of each net, and the nets'
-    # forward under bf16 and int8_fwd
+    # 8b-8c. the two int8 kernels at the heaviest conv shape of each net,
+    # and the nets' forward under bf16 and int8_fwd
     timed = {}
     for i, (name, uses) in enumerate(sorted(shapes.items())):
         heavy = max(uses, key=lambda key: conv_ops(B_TRAIN, key) * uses[key])
@@ -1387,18 +1611,21 @@ def main() -> int:
               "forward at bs32")
         timed[name] = int8_times(kind, heavy, 900 + i)
     forward_times()
-    row = max(timed.values(), key=lambda t: conv_ops(B_TRAIN, t["shape"]))
-    by_path = {p: c["int8_conv"] for p, c in paths.items()}
-    rows.append({
-        "name": "int8_conv", "route": "cuda",
-        "source": "lighthand_tpu_torch/csrc/int8_conv.cu",
-        "replaces": "lighthand_tpu/ops/quant.py:54",
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": int8_err, "ms": row["ms"],
-        "device_ms": row["device_ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "cudnn_bf16_ms": row["cudnn_bf16_ms"], "shape": row["shape"]})
+    breakdown = quant_conv_breakdown(shapes)
+    conv_row, weight_row = max(
+        timed.values(), key=lambda t: conv_ops(B_TRAIN, t[0]["shape"]))
+    for name, fig, err, replaces in (
+            ("int8_conv", conv_row, int8_err,
+             "lighthand_tpu/ops/quant.py:54"),
+            ("quantize_weight", weight_row, weight_err,
+             "lighthand_tpu/ops/quant.py:45")):
+        by_path = {p: c[name] for p, c in paths.items()}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "lighthand_tpu_torch/csrc/int8_conv.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err, **fig})
+    rows[-2]["forward_ms_by_model"] = breakdown
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,9 @@ these differences:
   raise where there is none;
 - ``--mesh-data`` / ``--mesh-model`` other than one device raise
   ``NotImplementedError`` (ROADMAP.md, Queue 1: multi-GPU);
+- a ``Config`` whose precision is none of the four policies raises
+  ``ValueError`` where JAX's ``_policy`` takes it for bf16 (the CLIs'
+  ``--precision`` choices reject it in both packages);
 - no ``jax.config`` call.
 
 The reference splits configuration across argparse (argparser.py:27-100),
@@ -159,9 +162,9 @@ def check_supported(cfg: Config) -> None:
             "on one device; multi-GPU is not ported yet (ROADMAP.md, Queue 1: "
             "multi-GPU)")
     if cfg.model.precision not in PORTED_PRECISIONS:
-        raise NotImplementedError(
-            f"precision {cfg.model.precision!r} is not ported yet (ROADMAP.md,"
-            " Queue 1: the all_bf16 and int8_fwd policies)")
+        raise ValueError(
+            f"unknown precision {cfg.model.precision!r}: the policies are "
+            f"{', '.join(PORTED_PRECISIONS)}")
 
 
 def parse_args(argv: Optional[list[str]] = None, phase: str = "train") -> Config:

@@ -39,6 +39,11 @@
 //     while its pixel bytes are in flight;
 //   - the result goes out as 16-byte stores straight from registers: 8
 //     pixels are 48 bytes of bf16 (96 of f32).
+// An image above kMaxCluster * kMaxThreads * kPx pixels (131,072: 384x384
+// already is) runs a second instance, fused_aug_groups_kernel: 16 blocks
+// whose threads walk several 8-pixel groups each and keep none of them in
+// registers across a barrier (see its note). Every image that fits runs
+// the register kernel above, unchanged.
 // A sample whose enable is exactly 0 skips the chain and the barriers:
 // 0 * j + 1 * raw == raw for finite j. A block past the image's last pixel
 // still joins every barrier and contributes 0. The cluster's last arrive
@@ -397,6 +402,154 @@ fused_aug_kernel(const uint8_t* __restrict__ img,
   if (rounds > 0) cluster_wait();
 }
 
+// K1 for an image above the register kernel's capacity. Thread t of block
+// r walks the 8-pixel groups q = r * threads + t + i * cluster * threads,
+// i < groups, one at a time, and keeps no pixel across a barrier: before
+// each contrast round and for the final pass it re-derives a group's values
+// from its u8 bytes, replaying the ops of the earlier slots with the means
+// of the earlier rounds (in shared memory, the same in every block). So its
+// registers are those of one group, and the u8 bytes are read 1 + rounds
+// times (the repeats from L2). The per-thread gray sums run over its groups
+// in order, then the block and the cluster add them as the register kernel
+// does; the mean is the same division by hw.
+template <typename OutT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fused_aug_groups_kernel(const uint8_t* __restrict__ img,
+                        const float* __restrict__ params,
+                        const float* __restrict__ joints, long long jsb,
+                        long long jsj, OutT* __restrict__ out,
+                        float* __restrict__ targets, int hw, int njoints,
+                        int hm, float stride, int tmp, float inv,
+                        int groups) {
+  __shared__ float s_unit[256];
+  __shared__ float s_warp[kMaxThreads / 32];
+  __shared__ float s_partial[kMaxRounds];
+  __shared__ float s_mean[kMaxRounds];
+  __shared__ AugParams s_a;
+  __shared__ int s_mu[kMapCenters][3];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.y;
+  const int rank = blockIdx.x;
+  const int nblocks = gridDim.x;
+  const int tid = threadIdx.x;
+
+  for (int k = tid; k < 256; k += blockDim.x) s_unit[k] = (float)k / 255.0f;
+  if (tid == 0) s_a = load_params(params + 12 * b);
+  const AugParams& a = s_a;
+  if (tid < kMapCenters && rank + tid * nblocks < njoints) {
+    const float* p = joints + b * jsb + (rank + tid * nblocks) * jsj;
+    s_mu[tid][0] = lh_quantize(p[0], stride);
+    s_mu[tid][1] = lh_quantize(p[1], stride);
+    s_mu[tid][2] = lh_center_valid(s_mu[tid][0], s_mu[tid][1], hm, tmp);
+  }
+  __syncthreads();  // s_unit, s_a, s_mu
+
+  auto write_targets = [&]() {
+    const LhMapThreads t = lh_map_threads(targets, hm, tid, blockDim.x);
+    for (int m = 0, j = rank; j < njoints; ++m, j += nblocks) {
+      int mu_x, mu_y, valid;
+      if (m < kMapCenters) {
+        mu_x = s_mu[m][0];
+        mu_y = s_mu[m][1];
+        valid = s_mu[m][2];
+      } else {
+        const float* p = joints + b * jsb + j * jsj;
+        mu_x = lh_quantize(p[0], stride);
+        mu_y = lh_quantize(p[1], stride);
+        valid = lh_center_valid(mu_x, mu_y, hm, tmp);
+      }
+      lh_write_map(targets + ((size_t)b * njoints + j) * hm * hm, mu_x, mu_y,
+                   valid, hm, tmp, inv, t);
+    }
+  };
+
+  const long long first = (long long)rank * blockDim.x + tid;
+  const long long span = (long long)nblocks * blockDim.x;
+  // Group q's bytes, and its values after the ops of slots [0, upto);
+  // returns whether it holds all 8 pixels, and n how many it holds.
+  auto derive = [&](long long q, int upto, uint32_t (&w)[kVals / 4],
+                    float (&v)[kVals], int& n) {
+    const long long p0 = q * kPx;
+    const bool full = p0 + kPx <= hw;
+    n = full ? kPx : (int)max(hw - p0, 0LL);
+    load_bytes(img + ((size_t)b * hw + p0) * 3, full, n, w);
+#pragma unroll
+    for (int e = 0; e < kVals; ++e) v[e] = s_unit[byte_at(w, e)];
+    int r = 0;
+    for (int slot = 0; slot < upto; ++slot) {
+      const int op = a.order[slot];
+      const float mean = op == 1 ? s_mean[r++] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kPx; ++i)
+        apply_op(op, v[3 * i], v[3 * i + 1], v[3 * i + 2], a, mean);
+    }
+    return full;
+  };
+
+  const bool jitter = a.enable != 0.0f;
+  int rounds = 0;
+  if (jitter)
+    for (int slot = 0; slot < 4; ++slot) rounds += a.order[slot] == 1;
+  if (rounds == 0) write_targets();
+
+  int round = 0;
+  for (int slot = 0; slot < 4 && round < rounds; ++slot) {
+    if (a.order[slot] != 1) continue;
+    float acc = 0.0f;
+    for (int i = 0; i < groups; ++i) {
+      const long long q = first + i * span;
+      if (q * kPx >= hw) break;
+      uint32_t w[kVals / 4];
+      float v[kVals];
+      int n;
+      derive(q, slot, w, v, n);
+#pragma unroll
+      for (int k = 0; k < kPx; ++k)
+        if (k < n) acc += gray_of(v[3 * k], v[3 * k + 1], v[3 * k + 2]);
+    }
+    const float s = block_sum(acc, s_warp);
+    if (tid == 0) s_partial[round] = s;
+    cluster_arrive();
+    if (round == 0) write_targets();
+    cluster_wait();
+    const int lane = tid & 31;
+    const float mine =
+        lane < nblocks ? *cluster.map_shared_rank(&s_partial[round], lane)
+                       : 0.0f;
+    float total = 0.0f;
+    for (int q = 0; q < nblocks; ++q)
+      total += __shfl_sync(0xffffffffu, mine, q);
+    if (tid == 0) s_mean[round] = total / (float)hw;
+    __syncthreads();  // s_mean[round] before the next derive
+    if (++round == rounds) cluster_arrive();  // waited for before exit
+  }
+
+  const bool blend = jitter && a.enable != 1.0f;
+  for (int i = 0; i < groups; ++i) {
+    const long long q = first + i * span;
+    if (q * kPx >= hw) break;
+    uint32_t w[kVals / 4];
+    float v[kVals];
+    int n;
+    const bool full = derive(q, jitter ? 4 : 0, w, v, n);
+#pragma unroll
+    for (int k = 0; k < kPx; ++k) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float x = v[3 * k + c];
+        if (blend)
+          x = a.enable * x +
+              (1.0f - a.enable) * s_unit[byte_at(w, 3 * k + c)];
+        x = clip01(x * a.pn[c]);
+        v[3 * k + c] = div_std(x - kMean[c], c);
+      }
+    }
+    store_px(out + ((size_t)b * hw + q * kPx) * 3, v, full, n);
+  }
+  if (rounds > 0) cluster_wait();
+}
+
 // Counts the f32 x in [0, 1] for which div_std(x - kMean[c], c) and the
 // division (x - kMean[c]) / kStd[c] differ in any bit.
 __global__ void div_mismatch_kernel(int c,
@@ -411,12 +564,11 @@ __global__ void div_mismatch_kernel(int c,
   if (n) atomicAdd(bad, n);
 }
 
-template <typename OutT>
-int launch(const uint8_t* img, const float* params, const float* joints,
-           long long jsb, long long jsj, OutT* out, float* targets,
-           int batch, int hw, int njoints, int hm, float stride, int tmp,
-           float inv, int cluster, int threads, cudaStream_t stream) {
-  auto kernel = fused_aug_kernel<OutT>;
+// One launch of `kernel` over (cluster, batch) blocks of `threads`, a
+// cluster of `cluster` blocks to an image.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int batch, int cluster, int threads,
+           cudaStream_t stream, Args... args) {
   if (cluster > 8) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -434,11 +586,24 @@ int launch(const uint8_t* img, const float* params, const float* joints,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kernel, img, params, joints, jsb, jsj, out,
-                         targets, hw, njoints, hm, stride, tmp, inv);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_k1(const uint8_t* img, const float* params, const float* joints,
+              long long jsb, long long jsj, OutT* out, float* targets,
+              int batch, int hw, int njoints, int hm, float stride, int tmp,
+              float inv, int cluster, int threads, int groups,
+              cudaStream_t stream) {
+  if (groups == 1)
+    return launch(fused_aug_kernel<OutT>, batch, cluster, threads, stream,
+                  img, params, joints, jsb, jsj, out, targets, hw, njoints,
+                  hm, stride, tmp, inv);
+  return launch(fused_aug_groups_kernel<OutT>, batch, cluster, threads,
+                stream, img, params, joints, jsb, jsj, out, targets, hw,
+                njoints, hm, stride, tmp, inv, groups);
 }
 
 }  // namespace
@@ -447,29 +612,32 @@ int launch(const uint8_t* img, const float* params, const float* joints,
 // [B, J, 2+] f32 with element strides (jsb, jsj, 1); out: [B, H, W, 3] bf16
 // (out_bf16 != 0) or f32; targets: [B, J, hm, hm] f32; both contiguous.
 // Geometry (ops/kernels/fused_aug.py:launch_geometry): a cluster of
-// `cluster` blocks of `threads` threads per image, 8 pixels a thread.
-// Returns cudaGetLastError() after the one launch, or cudaErrorInvalidValue
-// for a geometry that does not cover the image.
+// `cluster` blocks of `threads` threads per image, each thread `groups`
+// groups of 8 pixels (1: the register kernel). Returns cudaGetLastError()
+// after the one launch, or cudaErrorInvalidValue for a geometry that does
+// not cover the image.
 extern "C" int lh_fused_aug_targets(const uint8_t* img, const float* params,
                                     const float* joints, long long jsb,
                                     long long jsj, void* out, int out_bf16,
                                     float* targets, int batch, int height,
                                     int width, int njoints, int hm, int tmp,
                                     float inv, float stride, int cluster,
-                                    int threads, void* stream) {
+                                    int threads, int groups, void* stream) {
   if (batch == 0) return 0;
   const long long hw = (long long)height * width;
   if (cluster < 1 || cluster > kMaxCluster || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || batch > 65535 ||
-      (long long)cluster * threads * kPx < hw)
+      groups < 1 || hw > 0x7fffffffLL ||
+      (long long)cluster * threads * kPx * groups < hw)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (out_bf16)
-    return launch(img, params, joints, jsb, jsj, (__nv_bfloat16*)out,
-                  targets, batch, (int)hw, njoints, hm, stride, tmp, inv,
-                  cluster, threads, s);
-  return launch(img, params, joints, jsb, jsj, (float*)out, targets, batch,
-                (int)hw, njoints, hm, stride, tmp, inv, cluster, threads, s);
+    return launch_k1(img, params, joints, jsb, jsj, (__nv_bfloat16*)out,
+                     targets, batch, (int)hw, njoints, hm, stride, tmp, inv,
+                     cluster, threads, groups, s);
+  return launch_k1(img, params, joints, jsb, jsj, (float*)out, targets,
+                   batch, (int)hw, njoints, hm, stride, tmp, inv, cluster,
+                   threads, groups, s);
 }
 
 // Adds to *bad, for each channel, the normalize numerators on which

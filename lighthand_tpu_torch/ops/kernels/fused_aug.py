@@ -52,11 +52,17 @@ SHARED_SM_THREADS = 512
 MAX_BATCH = 65535  # gridDim.y
 
 
+MAX_PIXELS = 2**31 - 1  # the kernel indexes an image's pixels with an int
+
+
 class Geometry(NamedTuple):
-    """One cluster of ``cluster`` blocks of ``threads`` threads per image;
-    thread t of block r holds pixels [8 (r threads + t), + 8)."""
+    """One cluster of ``cluster`` blocks of ``threads`` threads per image.
+    With ``groups`` 1, thread t of block r holds pixels [8 (r threads + t),
+    + 8) in registers; above that capacity it walks the 8-pixel groups
+    r threads + t + i cluster threads, i < ``groups``."""
     cluster: int
     threads: int
+    groups: int = 1
 
 
 def launch_geometry(height: int, width: int) -> Geometry:
@@ -64,19 +70,24 @@ def launch_geometry(height: int, width: int) -> Geometry:
     power-of-two cluster whose blocks of at most ``SHARED_SM_THREADS``
     threads hold every pixel, or, past 16 such blocks, 16 blocks of up to
     ``MAX_THREADS``; the threads are spread evenly over the blocks
-    (256x256: 16 blocks of 512). Raises for an image above
-    ``MAX_CLUSTER * MAX_THREADS * PX_PER_THREAD`` pixels."""
-    groups = -(-(height * width) // PX_PER_THREAD)
+    (256x256: 16 blocks of 512). An image above ``MAX_CLUSTER *
+    MAX_THREADS * PX_PER_THREAD`` pixels takes 16 blocks whose threads walk
+    the fewest groups of 8 pixels that cover it (384x384: 576 threads, 2
+    groups each). Raises only above ``MAX_PIXELS``."""
+    if height * width > MAX_PIXELS:
+        raise ValueError(f"a {height}x{width} image exceeds the kernel's "
+                         f"{MAX_PIXELS} pixels")
+    n_groups = -(-(height * width) // PX_PER_THREAD)
     cluster = 1
-    while cluster < MAX_CLUSTER and -(-groups // cluster) > SHARED_SM_THREADS:
+    while cluster < MAX_CLUSTER and -(-n_groups // cluster) > SHARED_SM_THREADS:
         cluster *= 2
-    per_block = -(-groups // cluster)
+    per_block = -(-n_groups // cluster)
     threads = max(32, -(-per_block // 32) * 32)
-    if threads > MAX_THREADS:
-        raise ValueError(
-            f"a {height}x{width} image exceeds the kernel's "
-            f"{MAX_CLUSTER * MAX_THREADS * PX_PER_THREAD} pixels per image")
-    return Geometry(cluster, threads)
+    if threads <= MAX_THREADS:
+        return Geometry(cluster, threads)
+    groups = -(-per_block // MAX_THREADS)
+    threads = -(-per_block // groups)
+    return Geometry(cluster, -(-threads // 32) * 32, groups)
 
 
 def draw_aug_params(generator: torch.Generator, aug_enabled: torch.Tensor,
@@ -145,7 +156,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.lh_fused_aug_targets.argtypes = [p, p, p, ll, ll, p, i, p, i, i, i, i,
-                                         i, i, f, f, i, i, p]
+                                         i, i, f, f, i, i, i, p]
     lib.lh_fused_aug_targets.restype = i
     lib.lh_count_div_mismatches.argtypes = [p, p]
     lib.lh_count_div_mismatches.restype = i
@@ -209,7 +220,7 @@ def fused_aug_targets_cuda(images_u8: torch.Tensor, joints: torch.Tensor,
             joints.stride(0), joints.stride(1), out.data_ptr(),
             int(out_dtype == torch.bfloat16), targets.data_ptr(), b, h, w, j,
             heatmap_size, tmp, inv, stride, geo.cluster, geo.threads,
-            torch.cuda.current_stream().cuda_stream)
+            geo.groups, torch.cuda.current_stream().cuda_stream)
         fused_aug_targets_cuda.launches += 1
     if err:
         raise RuntimeError(f"fused_aug kernel launch failed: CUDA error {err}")

@@ -5,18 +5,17 @@ Counterpart of ``lighthand_tpu/ops/quant.py``, the conv of the
 
 - weights: per-output-channel symmetric quantization, the scales derived
   from the f32 master weights on every call, as the JAX package does
-  (nothing is cached);
+  (nothing is cached): the CUDA kernel ``quantize_weight_cuda``;
 - activations: per-tensor symmetric quantization with the static clip
-  ``act_clip`` (8.0);
+  ``act_clip`` (8.0), inside the conv kernel's load;
 - the s8 x s8 -> s32 conv and its dequantizing epilogue: the CUDA kernel
-  ``ops/kernels/int8_conv.py`` on the card, its plain twin on the CPU;
+  ``int8_conv2d_cuda``;
 - backward: the straight-through estimator, exactly the vjp of the plain
   conv in ``compute_dtype`` at ``(x, w)`` (dx in x's dtype, dw in w's).
 
-The quantize steps are plain PyTorch, as XLA computes them outside any
-Pallas kernel in the JAX package. Each scalar enters the arithmetic as the
-f32 value JAX's weakly typed Python scalar becomes, so the results are
-JAX's bit for bit.
+On the card a quantized conv is two launches, the weight kernel then the
+conv (``ops/kernels/int8_conv.py``); on the CPU both wrappers compute their
+plain twins, which follow JAX's formulas bit for bit.
 """
 
 from __future__ import annotations
@@ -24,42 +23,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_cuda
-
-
-def _f32(v: float) -> float:
-    """``v`` rounded to the nearest f32, as a Python float."""
-    return torch.tensor(v, dtype=torch.float32).item()
-
-
-def quantize_weight(w: torch.Tensor):
-    """f32 master weights ``[Cout, Cin, kh, kw]`` -> (s8 ``[Cout, kh, kw,
-    Cin]`` contiguous, f32 per-channel scale ``s_w`` ``[Cout]``)."""
-    w32 = w.float()
-    s_w = torch.clamp_min(w32.abs().amax(dim=(1, 2, 3)), _f32(1e-8)) / 127.0
-    w_q = torch.clamp(torch.round(w32 / s_w[:, None, None, None]), -127, 127)
-    return w_q.to(torch.int8).permute(0, 2, 3, 1).contiguous(), s_w
-
-
-def quantize_activation(x: torch.Tensor, act_clip: float) -> torch.Tensor:
-    """Per-tensor s8 with the static clip: round(x * (127 / act_clip)),
-    clamped to +-127; ``channels_last`` on the card, as the kernel reads."""
-    inv = _f32(1.0 / (act_clip / 127.0))
-    x_q = torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
-    if x_q.device.type == "cuda":
-        x_q = x_q.contiguous(memory_format=torch.channels_last)
-    return x_q
+from lighthand_tpu_torch.ops.kernels.int8_conv import (
+    int8_conv2d_cuda,
+    quantize_weight_cuda,
+)
 
 
 def quant_forward(x: torch.Tensor, w: torch.Tensor, stride: int,
                   padding: int, act_clip: float,
                   out_dtype: torch.dtype) -> torch.Tensor:
-    """The quantized conv: ``x`` NCHW activations, ``w`` the f32 master
-    weights ``[Cout, Cin, kh, kw]``; the result in ``out_dtype``."""
-    w_q, s_w = quantize_weight(w)
-    x_q = quantize_activation(x, act_clip)
-    scale = s_w * _f32(act_clip / 127.0)
-    return int8_conv2d_cuda(x_q, w_q, scale, stride, padding, out_dtype)
+    """The quantized conv: ``x`` NCHW bf16 or f32 activations
+    (``channels_last`` on the card), ``w`` the f32 master weights ``[Cout,
+    Cin, kh, kw]``; the result in ``out_dtype``."""
+    w_q, _, scale = quantize_weight_cuda(w, act_clip)
+    if x.device.type == "cuda":  # a no-op for the models' activations
+        x = x.contiguous(memory_format=torch.channels_last)
+    return int8_conv2d_cuda(x, w_q, scale, act_clip, stride, padding,
+                            out_dtype)
 
 
 class _Int8Conv(torch.autograd.Function):
@@ -91,8 +71,13 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
               act_clip: float, compute_dtype: torch.dtype) -> torch.Tensor:
     """Quantized-forward conv, STE backward.
 
-    x: NCHW activations (any float dtype); w: f32 master weights ``[Cout,
+    x: NCHW bf16 or f32 activations; w: f32 master weights ``[Cout,
     Cin, kh, kw]``; stride and padding the same on both axes; act_clip the
     static symmetric activation clip; compute_dtype the dtype of the output
-    and of the backward convs (the policy's compute_dtype)."""
+    and of the backward convs (the policy's compute_dtype). Where no
+    gradient is wanted (eval, serving), the forward runs without the
+    autograd Function, whose set-up costs host time a call."""
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        return quant_forward(x, w, stride, padding, act_clip, compute_dtype)
     return _Int8Conv.apply(x, w, stride, padding, act_clip, compute_dtype)

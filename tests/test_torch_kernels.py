@@ -23,17 +23,21 @@ from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
 T = torch.from_numpy
 
 
-@pytest.mark.parametrize("hw", [(256, 256), (97, 131), (16, 16)])
+@pytest.mark.parametrize("hw", [(256, 256), (97, 131), (16, 16), (384, 384),
+                                (517, 771), (1024, 1024)])
 def test_launch_geometry_covers_each_pixel_once(hw):
     h, w = hw
     geo = k1.launch_geometry(h, w)
     assert 1 <= geo.cluster <= k1.MAX_CLUSTER
     assert geo.cluster & (geo.cluster - 1) == 0  # a power of two
     assert 32 <= geo.threads <= k1.MAX_THREADS and geo.threads % 32 == 0
-    # thread t of block r holds pixels 8 (r * threads + t) + i, i < 8
-    rank, tid, i = np.meshgrid(np.arange(geo.cluster), np.arange(geo.threads),
-                               np.arange(k1.PX_PER_THREAD), indexing="ij")
-    px = ((rank * geo.threads + tid) * k1.PX_PER_THREAD + i).ravel()
+    # thread t of block r holds pixels 8 (r * threads + t + g * cluster *
+    # threads) + i, i < 8, for each of its groups g
+    rank, tid, g, i = np.meshgrid(
+        np.arange(geo.cluster), np.arange(geo.threads), np.arange(geo.groups),
+        np.arange(k1.PX_PER_THREAD), indexing="ij")
+    group = rank * geo.threads + tid + g * geo.cluster * geo.threads
+    px = (group * k1.PX_PER_THREAD + i).ravel()
     held = np.bincount(px[px < h * w], minlength=h * w)
     assert (held == 1).all()
     # no block is wholly idle, and half the blocks could not hold the image
@@ -42,6 +46,11 @@ def test_launch_geometry_covers_each_pixel_once(hw):
     if geo.cluster > 1:
         assert (geo.cluster // 2) * k1.SHARED_SM_THREADS \
             * k1.PX_PER_THREAD < h * w
+    # a thread walks groups only where the register kernel cannot hold the
+    # image, and then as few as cover it
+    capacity = k1.MAX_CLUSTER * k1.MAX_THREADS * k1.PX_PER_THREAD
+    assert (geo.groups > 1) == (h * w > capacity)
+    assert geo.cluster * geo.threads * (geo.groups - 1) * 8 < h * w
 
 
 def test_launch_geometry_limits():
@@ -50,8 +59,12 @@ def test_launch_geometry_limits():
     big = k1.launch_geometry(300, 300)  # 16 blocks of more than 512
     assert big == k1.Geometry(16, 704)
     assert big.cluster * big.threads * k1.PX_PER_THREAD >= 300 * 300
+    # above 16 x 1024 x 8 pixels, where the cap used to raise, threads walk
+    assert k1.launch_geometry(384, 384) == k1.Geometry(16, 576, 2)
+    assert k1.launch_geometry(512, 512) == k1.Geometry(16, 1024, 2)
+    assert k1.launch_geometry(1024, 1024) == k1.Geometry(16, 1024, 8)
     with pytest.raises(ValueError):
-        k1.launch_geometry(512, 512)
+        k1.launch_geometry(65536, 32768)  # 2^31 pixels
 
 
 def test_geometry_constants_mirror_the_kernel():
@@ -72,6 +85,9 @@ def test_geometry_constants_mirror_the_kernel():
     # below the 232,448 bytes a block may use
     assert "extern __shared__" not in src
     assert "cfg.dynamicSmemBytes = 0;" in src
+    # the walking instance for images above the register kernel's capacity
+    assert "fused_aug_groups_kernel(" in src
+    assert "(long long)cluster * threads * kPx * groups < hw" in src
 
 
 def _round32(x: Fraction) -> np.float32:

@@ -96,6 +96,23 @@ def test_parse_args_unported_options_raise(argv):
         parse_args(argv)
 
 
+@pytest.mark.parametrize("precision", ["fp16", "int4", "BF16"])
+def test_unknown_precision_raises_value_error(precision):
+    """A Config built in code with none of the four policies raises,
+    naming them; JAX's ``_policy`` would take it for bf16 (a chosen
+    difference: the CLIs' ``--precision`` choices reject it in both)."""
+    cfg = Config()
+    cfg.model.precision = precision
+    with pytest.raises(ValueError,
+                       match="bf16, f32, all_bf16, int8_fwd") as info:
+        loop._policy(cfg)
+    assert precision in str(info.value)
+    with pytest.raises(SystemExit):
+        parse_args(["--precision", precision])
+    with pytest.raises(SystemExit):
+        jax_parse_args(["--precision", precision])
+
+
 def test_parse_args_platform_choices():
     assert parse_args(["--platform", "cuda"]).platform == "cuda"
     with pytest.raises(SystemExit):

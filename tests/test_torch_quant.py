@@ -1,12 +1,22 @@
 """The port's int8_fwd and all_bf16 policies against the JAX package's, on
-the CPU, where the int8 kernel's wrapper computes its plain twin: the
-conv, its straight-through backward and the policies' plumbing.
+the CPU, where the two int8 kernels' wrappers (the weight quantize and the
+conv that quantizes its activations) compute their plain twins: the conv,
+its straight-through backward and the policies' plumbing.
 
 Measured here (and held as stated):
 
 - ``int8_conv`` (quantize, the s8 conv, the dequantizing epilogue) equals
   ``lighthand_tpu.ops.quant.int8_conv`` bit for bit on every shape tested,
-  in f32 and bf16: 0 differing values. Held exactly.
+  in f32 and bf16: 0 differing values, with rounding ties, clipped values
+  and an all-zero weight channel among the inputs. Held exactly. The
+  comparison is with JAX run eagerly: under ``jax.jit`` XLA rewrites
+  ``m / 127.0`` into ``m * f32(1/127)`` and reassociates ``s_x * s_w``, so
+  a standalone jitted call differs (11,720 of 50,688 values at 512 -> 512,
+  9x11, measured with jax 0.9.0); whole jitted models still agree
+  (tests/test_torch_quant_models.py).
+- ``quantize_weight`` divides on both devices (a Python-scalar divisor on a
+  CUDA tensor is a reciprocal multiply, which differs from division for
+  4.7 % of f32 values).
 - The straight-through gradient equals the port's plain conv gradient
   exactly (held exactly). Against JAX's: f32 max |diff| 3.0e-7 (dx, of
   magnitude 2.3) and 9.5e-6 (dw, of magnitude 28), i.e. 3.4e-7 relative;
@@ -29,15 +39,16 @@ from lighthand_tpu_torch.cli.eval import serving_policy
 from lighthand_tpu_torch.config import parse_args
 from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.models.layers import Conv2d
+from lighthand_tpu_torch.ops.kernels import _build
 from lighthand_tpu_torch.ops.kernels.int8_conv import (
     int8_conv2d_cuda,
     int8_conv2d_plain,
-)
-from lighthand_tpu_torch.ops.quant import (
-    int8_conv,
     quantize_activation,
     quantize_weight,
+    quantize_weight_cuda,
+    quantize_weight_plain,
 )
+from lighthand_tpu_torch.ops.quant import int8_conv
 from lighthand_tpu_torch.train.loop import _policy
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -121,21 +132,23 @@ def test_quantize_matches_the_jax_formulas():
     assert int(x_q.abs().max()) == 127
 
 
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_int8_wrapper_on_cpu_is_the_plain_twin(out_dtype):
+def test_int8_wrapper_on_cpu_is_the_plain_twin(out_dtype, in_dtype):
     rng = np.random.default_rng(4)
-    x_q = torch.from_numpy(rng.integers(-127, 128, (3, 5, 13, 9),
-                                        dtype=np.int8))
+    x = torch.from_numpy((rng.normal(size=(3, 5, 13, 9)) * 4).astype(
+        np.float32)).to(in_dtype)
     w_q = torch.from_numpy(rng.integers(-127, 128, (7, 3, 3, 5),
                                         dtype=np.int8))
     scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, 7).astype(np.float32))
     before = int8_conv2d_cuda.launches
-    got = int8_conv2d_cuda(x_q, w_q, scale, 2, 1, out_dtype)
-    want = int8_conv2d_plain(x_q, w_q, scale, 2, 1, out_dtype)
+    got = int8_conv2d_cuda(x, w_q, scale, 8.0, 2, 1, out_dtype)
+    want = int8_conv2d_plain(x, w_q, scale, 8.0, 2, 1, out_dtype)
     assert int8_conv2d_cuda.launches == before  # no launch on the CPU
     assert got.shape == (3, 7, 7, 5) and got.dtype == out_dtype
     assert torch.equal(got, want)
-    # the plain twin is exact: the integer conv, then the epilogue
+    # the plain twin is exact: the quantize, the integer conv, the epilogue
+    x_q = quantize_activation(x, 8.0)
     acc = F.conv2d(x_q.long().double(), w_q.permute(0, 3, 1, 2).double(),
                    None, 2, 1)
     assert torch.equal(acc, acc.round())
@@ -145,15 +158,16 @@ def test_int8_wrapper_on_cpu_is_the_plain_twin(out_dtype):
 
 @pytest.mark.parametrize("what", ["x_dtype", "w_dtype", "cin", "scale_dtype",
                                   "scale_shape", "out_dtype", "stride",
-                                  "window", "ndim", "device"])
+                                  "window", "ndim", "device", "act_clip"])
 def test_int8_wrapper_rejects_bad_input(what):
-    x_q = torch.zeros((1, 4, 8, 8), dtype=torch.int8)
+    x = torch.zeros((1, 4, 8, 8), dtype=torch.bfloat16)
     w_q = torch.zeros((6, 3, 3, 4), dtype=torch.int8)
     scale = torch.ones(6)
-    kw = {"stride": 1, "padding": 1, "out_dtype": torch.bfloat16}
+    kw = {"act_clip": 8.0, "stride": 1, "padding": 1,
+          "out_dtype": torch.bfloat16}
     exc = ValueError
-    if what == "x_dtype":
-        x_q, exc = x_q.float(), TypeError
+    if what == "x_dtype":  # the kernel quantizes float activations itself
+        x, exc = x.to(torch.int8), TypeError
     elif what == "w_dtype":
         w_q, exc = w_q.float(), TypeError
     elif what == "cin":
@@ -170,11 +184,115 @@ def test_int8_wrapper_rejects_bad_input(what):
         w_q = torch.zeros((6, 11, 11, 4), dtype=torch.int8)
         kw["padding"] = 0
     elif what == "ndim":
-        x_q = x_q[0]
+        x = x[0]
     elif what == "device":
-        x_q = x_q.to("meta")
+        x = x.to("meta")
+    elif what == "act_clip":
+        kw["act_clip"] = 0.0
     with pytest.raises(exc):
-        int8_conv2d_cuda(x_q, w_q, scale, **kw)
+        int8_conv2d_cuda(x, w_q, scale, **kw)
+
+
+# ------------------------------------------------------ the weight kernel
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_weight_wrapper_on_cpu_is_the_plain_twin(layout):
+    """The wrapper computes the twin on the CPU, launches nothing, and
+    gives ``scale`` = s_w * f32(act_clip / 127), as JAX's
+    ``(s_x * s_w).astype(f32)`` with a weakly typed s_x."""
+    _, wt = _conv_inputs((1, 4, 4, 12, 10, 3, 1), seed=8)
+    w = _torch_w(wt)
+    if layout == "channels_last":
+        w = w.contiguous(memory_format=torch.channels_last)
+    before = quantize_weight_cuda.launches
+    w_q, s_w, scale = quantize_weight_cuda(w, 8.0)
+    assert quantize_weight_cuda.launches == before
+    want = quantize_weight_plain(_torch_w(wt), 8.0)
+    for got, ref in zip((w_q, s_w, scale), want):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+    assert w_q.shape == (10, 3, 3, 12) and w_q.is_contiguous()
+    s_w_j = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(wt)), axis=(0, 1, 2)),
+                        1e-8) / 127.0
+    scale_j = (8.0 / 127.0 * s_w_j).astype(jnp.float32)
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(scale_j))
+
+
+def test_quantize_weight_divides():
+    """s_w = m / 127 is a true division on the CPU too (and on the card,
+    where a Python-scalar divisor would be a reciprocal multiply): equal to
+    numpy's f32 division on draws where m * f32(1/127) differs."""
+    rng = np.random.default_rng(9)
+    m = rng.uniform(1e-3, 2.0, 4096).astype(np.float32)
+    m = m[m * np.float32(1 / 127) != m / np.float32(127)][:64]
+    assert len(m) == 64
+    w = np.zeros((64, 2, 1, 1), np.float32)
+    w[:, 0, 0, 0] = m
+    w[:, 1, 0, 0] = -m / 3
+    _, s_w = quantize_weight(torch.from_numpy(w))
+    np.testing.assert_array_equal(s_w.numpy(), m / np.float32(127))
+    assert (s_w.numpy() != m * np.float32(1 / 127)).all()
+
+
+@pytest.mark.parametrize("what", ["dtype", "ndim", "device", "act_clip"])
+def test_weight_wrapper_rejects_bad_input(what):
+    w, act_clip = torch.ones((4, 3, 3, 3)), 8.0
+    if what == "dtype":
+        w = w.to(torch.bfloat16)
+    elif what == "ndim":
+        w = w[0]
+    elif what == "device":
+        w = w.to("meta")
+    elif what == "act_clip":
+        act_clip = -1.0
+    with pytest.raises(ValueError):
+        quantize_weight_cuda(w, act_clip)
+
+
+# --------------------------------------- the fused quantize against JAX
+
+
+def _ties_and_clips(dt):
+    """Activations in ``dt`` on which f32(x * inv) is k + 0.5 (rounding
+    ties), beyond +-act_clip, and exact zeros. In f32: the neighbours of
+    (k + 0.5) / inv whose product rounds to the tie; in bf16, whose product
+    with inv = 15.875 is exact, the only ties inside the clip are +-4."""
+    inv = np.float32(1.0 / (8.0 / 127.0))
+    if dt == torch.float32:
+        near = np.float32((np.arange(-127, 127) + 0.5) / inv)
+        cand = np.concatenate([near, np.nextafter(near, np.float32(np.inf)),
+                               np.nextafter(near, np.float32(-np.inf))])
+    else:
+        cand = torch.linspace(-10, 10, 200001).to(dt).unique().float().numpy()
+    prod = cand * inv
+    ties = cand[(prod - np.floor(prod)) == 0.5]
+    assert len(ties) >= (200 if dt == torch.float32 else 2)
+    return np.concatenate([ties, [8.5, -8.5, 100.0, -100.0, 8.0, -8.0, 0.0,
+                                  -0.0]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_fused_quantize_twin_matches_jax_bit_exact(shape, dtype):
+    """The conv kernel's twin (quantize inside, from bf16 or f32 x) and the
+    weight kernel's twin equal eager JAX ``int8_conv``, with the rounding
+    ties, the clip and zeros in x and an all-zero output channel (the 1e-8
+    floor) in w."""
+    jdt, tdt = DTYPES[dtype]
+    x, wt = _conv_inputs(shape, seed=11)
+    special = _ties_and_clips(tdt)
+    flat = x.reshape(-1)
+    flat[:len(special)] = special[:len(flat)]
+    wt[..., 1] = 0.0
+    k, s = shape[5], shape[6]
+    want = np.asarray(_jax_conv(x, wt, k, s, jdt).astype(jnp.float32))
+    w_q, _, scale = quantize_weight_plain(_torch_w(wt), 8.0)
+    got = int8_conv2d_plain(_torch_x(x, tdt), w_q, scale, 8.0, s, k // 2,
+                            tdt)
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    assert int((got != want).sum()) == 0
+    assert not got[..., 1].any()  # the zero channel's scale is the floor's
 
 
 # ------------------------------------------------------ the STE backward
@@ -274,3 +392,20 @@ def test_serving_policy_matches_jax(precision, info):
         assert got.quant_fwd
     if info == "f32" and precision != "int8_fwd":
         assert got.compute_dtype == torch.float32
+
+
+def test_kernel_source_holds_the_jax_formulas():
+    """The kernels run only on the card (chip_smoke.py holds them against
+    the twins there); here their source is checked for the twins'
+    operations: an IEEE division for s_w (no fast math), round-to-nearest-
+    even and a clamp to +-127 on both operands, the f32 scale product and
+    the epilogue's int32 -> f32 conversion."""
+    src = (_build.CSRC / "int8_conv.cu").read_text()
+    for formula in ("fmaxf(amax, 1e-8f)", "m / 127.0f",
+                    "rintf(at(k) / sw)", "-127.0f), 127.0f)", "sw * sx",
+                    "__float2int_rn(__fmul_rn(x, inv))", "-127), 127)",
+                    "__int2float_rn(acc"):
+        assert formula in src, formula
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "int8_conv" in _build.SOURCES
