@@ -57,6 +57,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 5b. int8 serving: phase 4's W32 weights predicted under bf16 and under
    int8_fwd (``load_state_dict``), the share of joints within 1 heatmap px
    of each other printed; 292 launches of each int8 kernel;
+4c. the flip / rotation route: HRNet-W32, 256x256, bs32, bf16,
+   ``make_fused_train_step(flip=True, rot_deg=15.0)`` for 3 steps: finite
+   losses, K1 0 and K2 3 launches; the chain (jitter, noise, rotate,
+   normalize, flip) on the card against the same chain on the CPU with the
+   same draws (the CPU tests' tolerances: images 3e-4, joints 1e-4 px, K2's
+   targets 1e-5); the chain without flip or rotation on K1's draws against
+   K1 under phase 3's tolerances; the chain's time at B=128 beside K1's and
+   the step's beside phase 4's;
 6. the training entry point: ``lighthand_tpu_torch.cli.train.main`` in a
    temporary directory, SimpleBaseline ResNet-50 at 256x256, batch 32, bf16,
    synthetic data (128 train samples, 32 val), 3 microbatches a dispatch:
@@ -88,6 +96,19 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
    the --test AUC lines, 53 launches of each int8 kernel a batch under
    int8_fwd and none otherwise; img/s of each run;
+6e. the training CLI with ``--flip --rot-aug 15`` (SimpleBaseline
+   ResNet-50, synthetic, 64 train and 32 val samples, bs32, 1 epoch): the
+   done line, finite losses, K1 0 and K2 3 launches, the route logged once;
+6f. the distributed path at world size 1: ``cli.train`` in a subprocess
+   under the environment contract (``LIGHTHAND_COORDINATOR`` on a free
+   local port, 1 process, ``--mesh-data 1 --mesh-model 1``) against a plain
+   subprocess run of the same seed (ResNet-50, f32, 1 epoch): the NCCL
+   backend and the FSDP wrap (the run's log line), Loss/train and
+   Loss/valid within 5e-3 relative, and ``cli.eval`` on the checkpoint
+   rank 0 wrote (32 Armo records); then phase 4's steady step, plain
+   (channels_last) and on a 1 x 1 mesh (FSDP keeps the weights
+   NCHW-contiguous), in one NCCL process. Meshes above one process are
+   rehearsed only on the CPU (``tests/test_torch_dist.py``);
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -99,7 +120,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 4b, 5b, 6, 6b, 6c and 6d (each also under
+   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e and 6f (each also under
    ``launches_by_path``; each path's counts are zeroed just before it and
    read just after);
 8b. both int8 kernels at the heaviest conv shape (by operations a
@@ -1047,6 +1068,386 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
     return total, ips
 
 
+def k1_agrees(got_img, want_img, got_hm, want_hm) -> tuple:
+    """Phase 3's tolerances: (ok, description). The bf16 image equal on
+    >= 99.9 % of elements and within max(1 bf16 ulp, F32_ATOL) everywhere,
+    the targets within F32_ATOL."""
+    g, w = got_img.float(), want_img.float()
+    diff = (g - w).abs()
+    ulp = bf16_ulp(w)
+    fine = ulp < F32_ATOL
+    ulps = float((diff / ulp * ~fine).max())
+    near0 = float((diff * fine).max())
+    equal = float((diff == 0).float().mean())
+    hm_err = float((got_hm - want_hm).abs().max())
+    ok = (got_img.shape == want_img.shape and ulps <= 1.0
+          and near0 <= F32_ATOL and equal >= 0.999 and hm_err <= 1e-5)
+    return ok, (f"max|diff| {float(diff.max()):.3g}, {ulps:.3g} ulp where a "
+                f"ulp >= {F32_ATOL:g}, {near0:.3g} below; equal "
+                f"{100 * equal:.4f} %; targets {hm_err:.3g}")
+
+
+# the CPU tests' tolerances for the chain (tests/test_torch_step.py):
+# images in ImageNet-normalised units, joints in pixels
+CHAIN_IMAGE_ATOL, CHAIN_JOINT_ATOL = 3e-4, 1e-4
+
+
+def aug_route_phase(counters, card: str, k1_step_ms: float) -> tuple:
+    """Phase 4c: ``make_fused_train_step(flip=True, rot_deg=15.0)`` on
+    HRNet-W32, 256x256, bs32, bf16 for 3 steps (finite losses, K1 0 and K2
+    3 launches); the chain on the card against the same chain on the CPU
+    with the same draws (f32 images within CHAIN_IMAGE_ATOL, joints within
+    CHAIN_JOINT_ATOL, K2's targets from them within F32_ATOL of the plain
+    targets); the chain with neither flip nor rotation, on K1's draws,
+    against K1 under phase 3's tolerances; the chain's and K1's times at
+    B=128. Returns the path's launches and the figures."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.ops.heatmap import generate_target_batch
+    from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        fused_aug_targets_cuda,
+    )
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_fused_train_step,
+        make_targets,
+    )
+    from lighthand_tpu_torch.train.step import (
+        chain_augment,
+        draw_affine_params,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    batch = {
+        "image_u8": torch.from_numpy(rng.integers(
+            0, 256, size=(B_TRAIN, SIZE, SIZE, 3), dtype=np.uint8)),
+        "joints": torch.from_numpy(rng.uniform(
+            16, SIZE - 16, size=(B_TRAIN, JOINTS, 2)).astype(np.float32)),
+        "aug_enabled": torch.from_numpy(
+            (np.arange(B_TRAIN) % 2).astype(np.float32)),
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    state = create_train_state(get_model("hrnet_w32"),
+                               torch.Generator().manual_seed(0), lr=1e-3)
+    step = make_fused_train_step(flip=True, rot_deg=15.0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    zero(counters)
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, gen, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+    counts = read(counters)
+    ms_step = statistics.median(step_s[1:]) * 1e3
+    print(f"[aug] HRNet-W32 256x256 bs{B_TRAIN} bf16, flip + rotation 15: "
+          f"losses {losses}; step ms {[round(s * 1e3, 2) for s in step_s]};"
+          f" steady {ms_step:.2f} ms/step against phase 4's "
+          f"{k1_step_ms:.2f} (K1); launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite losses on the flip/rotation route: {losses}")
+    want = {"fused_aug_targets": 0, "heatmap_targets": 3, "int8_conv": 0,
+            "quantize_weight": 0}
+    if counts != want:
+        fail(f"flip/rotation steps launched {counts}, expected {want}")
+
+    # the chain on the card against the chain on the CPU, same draws
+    images, joints, params = k1_inputs(B_TRAIN, 14)
+    mask, deg = draw_affine_params(torch.Generator(device=dev).manual_seed(2),
+                                   B_TRAIN, True, 15.0)
+    inputs = (images, joints, params, mask, deg)
+    card_img, card_j = chain_augment(*inputs, out_dtype=torch.float32)
+    cpu_img, cpu_j = chain_augment(*(x.cpu() for x in inputs),
+                                   out_dtype=torch.float32)
+    card_hm = make_targets(cpu_j.to(dev))  # K2
+    torch.cuda.synchronize()
+    img_err = float((card_img.cpu() - cpu_img).abs().max())
+    joint_err = float((card_j.cpu() - cpu_j).abs().max())
+    hm_err = float((card_hm.cpu() - generate_target_batch(cpu_j)).abs()
+                   .max())
+    print(f"[aug] chain card vs CPU, B={B_TRAIN}: image max|diff| "
+          f"{img_err:.3g} (atol {CHAIN_IMAGE_ATOL:g}), joints {joint_err:.3g}"
+          f" px (atol {CHAIN_JOINT_ATOL:g}), K2 targets {hm_err:.3g} "
+          f"(atol {F32_ATOL:g})")
+    if not (img_err <= CHAIN_IMAGE_ATOL and joint_err <= CHAIN_JOINT_ATOL
+            and hm_err <= F32_ATOL):
+        fail("the chain on the card disagrees with the chain on the CPU")
+
+    # neither flip nor rotation: the chain is K1's function on K1's draws
+    k1_img, k1_hm = fused_aug_targets_cuda(images, joints, params)
+    ch_img, ch_j = chain_augment(images, joints, params)
+    ok, desc = k1_agrees(k1_img, ch_img, k1_hm, make_targets(ch_j))
+    torch.cuda.synchronize()
+    print(f"[aug] K1 vs the chain without flip or rotation, same draws: "
+          f"{desc}")
+    if not ok:
+        fail("the chain without flip or rotation disagrees with K1")
+
+    # what --flip --rot-aug costs a step: the chain beside K1 at B=128
+    images, joints, params = k1_inputs(B_KERNEL, 1)
+    mask, deg = draw_affine_params(torch.Generator(device=dev).manual_seed(3),
+                                   B_KERNEL, True, 15.0)
+
+    def chain():
+        img, moved = chain_augment(images, joints, params, mask, deg)
+        return img, make_targets(moved)
+
+    def k1():
+        return fused_aug_targets_cuda(images, joints, params)
+
+    figures = {"step_ms": ms_step, "k1_step_ms": k1_step_ms}
+    for name, fn, graph in (("chain", chain, None), ("K1", k1, capture(k1))):
+        figures[f"{name}_eager_ms"] = eager_ms(fn)
+        figures[f"{name}_device_ms"], how = device_ms(fn, graph)
+        print(f"[aug] {name} B={B_KERNEL} 256x256 bf16 + targets: eager "
+              f"{figures[f'{name}_eager_ms']:.4f} ms, device "
+              f"{figures[f'{name}_device_ms']:.4f} ms ({how}) on {card}")
+    return counts, figures, hm_err
+
+
+def _strip_dist_env() -> dict:
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith("LIGHTHAND_")}
+
+
+def aug_cli_phase(counters, tmp: str) -> dict:
+    """Phase 6e: the training CLI with ``--flip --rot-aug 15``
+    (SimpleBaseline ResNet-50, synthetic data, 64 train and 32 val
+    samples, bs32, 1 epoch): the done line, finite Loss/train and
+    Loss/valid, K1 0 and K2 3 launches (2 steps, 1 eval batch) and the
+    route's log line once. Returns the launches."""
+    import logging
+
+    argv = ["--root", "simplebaseline/ours", "--name", "affine",
+            "--synthetic", "--batch_size", str(B_TRAIN), "--num_our", "64",
+            "--epoch", "1", "--count", "5", "--flip", "--rot-aug", "15",
+            "--reset", "--yes"]
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    route_log = logging.getLogger("lighthand_tpu_torch")
+    keep = Keep()
+    route_log.addHandler(keep)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, text, wall, counts = run_cli(argv, counters, "cli affine")
+        rows = _scalars(os.path.join("output", "simplebaseline", "ours",
+                                     "affine"))
+    finally:
+        os.chdir(cwd)
+        route_log.removeHandler(keep)
+    train, valid = _by_epoch(rows, "Loss/train"), _by_epoch(rows, "Loss/valid")
+    routed = [m for m in records if "K1" in m]
+    print(f"[cli affine] {wall:.1f} s in main; Loss/train {train}, "
+          f"Loss/valid {valid}; launches {counts}; route log lines {routed}")
+    check_run("flip/rotation CLI", rc, text, train, valid, [0])
+    want = {"fused_aug_targets": 0, "heatmap_targets": 64 // B_TRAIN + 1,
+            "int8_conv": 0, "quantize_weight": 0}
+    if counts != want:
+        fail(f"flip/rotation CLI: launches {counts}, expected {want}")
+    if len(routed) != 1:
+        fail(f"flip/rotation CLI logged its route {len(routed)} times")
+    return counts
+
+
+DIST_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from lighthand_tpu_torch.cli import train
+from lighthand_tpu_torch.ops.kernels.fused_aug import fused_aug_targets_cuda
+from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
+rc = train.main(sys.argv[2:])
+print("LAUNCHES " + json.dumps({
+    "fused_aug_targets": fused_aug_targets_cuda.launches,
+    "heatmap_targets": generate_target_batch_cuda.launches}))
+sys.exit(rc)
+"""
+
+
+DIST_STEP_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import torch.distributed as dist
+from lighthand_tpu_torch.core.dist import (maybe_initialize_distributed,
+                                          process_device)
+from lighthand_tpu_torch.core.mesh import MeshSpec, create_mesh
+from lighthand_tpu_torch.models import get_model
+from lighthand_tpu_torch.train import create_train_state, make_fused_train_step
+assert maybe_initialize_distributed()
+dev = process_device()
+mesh = create_mesh(MeshSpec(1, 1), dev)
+b, size = int(sys.argv[2]), int(sys.argv[3])
+rng = np.random.default_rng(0)
+batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+    "image_u8": rng.integers(0, 256, size=(b, size, size, 3), dtype=np.uint8),
+    "joints": rng.uniform(16, size - 16, size=(b, 21, 2)).astype(np.float32),
+    "aug_enabled": (np.arange(b) % 2).astype(np.float32)}.items()}
+ms, adam, losses = {"plain": [], "mesh": []}, {"plain": [], "mesh": []}, []
+for tag in ("plain", "mesh", "mesh", "plain"):
+    m = mesh if tag == "mesh" else None
+    state = create_train_state(get_model("hrnet_w32"),
+                               torch.Generator().manual_seed(0), lr=1e-3,
+                               device=dev, mesh=m)
+    step = make_fused_train_step(device=dev, mesh=m)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        step(state, gen, batch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(10):
+        _, metrics = step(state, gen, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms[tag].append(ev[0].elapsed_time(ev[1]) / 10)
+    ev[0].record()
+    for _ in range(10):
+        state.optimizer.step()
+    ev[1].record()
+    torch.cuda.synchronize()
+    adam[tag].append(ev[0].elapsed_time(ev[1]) / 10)
+    losses.append(float(metrics["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+print("STEP_MS " + json.dumps({"ms": ms, "adam": adam, "losses": losses,
+                               "backend": dist.get_backend()}))
+dist.destroy_process_group()
+"""
+
+
+def dist_step_times(env: dict, tmp: str) -> dict:
+    """The steady train step of phase 4 (HRNet-W32, bs32, 256x256, bf16, K1
+    route), plain (channels_last) and on a 1 x 1 mesh (FSDP-wrapped,
+    NCHW-contiguous), in one NCCL process at world size 1: ms a step over
+    10 steps after 3, each twice in the order plain, mesh, mesh, plain;
+    then ms an Adam step alone over 10 (the ``*_adam`` keys)."""
+    out = subprocess.run(
+        [sys.executable, "-c", DIST_STEP_CHILD, REPO, str(B_TRAIN),
+         str(SIZE)], cwd=tmp, env=env, capture_output=True, text=True,
+        timeout=300)
+    if out.returncode != 0 or "STEP_MS " not in out.stdout:
+        print(out.stdout[-2000:], out.stderr[-4000:])
+        fail(f"the mesh step-time subprocess exited {out.returncode}")
+    got = json.loads(out.stdout.split("STEP_MS ")[-1])
+    if got["backend"] != "nccl" or not all(map(math.isfinite,
+                                               got["losses"])):
+        fail(f"the mesh step-time run: {got}")
+    return {**{tag: statistics.mean(v) for tag, v in got["ms"].items()},
+            **{f"{tag}_adam": statistics.mean(v)
+               for tag, v in got["adam"].items()}}
+
+
+def dist_phase(counters, tmp: str) -> dict:
+    """Phase 6f: ``cli.train`` in a subprocess under the environment
+    contract (``LIGHTHAND_COORDINATOR`` on a free local port, 1 process,
+    rank 0, ``--mesh-data 1 --mesh-model 1``) against a plain subprocess
+    run of the same seed (SimpleBaseline ResNet-50, f32 as the JAX bound's
+    run, synthetic data, 64 train and 32 val samples, bs32, 1 epoch; TF32
+    off in both). Checks the NCCL backend and the FSDP wrap in the run's
+    log line, Loss/train and Loss/valid within 5e-3 relative of the plain
+    run, and that ``cli.eval`` reads the checkpoint rank 0 wrote; times
+    phase 4's step plain and on a 1 x 1 mesh (``dist_step_times``). Returns
+    the distributed run's launches, the loss gaps and the step times."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    base = ["--root", "simplebaseline/ours", "--synthetic", "--batch_size",
+            str(B_TRAIN), "--num_our", "64", "--epoch", "1", "--count", "5",
+            "--precision", "f32", "--reset", "--yes"]
+    runs = {}
+    for tag, extra, env in (
+            ("plain", [], _strip_dist_env()),
+            ("dist", ["--mesh-data", "1", "--mesh-model", "1"],
+             dict(_strip_dist_env(), LIGHTHAND_COORDINATOR=f"localhost:{port}",
+                  LIGHTHAND_NUM_PROCESSES="1", LIGHTHAND_PROCESS_ID="0"))):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", DIST_CHILD, REPO, *base, "--name", tag,
+             *extra], cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        print("\n".join(f"[{tag}] {ln}" for ln in out.stdout.splitlines()))
+        if out.returncode != 0:
+            print(out.stderr[-4000:])
+            fail(f"the {tag} training subprocess exited {out.returncode}")
+        launches = json.loads(out.stdout.split("LAUNCHES ")[-1])
+        rows = _scalars(os.path.join(tmp, "output", "simplebaseline", "ours",
+                                     tag))
+        runs[tag] = (out.stdout, launches, _by_epoch(rows, "Loss/train"),
+                     _by_epoch(rows, "Loss/valid"))
+        print(f"[{tag}] {wall:.1f} s (process start included); launches "
+              f"{launches}")
+        check_run(f"{tag} CLI", 0, out.stdout, runs[tag][2], runs[tag][3],
+                  [0])
+    text, launches = runs["dist"][0], runs["dist"][1]
+    if "Mesh: {'data': 1, 'model': 1} over nccl, model sharded True" \
+            not in text:
+        fail("the distributed run did not report an NCCL group and an "
+             "FSDP-wrapped model")
+    if "Mesh: one process" not in runs["plain"][0]:
+        fail("the plain run reported a mesh")
+    gaps = {}
+    for i, tag in ((2, "Loss/train"), (3, "Loss/valid")):
+        got, want = runs["dist"][i][0], runs["plain"][i][0]
+        gaps[tag] = abs(got - want) / abs(want)
+        print(f"[dist] {tag}: world-size-1 NCCL {got!r} vs plain {want!r}, "
+              f"relative gap {gaps[tag]:.3g} (bound 5e-3)")
+    if max(gaps.values()) > 5e-3:
+        fail(f"the distributed run's losses differ from the plain run's: "
+             f"{gaps}")
+    want = {"fused_aug_targets": 64 // B_TRAIN, "heatmap_targets": 1}
+    if launches != want:
+        fail(f"distributed CLI: launches {launches}, expected {want}")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    step_ms = dist_step_times(
+        dict(_strip_dist_env(), LIGHTHAND_COORDINATOR=f"localhost:{port}",
+             LIGHTHAND_NUM_PROCESSES="1", LIGHTHAND_PROCESS_ID="0"), tmp)
+    print(f"[dist] HRNet-W32 bs{B_TRAIN} bf16 steady step at world size 1 "
+          f"over NCCL: plain (channels_last) {step_ms['plain']:.2f} ms, "
+          f"1 x 1 mesh (FSDP, NCHW) {step_ms['mesh']:.2f} ms; of which "
+          f"Adam alone {step_ms['plain_adam']:.2f} and "
+          f"{step_ms['mesh_adam']:.2f} ms")
+
+    armo = os.path.join(tmp, "armo_dist")
+    write_armo_tree(armo, 32)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, _, wall, counts = run_cli(
+            ["--root", "simplebaseline/ours", "--name", "dist", "--eval",
+             "--dataset-root", armo, "--batch_size", str(B_TRAIN)],
+            counters, "eval dist", entry="eval")
+        with open(os.path.join("output", "simplebaseline", "ours", "dist",
+                               "evaluation.json")) as f:
+            store = json.load(f)[0]
+    finally:
+        os.chdir(cwd)
+    by_cat = {c: len(v["gt"]) for c, v in store.items()}
+    print(f"[eval dist] rank 0's checkpoint through cli.eval: rc {rc}, "
+          f"{wall:.2f} s, categories {by_cat}")
+    if rc != 0 or by_cat != {c: 8 for c in POSE_CATEGORIES}:
+        fail("cli.eval did not read the distributed run's checkpoint")
+    print("[dist] meshes above one process (data or model axis > 1) are "
+          "rehearsed only on the CPU, in gloo processes "
+          "(tests/test_torch_dist.py): this machine has one GPU")
+    return {**launches, "int8_conv": 0, "quantize_weight": 0}, gaps, step_ms
+
+
 def int8_times(kind: str, shape, seed: int) -> tuple:
     """Phase 8b at one conv shape, batch 32, bf16 activations (the int8_fwd
     policy's): for the conv and for the weight kernel, the eager and device
@@ -1501,6 +1902,10 @@ def main() -> int:
     serve_launches = int8_serving_phase(state, images, counters,
                                         n_quant["hrnet_w32"])
 
+    # 4c. the flip / rotation route: the chain and K2 instead of K1
+    aug_launches, aug_fig, aug_k2_err = aug_route_phase(counters, card,
+                                                        ms_step)
+
     # 6. the training entry point -------------------------------------------
     cli_launches, synth_fig = cli_phase(counters)
 
@@ -1512,6 +1917,22 @@ def main() -> int:
         mix_launches = frei_and_mix_phase(state, counters, tmp)
         eval_launches, eval_ips = eval_cli_phase(counters, tmp,
                                                  n_quant["resnet50"])
+    # 6e-6f. the training CLI with --flip --rot-aug, then under the
+    # environment contract at world size 1 (NCCL) against a plain run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aug_") as tmp:
+        aug_cli_launches = aug_cli_phase(counters, tmp)
+        dist_launches, dist_gaps, dist_ms = dist_phase(counters, tmp)
+    print(f"[figures] {card}: flip + rotation 15 (phase 4c): HRNet-W32 "
+          f"bs{B_TRAIN} step {aug_fig['step_ms']:.2f} ms against K1's "
+          f"{aug_fig['k1_step_ms']:.2f} ms; at B={B_KERNEL} the chain "
+          f"{aug_fig['chain_device_ms']:.4f} ms device "
+          f"({aug_fig['chain_eager_ms']:.4f} ms eager) against K1's "
+          f"{aug_fig['K1_device_ms']:.4f} ms ({aug_fig['K1_eager_ms']:.4f} "
+          f"ms eager); world-size-1 NCCL run against the plain run "
+          f"(ResNet-50 f32, 1 epoch): relative loss gaps {dist_gaps}; "
+          f"HRNet-W32 bs{B_TRAIN} bf16 step plain {dist_ms['plain']:.2f} ms, "
+          f"on a 1 x 1 mesh {dist_ms['mesh']:.2f} ms (Adam alone "
+          f"{dist_ms['plain_adam']:.2f} / {dist_ms['mesh_adam']:.2f} ms)")
     print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
           f"train images, SimpleBaseline ResNet-50, bf16): synthetic "
           f"{synth_fig['epoch_s']} / {synth_fig['img_s']}; LightHand tree "
@@ -1566,8 +1987,11 @@ def main() -> int:
     paths = {"steps": launches, "int8_steps": int8_launches,
              "int8_serving": serve_launches, "cli": cli_launches,
              "real_tree_cli": real_launches,
-             "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches}
-    errs = {"fused_aug_targets": k1_err, "heatmap_targets": k2_err}
+             "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches,
+             "aug_route_steps": aug_launches, "aug_route_cli": aug_cli_launches,
+             "dist_cli_world1": dist_launches}
+    errs = {"fused_aug_targets": k1_err,
+            "heatmap_targets": max(k2_err, aug_k2_err)}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for b, seed in ((B_TRAIN, 2), (B_KERNEL, 1)):

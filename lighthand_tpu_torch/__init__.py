@@ -3,10 +3,10 @@ NVIDIA GPU.
 
 A second package beside ``lighthand_tpu`` (JAX on a TPU), which stays the
 reference. Module for module it mirrors that package: ``config``, ``cli``,
-``core``, ``data``, ``models``, ``ops`` (plain PyTorch), ``ops/kernels``
-(the hand-written CUDA kernels that take the place of
-``lighthand_tpu/ops/pallas``), ``train`` and ``utils``. It imports neither
-``jax`` nor ``lighthand_tpu``.
+``core``, ``data``, ``eval``, ``models``, ``ops`` (plain PyTorch),
+``ops/kernels`` (the hand-written CUDA kernels that take the place of
+``lighthand_tpu/ops/pallas``), ``parallel``, ``train`` and ``utils``. It
+imports neither ``jax`` nor ``lighthand_tpu``.
 
 Entry points (``python -m lighthand_tpu_torch.cli.train``, ``Trainer``,
 ``create_train_state``, ``make_fused_train_step``, ``make_train_step``,

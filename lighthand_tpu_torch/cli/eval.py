@@ -10,8 +10,15 @@ regimes pckb[0.1,0.3], mm[0,30] and mm[0,50], and writes semicolon-CSV
 It runs on the card; ``--platform cpu`` runs the same program on the host.
 Without a card and without that flag it raises (``core/device.py``: the
 port's counterpart of the JAX package's ``device_reachability_gate``).
-It reads the port's checkpoints (``checkpoint-*/state.pt``); the JAX
-package's orbax checkpoints raise (ROADMAP.md, Queue 1: the orbax loader).
+It reads the port's checkpoints (``checkpoint-*/state.pt``); a JAX
+package's orbax checkpoint raises, naming ``tools/orbax_to_torch.py``,
+which converts such a run into the port's layout.
+
+In a process group (``core/dist.py``; ``torchrun`` or the
+``LIGHTHAND_*`` variables) each process predicts its data index's rows of
+every batch with a whole copy of the weights, the rows are gathered, and
+rank 0 alone writes the stores and reports the curves
+(``lighthand_tpu/cli/eval.py:68-70,85,170-172``).
 """
 
 from __future__ import annotations
@@ -19,8 +26,16 @@ from __future__ import annotations
 import os
 import sys
 
+import torch.distributed as dist
+
 from lighthand_tpu_torch.config import parse_args
 from lighthand_tpu_torch.core.device import resolve_device
+from lighthand_tpu_torch.core.dist import (
+    maybe_initialize_distributed,
+    process_device,
+    shutdown,
+)
+from lighthand_tpu_torch.core.mesh import MeshSpec, create_mesh, is_host_leader
 from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.data import Loader, build_dataset, preprocess_u8
 from lighthand_tpu_torch.eval.harness import (
@@ -77,7 +92,19 @@ def find_checkpoints(model_path: str):
 def main(argv=None) -> int:
     cfg = parse_args(argv, phase="test")
     cfg.eval.eval = True
-    device = resolve_device(cfg.platform)
+    # a process group this call starts, it also ends
+    started = not dist.is_initialized() and maybe_initialize_distributed(
+        cfg.platform)
+    try:
+        return _evaluate(cfg)
+    finally:
+        if started:
+            shutdown()
+
+
+def _evaluate(cfg) -> int:
+    device = resolve_device(process_device(cfg.platform) or cfg.platform)
+    mesh = create_mesh(MeshSpec(cfg.mesh.data, cfg.mesh.model), device)
     # heartbeat per eval batch; 0 disables
     watchdog = StallWatchdog(cfg.train.stall_timeout_s).start()
 
@@ -109,9 +136,10 @@ def main(argv=None) -> int:
         run_name = os.path.relpath(os.path.dirname(ckpt), cfg.root_path)
         if not os.path.isfile(os.path.join(ckpt, STATE_FILE)):
             raise NotImplementedError(
-                f"{ckpt} holds no {STATE_FILE}: reading the JAX package's "
-                "orbax checkpoints is not ported yet (ROADMAP.md, Queue 1: "
-                "the orbax loader)")
+                f"{ckpt} holds no {STATE_FILE}: the port does not read the "
+                "JAX package's orbax checkpoints; convert the run with "
+                "`python tools/orbax_to_torch.py <run_dir> <out_dir>` where "
+                "jax and orbax are installed")
         # architecture identity: the checkpoint's own record wins; the
         # path prefix only covers trees saved without model_info
         info = read_model_info(ckpt)
@@ -139,7 +167,8 @@ def main(argv=None) -> int:
 
         loader = Loader(eval_src, cfg.data.batch_size, device=device,
                         shuffle=False, num_workers=cfg.data.num_workers,
-                        drop_last=False)  # keep all 971 eval samples
+                        drop_last=False,  # keep all 971 eval samples
+                        mesh=mesh)
         # preprocess_u8 normalises to bf16 whatever the policy, as the JAX
         # CLI's DevicePreprocessor(jitter=False) does
         if cfg.eval.test:
@@ -147,17 +176,19 @@ def main(argv=None) -> int:
             # argparser.py:284-323,391-438): final_model/{name}/test.json
             out_json = os.path.join("final_model", run_name, "test.json")
             pred_store_test(loader, predict, out_json,
-                            preprocess=preprocess_u8)
+                            preprocess=preprocess_u8, mesh=mesh)
         else:
             out_json = os.path.join("output", run_name, "evaluation.json")
             overlay_dir = (os.path.join("output", run_name)
                            if cfg.eval.plt else None)
             pred_store(loader, predict, out_json, preprocess=preprocess_u8,
                        overlay_dir=overlay_dir,
-                       overlay_max=cfg.eval.plt_max)
+                       overlay_max=cfg.eval.plt_max, mesh=mesh)
         stores.append((out_json, run_name))
 
     watchdog.stop()
+    if not is_host_leader():
+        return 0  # rank 0 wrote the stores and reports the curves
 
     if cfg.eval.test:
         for t_type, t_list in THRESHOLD_REGIMES:

@@ -6,8 +6,10 @@ these differences:
 - ``--platform`` takes ``cpu`` or ``cuda`` and is kept in
   ``Config.platform``; without it the entry points run on the card, and
   raise where there is none;
-- ``--mesh-data`` / ``--mesh-model`` other than one device raise
-  ``NotImplementedError`` (ROADMAP.md, Queue 1: multi-GPU);
+- ``--mesh-data`` / ``--mesh-model`` describe a mesh of processes, one
+  per device (JAX: one per host); a mesh that does not cover the run's
+  processes raises ``ValueError`` when the Trainer builds it
+  (``core/mesh.py:create_mesh``);
 - a ``Config`` whose precision is none of the four policies raises
   ``ValueError`` where JAX's ``_policy`` takes it for bf16 (the CLIs'
   ``--precision`` choices reject it in both packages);
@@ -150,17 +152,11 @@ class Config:
         return self
 
 
-SINGLE_DEVICE_MESH = ((-1, 1), (1, 1))  # (data, model) on one card
 PORTED_PRECISIONS = ("bf16", "f32", "all_bf16", "int8_fwd")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for what the port does not run yet."""
-    if (cfg.mesh.data, cfg.mesh.model) not in SINGLE_DEVICE_MESH:
-        raise NotImplementedError(
-            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: the port runs "
-            "on one device; multi-GPU is not ported yet (ROADMAP.md, Queue 1: "
-            "multi-GPU)")
+    """Raise for a precision that is none of the four policies."""
     if cfg.model.precision not in PORTED_PRECISIONS:
         raise ValueError(
             f"unknown precision {cfg.model.precision!r}: the policies are "

@@ -1,6 +1,6 @@
 """Host -> device input pipeline.
 
-Counterpart of ``lighthand_tpu/data/pipeline.py``, single process:
+Counterpart of ``lighthand_tpu/data/pipeline.py``:
 
 - host threads only decode/collate uint8 images + joint arrays (numpy);
   up to ``prefetch + 1`` batches are in flight in a thread pool;
@@ -8,7 +8,11 @@ Counterpart of ``lighthand_tpu/data/pipeline.py``, single process:
   ``non_blocking=True``, one batch ahead, so the copy of batch N+1 overlaps
   the step of batch N; on the CPU the loader yields CPU tensors;
 - color jitter, ImageNet normalization and the Gaussian targets run on the
-  device in the train and eval steps (K1, K2 and ``ops/color.py``).
+  device in the train and eval steps (K1, K2 and ``ops/color.py``);
+- under a device mesh (``core/mesh.py``) every process walks the same
+  global order and loads only its data index's rows of each batch (the
+  JAX package's ``pindex`` split; the reference's dormant
+  DistributedSampler, src/datasets/build.py:53-60).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from lighthand_tpu_torch.core.mesh import data_index
 from lighthand_tpu_torch.data.records import Source
 from lighthand_tpu_torch.ops.color import divide, normalize_imagenet
 
@@ -55,7 +60,10 @@ class Loader:
 
     Fixed batch shapes: the ragged tail is either dropped (drop_last=True,
     training) or padded to a full batch by repeating its last row, with a
-    ``valid`` mask of 0 on the padding (drop_last=False, evaluation)."""
+    ``valid`` mask of 0 on the padding (drop_last=False, evaluation).
+    Under ``mesh`` a batch holds this process's rows of the global batch
+    of ``batch_size`` (``valid`` sliced with them); the data axis must
+    divide ``batch_size``."""
 
     def __init__(
         self,
@@ -68,7 +76,12 @@ class Loader:
         num_workers: int = 8,
         prefetch: int = 2,
         drop_last: bool = True,
+        mesh=None,
     ):
+        self.index, self.count = data_index(mesh)
+        if batch_size % self.count:
+            raise ValueError(f"batch_size {batch_size} must divide evenly "
+                             f"over the {self.count} data-axis processes")
         self.source = source
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -113,6 +126,10 @@ class Loader:
                     rows = np.concatenate([rows, np.repeat(rows[-1:], pad)])
                     valid = np.concatenate([valid,
                                             np.zeros(pad, np.float32)])
+                if self.count > 1:
+                    per = self.batch_size // self.count
+                    sl = slice(self.index * per, (self.index + 1) * per)
+                    rows, valid = rows[sl], valid[sl]
                 return _collate(self.source.getitems(rows), valid=valid)
 
             total = len(self)

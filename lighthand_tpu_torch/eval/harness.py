@@ -20,12 +20,18 @@ argparser.py:334).
 971 zero rows. The paper's numbers come from this code path, so compat is
 the default; pass False for the corrected statistic.
 
-Differences from the JAX package: one process, so ``_local_rows`` is a
-copy to host numpy and ``_gather_rows`` the identity (multi-GPU is
-ROADMAP.md, Queue 1); ``preprocess`` is a function of the u8 images alone
-(the eval preprocessor draws nothing); and ``overlay_dir`` (``--plt``)
-raises, since the overlays are not ported yet (ROADMAP.md, Queue 1:
-``--plt`` overlays).
+Under a device mesh each process predicts its data index's rows of every
+batch; ``_gather_rows`` all-gathers them (``parallel.all_gather_metrics``)
+so every process holds the whole store, and rank 0 alone writes it
+(``lighthand_tpu/eval/harness.py:39-50,65-80``).
+
+Differences from the JAX package: ``_local_rows`` is a copy to host
+numpy; the gathered rows keep the single-process order (JAX concatenates
+them process by process), so a store from any mesh equals the one-process
+store; ``preprocess`` is a function of the u8 images alone (the eval
+preprocessor draws nothing); and ``overlay_dir`` (``--plt``) raises, since
+the overlays are not ported yet (ROADMAP.md, Queue 1: ``--plt``
+overlays).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from lighthand_tpu_torch.core.mesh import is_host_leader
 from lighthand_tpu_torch.data.armo import POSE_CATEGORIES
 from lighthand_tpu_torch.ops.metrics import (
     MM_THRESH_SCALE_EVAL,
@@ -45,7 +52,9 @@ from lighthand_tpu_torch.ops.metrics import (
 
 
 def dump(path: str, payload) -> None:
-    """JSON dump wrapped in a list (reference dir.py:13-22)."""
+    """JSON dump wrapped in a list (reference dir.py:13-22), by rank 0."""
+    if not is_host_leader():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump([payload], f)
@@ -58,9 +67,27 @@ def _local_rows(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _gather_rows(tree: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Every process's rows; the identity in a single-process run."""
-    return tree
+def _gather_rows(tree: Dict[str, np.ndarray], mesh=None,
+                 per_batch: int = 0) -> Dict[str, np.ndarray]:
+    """Every process's rows in the global order; the identity without a
+    mesh. Each process holds, batch after batch, its data index's block of
+    ``per_batch`` rows of each batch; processes along the model axis hold
+    the same blocks, so model index 0's are kept, and each batch's blocks
+    are put back in data-index order."""
+    if mesh is None:
+        return tree
+    from lighthand_tpu_torch.parallel import all_gather_metrics
+
+    gathered = all_gather_metrics(tree)
+    ranks = mesh.mesh[:, 0].tolist()  # data index 0.., model index 0
+    out = {}
+    for k in tree:
+        blocks = np.stack([gathered[r][k] for r in ranks])
+        blocks = blocks.reshape((len(ranks), -1, per_batch)
+                                + blocks.shape[2:])
+        out[k] = np.swapaxes(blocks, 0, 1).reshape(
+            (-1,) + blocks.shape[3:])
+    return out
 
 
 def _images(batch, preprocess):
@@ -70,7 +97,7 @@ def _images(batch, preprocess):
 
 def pred_store(loader, predict_fn, out_path: str, preprocess=None,
                overlay_dir: str | None = None,
-               overlay_max: int | None = None) -> Dict:
+               overlay_max: int | None = None, mesh=None) -> Dict:
     """Run inference over the (Armo) eval loader and bucket
     {bbox_diag, pred, gt} per pose category (argparser.py:246-281).
 
@@ -100,7 +127,7 @@ def pred_store(loader, predict_fn, out_path: str, preprocess=None,
         "gt": np.concatenate(gts),
         "valid": np.concatenate(valids),
         "cat": np.concatenate(cat_idx),
-    })
+    }, mesh, len(valids[0]))
 
     meta = {c: {"bb": [], "pred": [], "gt": []} for c in POSE_CATEGORIES}
     for i in range(rows["gt"].shape[0]):
@@ -182,7 +209,7 @@ def pred_eval(eval_json_path: str, t_list: Sequence[float], method: str,
 
 
 def pred_store_test(loader, predict_fn, out_path: str,
-                    preprocess=None) -> Dict:
+                    preprocess=None, mesh=None) -> Dict:
     """Flat variant without categories (argparser.py:284-323)."""
     preds, gts, valids = [], [], []
     for batch in loader:
@@ -194,7 +221,8 @@ def pred_store_test(loader, predict_fn, out_path: str,
                                             np.ones(gt.shape[0]))))
     rows = _gather_rows({"pred": np.concatenate(preds),
                          "gt": np.concatenate(gts),
-                         "valid": np.concatenate(valids)})
+                         "valid": np.concatenate(valids)},
+                        mesh, len(valids[0]))
     keep = rows["valid"] > 0
     pred, gt = rows["pred"][keep], rows["gt"][keep]
     bb = [float(np.sqrt((gt[i, :, 0].max() - gt[i, :, 0].min()) ** 2

@@ -12,6 +12,11 @@ Numerics that follow the JAX package rather than torch's habits:
 - in training, the running variance is updated with the *biased* batch
   variance, as Flax's ``nn.BatchNorm`` does. ``nn.BatchNorm2d`` would use
   the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5;
+- under a mesh whose data axis has more than one process, training
+  BatchNorm normalises over the *global* batch, as the JAX package's pjit
+  step does (one logical program), where DDP and FSDP would normalise per
+  process: the per-channel sums are all-reduced over the data axis by a
+  differentiable all-reduce, so the backward is global BN's too;
 - under a policy with ``quant_fwd``, every conv the JAX package wraps in
   ``ConvBN`` (stems, block convs, downsamples, HRNet's transitions and
   fuse layers) is a ``QuantConv2d``: the same ``weight`` parameter and
@@ -71,15 +76,57 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1,
                   bias=bias)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ``group``, whose gradient is the sum of the gradients over
+    ``group`` (``torch.distributed.nn.functional.all_reduce``, which
+    torch 2.13 deprecates)."""
+
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        out = tensor.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """f32 BatchNorm that updates its running stats the way Flax does."""
+    """f32 BatchNorm that updates its running stats the way Flax does. It
+    computes in its parameters' dtype: f32, or f64 in a model cast to f64.
+
+    With a ``group`` (``set_batchnorm_group``) of ``group_size`` processes
+    along the data axis, training statistics are those of the global batch:
+    two all-reduced passes (the mean, then the centred squares), each
+    process holding the same number of rows."""
+
+    group = None
+    group_size = 1
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
+    def _global_batch_norm(self, x32: torch.Tensor) -> torch.Tensor:
+        count = x32.numel() // x32.shape[1] * self.group_size
+        dims = (0, 2, 3)
+        mean = _AllReduceSum.apply(x32.sum(dim=dims), self.group) / count
+        xc = x32 - mean[None, :, None, None]
+        var = _AllReduceSum.apply((xc * xc).sum(dim=dims), self.group) / count
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps)
+        return (xc * (inv * self.weight)[None, :, None, None]
+                + self.bias[None, :, None, None])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        if self.training:
+        x32 = x.to(self.weight.dtype)
+        if self.training and self.group is not None:
+            y = self._global_batch_norm(x32)
+        elif self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(x32, dim=(0, 2, 3),
                                            correction=0)
@@ -92,6 +139,14 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x32, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
         return y.to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group, size: int) -> None:
+    """Normalise every ``BatchNorm2d`` of ``model`` over ``group`` (the data
+    axis, ``size`` processes) in training; None keeps the local batch."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group, m.group_size = (group, size) if size > 1 else (None, 1)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

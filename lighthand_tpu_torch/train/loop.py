@@ -2,19 +2,28 @@
 reference's train.py main loop + Runner_t/Runner_v, src/tools/train.py:
 13-121, src/utils/method.py:12-309).
 
-Per epoch: the cosine LR for the epoch -> fused train steps (K1) over the
-loader, K microbatches a dispatch and a ragged tail through a K=1 step ->
-eval steps (K2) over the padded val loader -> early-stopping bookkeeping
+Per epoch: the cosine LR for the epoch -> fused train steps (K1; with
+``--flip`` / ``--rot-aug`` the chain route and K2) over the loader, K
+microbatches a dispatch and a ragged tail through a K=1 step -> eval steps
+(K2) over the padded val loader -> early-stopping bookkeeping
 (best val loss, patience counter --count) -> best-only checkpoint.
 Scalars Loss/train & Loss/valid per epoch; the validation log reports EPE
 in mm (x0.26, method.py:131) and PCK% (T=0.2 proportion, method.py:243).
 
+In a process group (``core/dist.py``) the Trainer builds the
+("data", "model") mesh (``core/mesh.py``), shards the model over it (HSDP)
+before Adam, loads each process's rows of every global batch, normalises
+BatchNorm over the data axis, and reduces the losses and the eval sums over
+it; rank 0 alone logs and writes scalars and checkpoints.
+
 Differences from the JAX package: the device comes from ``--platform``
-(the card unless the caller names the CPU); the per-epoch random draws
-come from one device ``torch.Generator`` seeded with ``seed + epoch`` at
-the start of each epoch, so a resumed run draws what an uninterrupted one
-would; prediction overlays are not written (ROADMAP.md, Queue 1:
-``utils/`` visualisation).
+(the card unless the caller names the CPU; in a process group, the
+process's own card); one process runs per device, not per host; the
+per-epoch random draws come from one device ``torch.Generator`` seeded with
+``seed + epoch`` at the start of each epoch (the same in every process,
+which keeps its rows of the global batch's draws), so a resumed run draws
+what an uninterrupted one would; prediction overlays are not written
+(ROADMAP.md, Queue 1: ``utils/`` visualisation).
 """
 
 from __future__ import annotations
@@ -27,9 +36,17 @@ import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from lighthand_tpu_torch.config import Config, check_supported
 from lighthand_tpu_torch.core.device import resolve_device
+from lighthand_tpu_torch.core.dist import process_device
+from lighthand_tpu_torch.core.mesh import (
+    MeshSpec,
+    create_mesh,
+    is_host_leader,
+    is_sharded,
+)
 from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.data import (
     Loader,
@@ -101,6 +118,13 @@ def _pick_style(styles: set) -> str:
 def _maybe_reset(cfg: Config, logger) -> None:
     """--reset semantics (argparser.py:121-139): confirm (unless --yes) and
     wipe the run + tensorboard dirs; the run's log starts anew."""
+    if is_host_leader():
+        _reset_run(cfg, logger)
+    if dist.is_initialized():
+        dist.barrier()  # the others go on once the run is wiped
+
+
+def _reset_run(cfg: Config, logger) -> None:
     ckpt = os.path.join(cfg.output_dir, "checkpoint-good")
     if not (os.path.isdir(ckpt) and os.listdir(ckpt)):
         return
@@ -121,16 +145,22 @@ class Trainer:
     def __init__(self, cfg: Config):
         self.cfg = cfg
         self.policy = _policy(cfg)
-        self.device = resolve_device(cfg.platform)
+        self.device = resolve_device(process_device(cfg.platform)
+                                     or cfg.platform)
+        # None in one process; raises for a mesh that is not the world
+        self.mesh = create_mesh(MeshSpec(cfg.mesh.data, cfg.mesh.model),
+                                self.device)
         os.makedirs(cfg.output_dir, exist_ok=True)
         self.logger = setup_logger(cfg.name, cfg.output_dir)
         t0 = time.time()
-        # set_seed seeds random/numpy globally and gives the init generator;
-        # the reference seeds all host RNGs up front (train.py:15-22)
+        # set_seed seeds random/numpy globally and gives the init generator
+        # (the same weights in every process); the reference seeds all
+        # host RNGs up front (train.py:15-22)
         self.state: TrainState = create_train_state(
             get_model(cfg.model.name, cfg.model.num_joints,
                       policy=self.policy),
-            set_seed(cfg.train.seed), lr=cfg.train.lr, device=self.device)
+            set_seed(cfg.train.seed), lr=cfg.train.lr, device=self.device,
+            mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
         self.logger.debug(f"init state on {self.device}: "
                           f"{time.time() - t0:.1f}s")
@@ -159,7 +189,7 @@ class Trainer:
                        target_style=train_style, flip=cfg.train.flip,
                        rot_deg=cfg.train.rot_aug,
                        compute_dtype=self.policy.compute_dtype,
-                       device=self.device)
+                       device=self.device, mesh=self.mesh)
         self.train_step = make_fused_train_step(
             scan_steps=self.scan_steps, **step_kw)
         # K=1 step for the ragged tail of a K-microbatch dispatch
@@ -168,7 +198,7 @@ class Trainer:
                                                          **step_kw))
         self.eval_step = make_eval_step(heatmap_size=hm, stride=stride,
                                         target_style=val_style,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
         self.writer = ScalarWriter(cfg.tensorboard_dir,
                                    jsonl_dir=cfg.output_dir)
         self.dispatch_timer = DispatchTimer(self.device)
@@ -210,13 +240,14 @@ class Trainer:
             self.train_src, cfg.data.batch_size, device=self.device,
             shuffle=True, seed=cfg.data.shuffle_seed,
             num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+            mesh=self.mesh,
         )
         # drop_last=False + the batch["valid"] mask: the early-stop signal
         # sees every validation sample
         val_loader = Loader(
             self.val_src, cfg.data.batch_size, device=self.device,
             shuffle=False, num_workers=cfg.data.num_workers,
-            prefetch=cfg.data.prefetch, drop_last=False,
+            prefetch=cfg.data.prefetch, drop_last=False, mesh=self.mesh,
         )
         return train_loader, val_loader
 
@@ -349,6 +380,13 @@ class Trainer:
         )
         return losses.avg, pcks.avg * 100, epes.avg
 
+    def describe_mesh(self) -> str:
+        if self.mesh is None:
+            return "one process"
+        shape = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        return (f"{shape} over {dist.get_backend()}, model sharded "
+                f"{is_sharded(self.state.model)}")
+
     # -- full run -------------------------------------------------------------
 
     def fit(self) -> EpochResult:
@@ -357,7 +395,7 @@ class Trainer:
         self.logger.info(colored(
             f"Path: {cfg.output_dir} | Dataset_len: {len(train_loader.source)}"
             f" | Dataset: {cfg.data.dataset} | Model: {cfg.model.name}"
-            f" | Device: {self.device}"
+            f" | Device: {self.device} | Mesh: {self.describe_mesh()}"
             f" | Start_epoch: {self.start_epoch}"
             f" | Max_count: {cfg.train.early_stop_count}"
             f" | Max_epoch: {cfg.train.epochs}", "yellow"))

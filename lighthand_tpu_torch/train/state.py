@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from lighthand_tpu_torch.core.device import resolve_device
-from lighthand_tpu_torch.models.layers import init_weights
+from lighthand_tpu_torch.core.mesh import data_group, data_index, shard_model
+from lighthand_tpu_torch.models.layers import init_weights, set_batchnorm_group
 
 
 def cosine_lr(base_lr: float, epoch: int, t_max: int,
@@ -37,17 +38,24 @@ class TrainState:
 def create_train_state(model: nn.Module,
                        generator: torch.Generator | None = None,
                        lr: float = 1e-3,
-                       device: str | torch.device | None = None) -> TrainState:
+                       device: str | torch.device | None = None,
+                       mesh=None) -> TrainState:
     """Move ``model`` to ``device`` (``cuda`` unless the caller says
-    ``"cpu"``; ``channels_last`` on the card) and attach Adam. With a
+    ``"cpu"``; ``channels_last`` on the card, unless sharded: FSDP2 shards
+    contiguous parameters only) and attach Adam. With a
     ``generator`` the weights are first drawn anew from it (torch's default
-    init), so a seed gives the same model on any device."""
+    init), so a seed gives the same model on any device and in every
+    process. Under ``mesh`` the model is sharded (``core/mesh.py:
+    shard_model``, HSDP) before Adam is built, and its BatchNorm layers
+    normalise over the data axis (``models/layers.py:BatchNorm2d``)."""
     device = resolve_device(device)
     if generator is not None:
         init_weights(model, generator)
     model.to(device)
-    if device.type == "cuda":
+    if device.type == "cuda" and mesh is None:
         model.to(memory_format=torch.channels_last)
+    shard_model(model, mesh)
+    set_batchnorm_group(model, data_group(mesh), data_index(mesh)[1])
     optimizer = torch.optim.Adam(model.parameters(), lr=lr)
     return TrainState(model=model, optimizer=optimizer, device=device)
 

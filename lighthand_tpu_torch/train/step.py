@@ -8,21 +8,40 @@ memory with no copy.
 
 On the card the MSRA targets come from the CUDA kernels: K1 (fused
 augmentation + targets) in ``make_fused_train_step``, K2 (targets) in
-``make_targets``, i.e. the eval step and ``make_train_step``. The
-max-combine targets of the "max" and "per_sample" styles are plain PyTorch
-(``ops/heatmap.py``), as the JAX package computes them in jnp.
+``make_targets``, i.e. the eval step, ``make_train_step`` and the fused
+step's chain route. The max-combine targets of the "max" and "per_sample"
+styles are plain PyTorch (``ops/heatmap.py``), as the JAX package computes
+them in jnp.
 
-Not ported yet (ROADMAP.md, Queue 1): the ``flip`` / ``rot_deg``
-augmentations; they raise ``NotImplementedError``.
+With ``flip`` or ``rot_deg > 0`` the fused step takes the JAX package's own
+jnp chain instead of K1 (``lighthand_tpu/train/step.py:151-227``):
+jitter and noise (``ops/color.py``), rotation, normalize, flip
+(``ops/affine.py``), then ``make_targets`` on the moved joints. It draws
+the jitter and noise exactly as K1's route does, then the flip mask, then
+the degrees, from the same generator.
+
+Under a device mesh (``core/mesh.py``) each process holds its data index's
+rows of the global batch: the draws are those of the global batch, sliced;
+the reported loss and the eval step's (sum, count) pairs are reduced over
+the data axis.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict
 
 import torch
 
 from lighthand_tpu_torch.core.device import resolve_device
+from lighthand_tpu_torch.core.mesh import data_group, data_index
+from lighthand_tpu_torch.ops.affine import hflip_px, rotate_px_batch
+from lighthand_tpu_torch.ops.color import (
+    channel_pixel_noise,
+    color_jitter,
+    divide,
+    normalize_imagenet,
+)
 from lighthand_tpu_torch.ops.decode import get_max_preds
 from lighthand_tpu_torch.ops.heatmap import generate_heatmap_max_batch
 from lighthand_tpu_torch.ops.kernels.fused_aug import (
@@ -41,7 +60,7 @@ from lighthand_tpu_torch.train.state import TrainState
 Batch = Dict[str, torch.Tensor]
 
 TARGET_STYLES = ("msra", "max", "per_sample")
-_LATER = "is not ported yet (ROADMAP.md, Queue 1: affine ops)"
+_log = logging.getLogger("lighthand_tpu_torch")
 
 
 def _check_style(style: str) -> None:
@@ -127,42 +146,131 @@ def make_train_step(heatmap_size: int = 64, stride: float = 4.0,
     return train_step
 
 
+def draw_affine_params(generator: torch.Generator, batch: int,
+                       flip: bool = False, rot_deg: float = 0.0):
+    """The chain route's own draws, made after ``draw_aug_params``'s: the
+    flip mask [B] (Bernoulli 0.5) when ``flip``, then the degrees [B]
+    (U[-rot_deg, rot_deg]) when ``rot_deg > 0``; None for a draw that is
+    off (it then consumes nothing)."""
+    dev = generator.device
+    mask = (torch.rand(batch, generator=generator, device=dev) < 0.5
+            if flip else None)
+    degrees = (-rot_deg + 2.0 * rot_deg * torch.rand(
+        batch, generator=generator, device=dev) if rot_deg > 0 else None)
+    return mask, degrees
+
+
+def chain_augment(images_u8: torch.Tensor, joints: torch.Tensor,
+                  params: torch.Tensor, flip_mask: torch.Tensor | None = None,
+                  degrees: torch.Tensor | None = None,
+                  out_dtype: torch.dtype = torch.bfloat16):
+    """The chain route's arithmetic, in ``_one``'s order
+    (``lighthand_tpu/train/step.py:216-224``): u8/255, jitter and noise
+    from K1's packed draws ``params`` [B, 12], rotation by ``degrees``,
+    ImageNet normalize and the cast to ``out_dtype``, the flip where
+    ``flip_mask`` is set. Returns (images NHWC, joints moved with them)."""
+    img = divide(images_u8.float(), 255.0)
+    img = color_jitter(img, params[:, 1:5], params[:, 5:9].to(torch.int32),
+                       enable=params[:, 0])
+    img = channel_pixel_noise(img, params[:, 9:12])
+    if degrees is not None:
+        img, joints = rotate_px_batch(img, joints, degrees)
+    images = normalize_imagenet(img).to(out_dtype)
+    if flip_mask is not None:
+        images, joints = hflip_px(images, joints, flip_mask)
+    return images, joints
+
+
+def _rows_of(x: torch.Tensor | None, index: int, count: int):
+    """``x`` [b] as the ``index``-th of ``count`` row blocks of a zero
+    [b * count] vector (None stays None)."""
+    if x is None or count == 1:
+        return x
+    b = x.shape[0]
+    full = x.new_zeros((b * count,) + tuple(x.shape[1:]))
+    full[index * b:(index + 1) * b] = x
+    return full
+
+
+def _mean_over(x: torch.Tensor, group, count: int) -> torch.Tensor:
+    """The mean of ``x`` over the data axis (``x`` itself with one index)."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    torch.distributed.all_reduce(x, group=group)
+    return x / count
+
+
 def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
                           sigma: float = 2.0, jitter: bool = True,
                           scan_steps: int = 1, target_style: str = "msra",
                           flip: bool = False, rot_deg: float = 0.0,
                           compute_dtype: torch.dtype = torch.bfloat16,
-                          device=None):
+                          device=None, mesh=None):
     """Fused train step: u8 batch -> K1 (per-sample ColorJitter gated by
     ``aug_enabled``, channel noise gated by ``noise_enabled``, ImageNet
     normalize to ``compute_dtype``, MSRA targets) -> forward/backward ->
     Adam. For ``target_style`` "max" the targets are replaced by the
     max-combine maps, for "per_sample" where the batch's ``hm_max`` is set.
+    ``flip`` (random horizontal flips, p = 0.5) or ``rot_deg > 0``
+    (rotation by U[-rot_deg, rot_deg] about the centre) take the chain
+    route instead of K1 (``chain_augment``, then ``make_targets``: K2 for
+    MSRA targets on the card), as the JAX package does; the step logs that
+    once when it is built.
 
     Returns step(state, generator, batch) -> (state, {"loss"}); the batch
     has image_u8 [K?, B, H, W, 3] u8, joints [K?, B, J, 2+], aug_enabled
     and optional noise_enabled [K?, B] (and hm_max [K?, B] for
-    "per_sample"), with the leading K only when ``scan_steps`` > 1. The draws come from ``generator``. With K > 1 the
-    step runs K optimizer steps in order and reports their mean loss.
-    ``state`` is updated in place."""
+    "per_sample"), with the leading K only when ``scan_steps`` > 1. The
+    draws come from ``generator``. With K > 1 the step runs K optimizer
+    steps in order and reports their mean loss. ``state`` is updated in
+    place. Under ``mesh`` the batch is this process's rows of the global
+    batch and the loss is the global batch's."""
     _check_style(target_style)
-    if flip or rot_deg > 0:
-        raise NotImplementedError(f"flip / rot_deg augmentation {_LATER}")
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     device = resolve_device(device)
+    index, count = data_index(mesh)
+    group = data_group(mesh)
+    chain = flip or rot_deg > 0
+    if chain:
+        _log.warning(
+            "flip / rot-aug: the fused aug + target kernel (K1) is off for "
+            "this step; the jitter -> rotate -> normalize -> flip chain runs "
+            "instead, with its targets from make_targets")
+
+    def draws(generator, aug_enabled, noise_enabled):
+        """This process's rows of the global batch's draws: K1's packed
+        jitter and noise, then the flip mask and the degrees."""
+        b = aug_enabled.shape[0]
+        params = draw_aug_params(generator,
+                                 _rows_of(aug_enabled, index, count),
+                                 _rows_of(noise_enabled, index, count))
+        mask, degrees = draw_affine_params(generator, b * count, flip,
+                                           rot_deg)
+        rows = slice(index * b, (index + 1) * b)
+        return [None if x is None else x[rows].to(device)
+                for x in (params, mask, degrees)]
 
     def one(state, generator, images_u8, joints, aug_enabled, noise_enabled,
             hm_max):
         if not jitter:
             aug_enabled = torch.zeros_like(aug_enabled)
-        params = draw_aug_params(generator, aug_enabled, noise_enabled)
-        images, targets = fused_aug_targets_cuda(
-            images_u8, joints, params.to(device), heatmap_size, stride, sigma,
-            out_dtype=compute_dtype)
-        targets = _max_style(joints, targets, target_style, heatmap_size,
-                             stride, hm_max)
-        return _update(state, _nchw(images), targets)
+        params, mask, degrees = draws(generator, aug_enabled, noise_enabled)
+        if chain:
+            images, joints = chain_augment(images_u8, joints, params, mask,
+                                           degrees, out_dtype=compute_dtype)
+            targets = make_targets(joints, style=target_style,
+                                   heatmap_size=heatmap_size, stride=stride,
+                                   sigma=sigma, hm_max=hm_max)
+        else:
+            images, targets = fused_aug_targets_cuda(
+                images_u8, joints, params, heatmap_size, stride, sigma,
+                out_dtype=compute_dtype)
+            targets = _max_style(joints, targets, target_style, heatmap_size,
+                                 stride, hm_max)
+        return _mean_over(_update(state, _nchw(images), targets), group,
+                          count)
 
     def step(state: TrainState, generator: torch.Generator, batch: Batch):
         _check_state(state, device)
@@ -186,13 +294,16 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
 
 def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
                    sigma: float = 2.0, pck_t: float = 0.2,
-                   target_style: str = "msra", device=None):
+                   target_style: str = "msra", device=None, mesh=None):
     """Returns eval_step(state, batch) -> metrics (reference validation
     branch, method.py:218-287): loss, argmax decode x stride, PCK@pck_t
     (proportion) and EPE, each as a (sum, count) pair. batch["valid"]
-    (optional, 0/1 per sample) masks the padded rows of a ragged batch."""
+    (optional, 0/1 per sample) masks the padded rows of a ragged batch.
+    Under ``mesh`` the pairs are summed over the data axis before they are
+    divided; ``pred_joints`` stays this process's rows."""
     _check_style(target_style)
     device = resolve_device(device)
+    group = data_group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
@@ -217,6 +328,11 @@ def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
                                          sample_weight=w)
         epe = epe_visible if joints.shape[-1] > 2 else epe_train
         epe_sum, epe_cnt = epe(pred_joints, joints, sample_weight=w)
+        if group is not None:
+            sums = torch.stack([loss_sum, n_valid, pck_sum, pck_cnt, epe_sum,
+                                epe_cnt]).float()
+            torch.distributed.all_reduce(sums, group=group)
+            loss_sum, n_valid, pck_sum, pck_cnt, epe_sum, epe_cnt = sums
         return {
             "loss": loss_sum / torch.clamp_min(n_valid, 1.0),
             "loss_sum": loss_sum,

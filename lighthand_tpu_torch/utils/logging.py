@@ -1,5 +1,6 @@
 """Logger + ANSI color + scalar writer: counterpart of
-``lighthand_tpu/utils/logging.py`` for one process.
+``lighthand_tpu/utils/logging.py``. In a process group only rank 0 logs
+and writes scalars (``lighthand_tpu/utils/logging.py:61,85``).
 
 Reference: setup_logger (src/utils/logger.py:12-101): a DEBUG-level named
 logger, colored stdout at INFO, a flush-per-record FileHandler to
@@ -19,6 +20,8 @@ import os
 import sys
 import time
 from typing import Optional
+
+from lighthand_tpu_torch.core.mesh import is_host_leader
 
 _COLORS = {"grey": 30, "red": 31, "green": 32, "yellow": 33, "blue": 34,
            "magenta": 35, "cyan": 36, "white": 37}
@@ -46,6 +49,9 @@ def setup_logger(name: str, save_dir: Optional[str]) -> logging.Logger:
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
     close_logger(logger)
+    if not is_host_leader():
+        logger.addHandler(logging.NullHandler())
+        return logger
     sh = logging.StreamHandler(stream=sys.stdout)
     sh.setLevel(logging.INFO)
     sh.setFormatter(logging.Formatter("%(asctime)s %(name)s: %(message)s"))
@@ -71,7 +77,9 @@ class ScalarWriter:
     """Loss/train & Loss/valid scalars (method.py:214,280)."""
 
     def __init__(self, log_dir: str, jsonl_dir: Optional[str] = None):
-        self._tb = None
+        self._tb = self._jsonl = None
+        if not is_host_leader():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -83,6 +91,8 @@ class ScalarWriter:
         self._jsonl = open(self._jsonl_path, "a")
 
     def add_scalar(self, tag: str, value: float, step: int):
+        if self._jsonl is None:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
         self._jsonl.write(json.dumps(
@@ -100,4 +110,5 @@ class ScalarWriter:
     def close(self):
         if self._tb is not None:
             self._tb.close()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

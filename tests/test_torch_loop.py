@@ -91,9 +91,18 @@ def test_parse_args_matches_jax(argv):
 @pytest.mark.parametrize("argv", [
     ["--mesh-data", "4"], ["--mesh-model", "2"], ["--mesh-data", "2"],
     ["--mesh-data", "8", "--mesh-model", "2"]])
-def test_parse_args_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args(argv)
+def test_parse_args_unported_options_raise(argv, tmp_path):
+    """Once a raise at parse time (multi-GPU was not ported); now the mesh
+    flags parse as JAX's do, and one process refuses a mesh larger than
+    its world when the Trainer builds it, naming the launch: torch runs a
+    process per device, and no run goes on over fewer devices."""
+    got = dataclasses.asdict(parse_args(argv + ["--platform", "cpu"]))
+    assert got.pop("platform") == "cpu"
+    assert got == dataclasses.asdict(jax_parse_args(argv))
+    cfg = _cfg(Config, tmp_path, "mesh")
+    cfg.mesh = parse_args(argv).mesh
+    with pytest.raises(ValueError, match="does not cover 1 devices.*torchrun"):
+        loop.Trainer(cfg)
 
 
 @pytest.mark.parametrize("precision", ["fp16", "int4", "BF16"])
@@ -321,6 +330,21 @@ def test_last_checkpoint_model_info(tmp_path):
                       "model": {"name": "resnet18", "precision": "f32"}}
     assert read_model_info(ckpt) == marker["model"]
     assert read_model_info(str(tmp_path / "nowhere")) is None
+
+
+def test_trainer_with_flip_and_rotation(tmp_path, counted):
+    """``--flip --rot-aug 15`` on the CPU for one epoch: the chain route
+    (K2 targets once a step and once an eval batch, K1 never), finite
+    losses, jitter on half the samples."""
+    argv = ["--flip", "--rot-aug", "15"]
+    flags = parse_args(argv).train
+    assert (flags.flip, flags.rot_aug) == (True, 15.0)
+    cfg = _cfg(Config, tmp_path, "affine", epochs=1, data__ratio_of_aug=0.5,
+               train__flip=flags.flip, train__rot_aug=flags.rot_aug)
+    res = loop.Trainer(cfg).fit()
+    assert np.isfinite(res.train_loss) and np.isfinite(res.val_loss)
+    assert counted == {"fused_aug_targets": 0, "heatmap_targets": 2 + 1}
+    assert sorted(_scalars(cfg, "Loss/train")) == [0]
 
 
 @pytest.mark.parametrize("precision", ["all_bf16", "int8_fwd"])

@@ -45,6 +45,7 @@ from lighthand_tpu.train.step import (
 from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.models import get_model
 from lighthand_tpu_torch.models.hrnet import HRNetCfg
+from lighthand_tpu_torch.train import step as port_step
 from lighthand_tpu_torch.train import (
     cosine_lr,
     create_train_state,
@@ -372,10 +373,232 @@ def test_eval_step_per_sample_matches_jax():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [{"flip": True}, {"rot_deg": 15.0}])
-def test_unported_affine_augmentations_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_train_step(device="cpu", **kw)
+# ----------------------------------------- the flip / rotation chain route
+
+
+def _jax_draws(key, aug, noise, flip=False, rot=0.0):
+    """What JAX's chain draws from ``key`` (``lighthand_tpu/train/step.py:
+    171-216``, ``ops/color.py``), as the port's packed [B, 12] params, the
+    flip mask and the degrees."""
+    from lighthand_tpu.ops.color import channel_pixel_noise
+
+    b = aug.shape[0]
+    k_pre, k_flip, k_rot = jax.random.split(key, 3)
+    k_jit, k_noise = jax.random.split(k_pre)
+    params = np.zeros((b, 12), np.float32)
+    params[:, 0] = aug
+    for i, k in enumerate(jax.random.split(k_jit, b)):
+        k_order, kb, kc, ks, kh = jax.random.split(k, 5)
+        params[i, 1:5] = [jax.random.uniform(kk, (), minval=lo, maxval=hi)
+                          for kk, lo, hi in ((kb, 0.5, 1.5), (kc, 0.5, 1.5),
+                                             (ks, 0.5, 1.5),
+                                             (kh, -0.5, 0.5))]
+        params[i, 5:9] = np.asarray(jax.random.permutation(k_order, 4))
+    for i, k in enumerate(jax.random.split(k_noise, b)):
+        pn = np.asarray(jax.random.uniform(k, (3,), minval=0.6, maxval=1.4))
+        params[i, 9:12] = pn * noise[i] + (1.0 - noise[i])
+        # the same factor is what JAX's channel_pixel_noise applies
+        assert np.allclose(np.asarray(channel_pixel_noise(
+            k, jnp.ones((1, 1, 3)) * 0.5, enable=noise[i]))[0, 0],
+            np.clip(0.5 * params[i, 9:12], 0, 1), atol=1e-7)
+    mask = (np.array(jax.random.bernoulli(k_flip, 0.5, (b,)))
+            if flip else None)
+    deg = (np.array(jax.random.uniform(k_rot, (b,), minval=-rot,
+                                         maxval=rot)) if rot > 0 else None)
+    return params, mask, deg
+
+
+def _jax_chain(key, images_u8, joints, aug, noise, flip, rot):
+    """JAX's functions composed in ``_one``'s order (``lighthand_tpu/train/
+    step.py:216-224``): (images f32, moved joints)."""
+    from lighthand_tpu.ops import affine as jaff
+    from lighthand_tpu.ops.color import (
+        channel_pixel_noise,
+        color_jitter,
+        normalize_imagenet,
+    )
+
+    b = images_u8.shape[0]
+    k_pre, k_flip, k_rot = jax.random.split(key, 3)
+    k_jit, k_noise = jax.random.split(k_pre)
+    imgs = jnp.asarray(images_u8).astype(jnp.float32) / 255.0
+    imgs = jax.vmap(color_jitter)(jax.random.split(k_jit, b), imgs,
+                                  enable=jnp.asarray(aug))
+    imgs = jax.vmap(lambda k, im, en: channel_pixel_noise(k, im, enable=en))(
+        jax.random.split(k_noise, b), imgs, jnp.asarray(noise))
+    j = jnp.asarray(joints)
+    if rot > 0:
+        deg = jax.random.uniform(k_rot, (b,), minval=-rot, maxval=rot)
+        imgs, j = jaff.rotate_px_batch(imgs, j, deg)
+    images = normalize_imagenet(imgs).astype(jnp.float32)
+    if flip:
+        images, j = jaff.hflip_px(images, j, jax.random.bernoulli(
+            k_flip, 0.5, (b,)))
+    return np.array(images), np.array(j)
+
+
+# the chain's images against JAX's (ImageNet-normalised units): jitter
+# agrees to 1e-5 and a warp to 5e-5 on [0, 1] values (tests/
+# test_torch_ops.py, tests/test_torch_affine.py), / std 0.225; measured
+# 5.0e-6 (the hue's f32 arithmetic), the joints equal
+CHAIN_IMAGE_ATOL = 3e-4
+CHAIN_JOINT_ATOL = 1e-4
+AFFINE_CASES = [{"flip": True}, {"rot_deg": 15.0},
+                {"flip": True, "rot_deg": 15.0}]
+
+
+def _chain_batch(seed, b=6, cols=2):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, size=(b, 64, 64, 3), dtype=np.uint8)
+    joints = rng.uniform(6, 58, size=(b, 21, cols)).astype(np.float32)
+    if cols == 3:
+        joints[..., 2] = rng.integers(0, 2, size=(b, 21))
+    aug = (np.arange(b) % 2).astype(np.float32)
+    noise = (np.arange(b) % 3 == 1).astype(np.float32)
+    return images, joints, aug, noise
+
+
+@pytest.mark.parametrize("kw", AFFINE_CASES + [{}],
+                         ids=["flip", "rot", "flip_rot", "neither"])
+@pytest.mark.parametrize("cols", [2, 3])
+def test_chain_matches_jax_with_its_draws(kw, cols):
+    """jitter -> noise -> rotate -> normalize -> flip -> targets against
+    JAX's functions composed in ``_one``'s order, the draws replayed from
+    JAX's key. The targets are compared from JAX's moved joints: MSRA's
+    truncated centre flips on a 1e-4 px joint difference at a pixel
+    boundary."""
+    from lighthand_tpu.train.step import make_targets as jax_make_targets
+
+    flip, rot = kw.get("flip", False), kw.get("rot_deg", 0.0)
+    images, joints, aug, noise = _chain_batch(10 + cols, cols=cols)
+    key = jax.random.PRNGKey(7)
+    params, mask, deg = _jax_draws(key, aug, noise, flip, rot)
+    got_i, got_j = port_step.chain_augment(
+        T(images), T(joints), T(params),
+        None if mask is None else T(mask), None if deg is None else T(deg),
+        out_dtype=torch.float32)
+    want_i, want_j = _jax_chain(key, images, joints, aug, noise, flip, rot)
+    np.testing.assert_allclose(got_i.numpy(), want_i, rtol=0,
+                               atol=CHAIN_IMAGE_ATOL)
+    np.testing.assert_allclose(got_j.numpy(), want_j, rtol=0,
+                               atol=CHAIN_JOINT_ATOL)
+    np.testing.assert_allclose(
+        make_targets(T(want_j), heatmap_size=16).numpy(),
+        np.asarray(jax_make_targets(jnp.asarray(want_j), heatmap_size=16)),
+        rtol=0, atol=1e-6)
+
+
+def test_chain_without_flip_or_rotation_is_k1():
+    """With neither flag the chain is K1's function: on the same packed
+    draws it gives K1's plain twin's image and targets, bit for bit."""
+    from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        draw_aug_params,
+        fused_aug_targets_plain,
+    )
+
+    images, joints, aug, noise = _chain_batch(3)
+    params = draw_aug_params(torch.Generator().manual_seed(0), T(aug),
+                             T(noise))
+    for dtype in (torch.float32, torch.bfloat16):
+        got_i, got_j = port_step.chain_augment(T(images), T(joints), params,
+                                               out_dtype=dtype)
+        want_i, want_t = fused_aug_targets_plain(T(images), T(joints),
+                                                 params, heatmap_size=16,
+                                                 out_dtype=dtype)
+        assert torch.equal(got_i, want_i) and torch.equal(got_j, T(joints))
+        assert torch.equal(make_targets(got_j, heatmap_size=16), want_t)
+
+
+def test_draw_affine_params_order_and_ranges():
+    """The mask (Bernoulli 0.5) first, then the degrees in [-rot, rot]; a
+    draw that is off consumes nothing from the generator."""
+    gen = torch.Generator().manual_seed(3)
+    mask, deg = port_step.draw_affine_params(gen, 4000, True, 15.0)
+    assert mask.dtype == torch.bool and 0.45 < mask.float().mean() < 0.55
+    assert deg.abs().max() <= 15.0 and deg.min() < -14 and deg.max() > 14
+    again = torch.Generator().manual_seed(3)
+    assert torch.equal(port_step.draw_affine_params(again, 4000, True)[0],
+                       mask)
+    rot_only = port_step.draw_affine_params(torch.Generator().manual_seed(3),
+                                            4000, False, 15.0)
+    assert rot_only[0] is None
+    assert torch.equal(rot_only[1], -15.0 + 30.0 * torch.rand(
+        4000, generator=torch.Generator().manual_seed(3)))
+    state = torch.Generator().manual_seed(3)
+    assert port_step.draw_affine_params(state, 8) == (None, None)
+    assert torch.equal(state.get_state(),
+                       torch.Generator().manual_seed(3).get_state())
+
+
+@pytest.mark.parametrize("kw", AFFINE_CASES, ids=["kw0", "kw1", "kw2"])
+def test_unported_affine_augmentations_raise(kw, monkeypatch):
+    """Once a raise (the flags were not ported); now the working route: a
+    whole ``flip`` / ``rot_deg`` step against JAX's step with
+    ``use_pallas_aug=False``, the port given JAX's draws, under the step
+    tolerances of ``test_fused_train_step_max_styles_match_jax``."""
+    jstate, pstate = _pair()
+    flip, rot = kw.get("flip", False), kw.get("rot_deg", 0.0)
+    images, joints, aug, noise = _chain_batch(20, b=4)
+    key = jax.random.PRNGKey(3)
+    params, mask, deg = _jax_draws(key, aug, noise, flip, rot)
+    monkeypatch.setattr(port_step, "draw_aug_params",
+                        lambda gen, a, n: T(params))
+    monkeypatch.setattr(port_step, "draw_affine_params", lambda gen, b, f, r: (
+        None if mask is None else T(mask), None if deg is None else T(deg)))
+    jstep = jax_fused_step(heatmap_size=16, stride=4.0, jitter=True,
+                           compute_dtype=jnp.float32, use_pallas_aug=False,
+                           **kw)
+    pstep = make_fused_train_step(heatmap_size=16, compute_dtype=torch.float32,
+                                  device="cpu", **kw)
+    batch = {"image_u8": images, "joints": joints, "aug_enabled": aug,
+             "noise_enabled": noise}
+    jstate, jm = jstep(jstate, key, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+    pstate, pm = pstep(pstate, torch.Generator(),
+                       {k: T(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    want = hrnet_from_flax(_variables(jstate), HRNetCfg.tiny())
+    got = pstate.model.state_dict()
+    for k, w in want.items():
+        if k.endswith(("num_batches_tracked", "running_mean",
+                       "running_var")):
+            continue
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=0,
+                                   atol=2 * LR * (1 + 1e-3), err_msg=k)
+
+
+@pytest.mark.parametrize("kw,k1,k2", [({}, 2, 0), ({"flip": True}, 0, 2),
+                                      ({"rot_deg": 10.0}, 0, 2)],
+                         ids=["neither", "flip", "rot"])
+def test_fused_step_route_by_flags(kw, k1, k2, monkeypatch, caplog):
+    """Neither flag: K1 once a step, as before. ``flip`` or ``rot_deg``:
+    K2 for the targets and no K1, logged once when the step is built."""
+    calls = {"k1": 0, "k2": 0}
+
+    def count(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(port_step, "fused_aug_targets_cuda", count(
+        "k1", port_step.fused_aug_targets_cuda))
+    monkeypatch.setattr(port_step, "generate_target_batch_cuda", count(
+        "k2", port_step.generate_target_batch_cuda))
+    _, pstate = _pair()
+    images, joints, aug, noise = _chain_batch(4, b=2)
+    with caplog.at_level("WARNING", logger="lighthand_tpu_torch"):
+        step = make_fused_train_step(heatmap_size=16, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        pstate, m = step(pstate, gen, {"image_u8": T(images),
+                                       "joints": T(joints),
+                                       "aug_enabled": T(aug)})
+        assert np.isfinite(float(m["loss"]))
+    assert calls == {"k1": k1, "k2": k2}
+    routed = [r for r in caplog.records if "K1" in r.getMessage()]
+    assert len(routed) == (1 if kw else 0)
 
 
 def test_fused_step_checks_scan_leading_dim():
