@@ -107,8 +107,28 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    Loss/valid within 5e-3 relative, and ``cli.eval`` on the checkpoint
    rank 0 wrote (32 Armo records); then phase 4's steady step, plain
    (channels_last) and on a 1 x 1 mesh (FSDP keeps the weights
-   NCHW-contiguous), in one NCCL process. Meshes above one process are
-   rehearsed only on the CPU (``tests/test_torch_dist.py``);
+   NCHW-contiguous), in one NCCL process, with Adam alone (over the
+   shards, ``train/state.py:ShardAdam``, against plain; target 1.25x) and
+   the profiler's top operations and FSDP ranges of both steps. Meshes
+   above one process are rehearsed only on the CPU
+   (``tests/test_torch_dist.py``);
+9a. ``python -m lighthand_tpu_torch.cli.make_synth_data`` with
+   ``SYNTH_ARGS`` (64 train, 32 eval, 32 Armo, 16 FreiHAND TSV): every
+   file's SHA-256 equal to the digests of the JAX CLI's tree
+   (``tests/fixtures/make_synth_digests.json``, which a CPU test checks;
+   this machine's cv2 may differ and is not used); host img/s;
+9b. host ms of one 224x224 RGB JPEG encode at quality 95 and of one
+   decode, beside phase 1b's;
+9c. ``cli.train`` (SimpleBaseline ResNet-50, bs32, bf16, 1 epoch) on 9a's
+   LightHand tree with overlays on: the train overlays at iterations 0 and
+   1 and the val overlay at 0, each decoding to 256x512x3; K1 2 and K2 1
+   launches; the epoch's seconds and host ms per overlay;
+9d. ``cli.eval --plt --plt_max 8`` on 9a's Armo tree with 9c's
+   checkpoint: exactly 8 overlays, all 32 rows in evaluation.json;
+9e. ``python -m lighthand_tpu_torch.cli.make_lighthand`` over
+   ``write_armhand_tree``'s capture tree: digests equal to the JAX CLI's;
+9f. ``ops/geometry.py`` and ``ops/procrustes.py`` on CUDA tensors against
+   the CPU, within the CPU tests' tolerances;
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -120,7 +140,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e and 6f (each also under
+   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e, 6f, 9c and 9d (each also under
    ``launches_by_path``; each path's counts are zeroed just before it and
    read just after);
 8b. both int8 kernels at the heaviest conv shape (by operations a
@@ -445,6 +465,70 @@ def write_armo_tree(root: str, n: int, n_bad: int = 2) -> None:
     with open(os.path.join(root, "Armo_hand_dataset", "annotations.json"),
               "w") as f:
         json.dump(annos, f)
+
+
+# phase 9a's make_synth_data arguments, and the digests of the tree the
+# JAX package's CLI writes for them (tests/fixtures/make_digests.py)
+SYNTH_ARGS = ("--n-train", "64", "--n-eval", "32", "--n-armo", "32",
+              "--n-frei", "16")
+DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "make_synth_digests.json")
+
+
+def write_armhand_tree(root: str, n: int = 8, seed: int = 3) -> str:
+    """A raw "ArmHand" capture tree for ``cli.make_lighthand`` (as
+    ``tests/test_make_lighthand.py`` builds one): camera 1 at -400 mm on z,
+    focal 500, a seeded joint cloud near the axis per frame, the 224x224
+    fixture JPEGs in turn as the captures; then a camera-0 record (skipped)
+    and a record whose image is missing (skipped). Returns the phase."""
+    import shutil
+
+    import numpy as np
+
+    phase = "train"
+    rng = np.random.default_rng(seed)
+    jpegs = _square_jpegs()
+    anno = os.path.join(root, "annotations", phase)
+    cam_dir = os.path.join(root, "images", phase, "Capture0", "cam1")
+    os.makedirs(anno, exist_ok=True)
+    os.makedirs(cam_dir, exist_ok=True)
+    camera = {"0": {"focal": {"1": [500.0, 500.0]},
+                    "campos": {"1": [0.0, 0.0, -400.0]},
+                    "camrot": {"1": np.eye(3).tolist()}}}
+    images, joints3d = [], {}
+    for i in range(n + 2):
+        images.append({"camera": "0" if i == n else "1", "frame_idx": i,
+                       "file_name": f"Capture0/cam1/{i:05d}.jpg"})
+        pts = rng.uniform(-25, 25, size=(21, 3))
+        pts[:, 2] = 0.0
+        joints3d[str(i)] = {"world_coord": pts.tolist()}
+        if i < n:
+            shutil.copyfile(jpegs[i % len(jpegs)]["path"],
+                            os.path.join(cam_dir, f"{i:05d}.jpg"))
+    for name, obj in (("camera", camera), ("joint_3d", {"0": joints3d}),
+                      ("data", {"images": images})):
+        with open(os.path.join(anno, f"CISLAB_{phase}_{name}.json"),
+                  "w") as f:
+            json.dump(obj, f)
+    return phase
+
+
+def tree_digests(root: str) -> dict:
+    """{path under ``root``: SHA-256} of every file of a tree; JSON files
+    are hashed with ``root`` replaced by ``{out}`` (they name paths)."""
+    import hashlib
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            if name.endswith(".json"):
+                data = data.replace(root.encode(), b"{out}")
+            out[os.path.relpath(path, root)] = hashlib.sha256(
+                data).hexdigest()
+    return dict(sorted(out.items()))
 
 
 def _scalars(run_dir: str) -> list:
@@ -1312,16 +1396,55 @@ for tag in ("plain", "mesh", "mesh", "plain"):
     torch.cuda.synchronize()
     ms[tag].append(ev[0].elapsed_time(ev[1]) / 10)
     ev[0].record()
-    for _ in range(10):
+    for _ in range(30):
         state.optimizer.step()
     ev[1].record()
     torch.cuda.synchronize()
-    adam[tag].append(ev[0].elapsed_time(ev[1]) / 10)
+    adam[tag].append(ev[0].elapsed_time(ev[1]) / 30)
     losses.append(float(metrics["loss"]))
     del state, step
     torch.cuda.empty_cache()
+# where the sharded step's time goes: the profiler over 3 steady steps of
+# each; ranges (FSDP's hooks, the optimizer) are kept apart from ops
+from torch.profiler import ProfilerActivity, profile
+prof = {}
+for tag in ("plain", "mesh"):
+    m = mesh if tag == "mesh" else None
+    state = create_train_state(get_model("hrnet_w32"),
+                               torch.Generator().manual_seed(0), lr=1e-3,
+                               device=dev, mesh=m)
+    step = make_fused_train_step(device=dev, mesh=m)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        step(state, gen, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(3):
+            step(state, gen, batch)
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    ranges = {}
+    for e in events:
+        if e.key.startswith(("FSDP::", "Optimizer.")):
+            ranges[e.key] = max(ranges.get(e.key, 0.0),
+                                e.cpu_time_total / 3e3)
+    ops = [e for e in events if not e.key.startswith(
+        ("FSDP::", "Optimizer.", "ProfilerStep"))]
+    top = lambda f: [(e.key[:64], round(f(e) / 3e3, 3), e.count // 3)
+                     for e in sorted(ops, key=lambda e: -f(e))[:8]]
+    prof[tag] = {"device_ms": sum(map(dev_us, ops)) / 3e3,
+                 "ranges_host_ms": ranges,
+                 "top_device_ms": top(dev_us),
+                 "top_host_ms": top(lambda e: e.self_cpu_time_total)}
+    del state, step
+    torch.cuda.empty_cache()
 print("STEP_MS " + json.dumps({"ms": ms, "adam": adam, "losses": losses,
-                               "backend": dist.get_backend()}))
+                               "backend": dist.get_backend(),
+                               "profile": prof}))
 dist.destroy_process_group()
 """
 
@@ -1331,7 +1454,10 @@ def dist_step_times(env: dict, tmp: str) -> dict:
     route), plain (channels_last) and on a 1 x 1 mesh (FSDP-wrapped,
     NCHW-contiguous), in one NCCL process at world size 1: ms a step over
     10 steps after 3, each twice in the order plain, mesh, mesh, plain;
-    then ms an Adam step alone over 10 (the ``*_adam`` keys)."""
+    then ms an Adam step alone over 30 (the ``*_adam`` keys); then the
+    profiler's view of 3 steps of each (``profile``: device ms a step, the
+    host ms of FSDP's and the optimizer's ranges, the top operations by
+    device and by host time)."""
     out = subprocess.run(
         [sys.executable, "-c", DIST_STEP_CHILD, REPO, str(B_TRAIN),
          str(SIZE)], cwd=tmp, env=env, capture_output=True, text=True,
@@ -1343,9 +1469,16 @@ def dist_step_times(env: dict, tmp: str) -> dict:
     if got["backend"] != "nccl" or not all(map(math.isfinite,
                                                got["losses"])):
         fail(f"the mesh step-time run: {got}")
+    for tag, prof in got["profile"].items():
+        print(f"[dist profile] {tag}: device {prof['device_ms']:.2f} ms a "
+              f"step; ranges (host ms a step) {prof['ranges_host_ms']}")
+        for kind in ("top_device_ms", "top_host_ms"):
+            print(f"[dist profile] {tag} {kind} (op, ms a step, calls a "
+                  f"step): {prof[kind]}")
     return {**{tag: statistics.mean(v) for tag, v in got["ms"].items()},
             **{f"{tag}_adam": statistics.mean(v)
-               for tag, v in got["adam"].items()}}
+               for tag, v in got["adam"].items()},
+            "adam_runs": got["adam"], "step_runs": got["ms"]}
 
 
 def dist_phase(counters, tmp: str) -> dict:
@@ -1421,7 +1554,9 @@ def dist_phase(counters, tmp: str) -> dict:
           f"over NCCL: plain (channels_last) {step_ms['plain']:.2f} ms, "
           f"1 x 1 mesh (FSDP, NCHW) {step_ms['mesh']:.2f} ms; of which "
           f"Adam alone {step_ms['plain_adam']:.2f} and "
-          f"{step_ms['mesh_adam']:.2f} ms")
+          f"{step_ms['mesh_adam']:.2f} ms (runs {step_ms['adam_runs']}; "
+          f"sharded / plain {step_ms['mesh_adam'] / step_ms['plain_adam']:.3f},"
+          f" target 1.25)")
 
     armo = os.path.join(tmp, "armo_dist")
     write_armo_tree(armo, 32)
@@ -1446,6 +1581,232 @@ def dist_phase(counters, tmp: str) -> dict:
           "rehearsed only on the CPU, in gloo processes "
           "(tests/test_torch_dist.py): this machine has one GPU")
     return {**launches, "int8_conv": 0, "quantize_weight": 0}, gaps, step_ms
+
+
+def synth_tree_phase(tmp: str) -> tuple:
+    """Phase 9a: ``python -m lighthand_tpu_torch.cli.make_synth_data`` with
+    ``SYNTH_ARGS`` into ``tmp``: every file's SHA-256 equal to the stored
+    digests of the JAX CLI's tree (JSON up to the output root). Returns the
+    tree's root and the host img/s of the writing."""
+    out = os.path.join(tmp, "synth")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lighthand_tpu_torch.cli.make_synth_data",
+         "--out", out, *SYNTH_ARGS], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:])
+        fail(f"make_synth_data exited {proc.returncode}")
+    with open(DIGESTS) as f:
+        want = json.load(f)["make_synth_data"]["files"]
+    got = tree_digests(out)
+    wrong = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    n_img = sum(int(v) for v in SYNTH_ARGS[1::2])
+    print(f"[synth tree] {len(got)} files, {len(got) - len(wrong)} equal to "
+          f"the JAX CLI's digests; {n_img} images rendered and written in "
+          f"{wall:.2f} s = {n_img / wall:.1f} img/s on the host (one "
+          "process, its start included)")
+    if wrong:
+        fail(f"make_synth_data's tree differs from the JAX CLI's in "
+             f"{len(wrong)} files, e.g. {wrong[:5]}")
+    return out, {"img_s": n_img / wall, "seconds": wall}
+
+
+def encode_phase(codec_ms: dict) -> dict:
+    """Phase 9b: host ms of one 224x224 RGB JPEG encode at quality 95 (a
+    fixture image) and of one decode of its bytes, one thread, beside
+    phase 1b's figures."""
+    from lighthand_tpu_torch.data import imageio
+
+    img = imageio.imread_rgb(_square_jpegs()[0]["path"])
+    data = imageio.encode_jpeg_rgb(img, 95)
+    back = imageio.imdecode_rgb(data)
+    if back.shape != img.shape:
+        fail(f"the encoder's JPEG decodes to {back.shape}")
+    times = {}
+    for name, fn in (("encode_224_q95", lambda: imageio.encode_jpeg_rgb(
+            img, 95)), ("decode_224", lambda: imageio.imdecode_rgb(data))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        times[name] = (time.perf_counter() - t0) / 200 * 1e3
+    print(f"[jpeg] host ms per call, one thread: {times} (phase 1b: "
+          f"{codec_ms}); {len(data)} bytes")
+    return times
+
+
+def overlay_cli_phase(counters, tmp: str, synth: str) -> tuple:
+    """Phase 9c: ``cli.train`` (SimpleBaseline ResNet-50, bs32, bf16, 1
+    epoch) on 9a's LightHand tree with overlays on (the default): the done
+    line, finite losses, K1 2 and K2 1 launches, the train overlays at
+    iterations {0, 1} and the val overlay at 0, each decoding to 256x512x3.
+    Returns the launches and the epoch's seconds and host ms per
+    overlay."""
+    from lighthand_tpu_torch.data import imageio
+
+    argv = ["--root", "simplebaseline/ours", "--name", "overlay",
+            "--dataset-root", synth, "--batch_size", str(B_TRAIN),
+            "--num_our", "64", "--epoch", "1", "--count", "5", "--reset",
+            "--yes"]
+    run_dir = os.path.join(tmp, "output", "simplebaseline", "ours",
+                           "overlay")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, text, wall, counts = run_cli(argv, counters, "cli overlay")
+    finally:
+        os.chdir(cwd)
+    rows = _scalars(run_dir)
+    train, valid = _by_epoch(rows, "Loss/train"), _by_epoch(rows, "Loss/valid")
+    check_run("overlay CLI", rc, text, train, valid, [0])
+    want = {"fused_aug_targets": 64 // B_TRAIN, "heatmap_targets": 1,
+            "int8_conv": 0, "quantize_weight": 0}
+    if counts != want:
+        fail(f"overlay CLI: launches {counts}, expected {want}")
+    files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                   for d, _, fs in os.walk(run_dir) for f in fs
+                   if f.endswith(".jpg"))
+    expect = sorted([os.path.join("train_image", "0_epoch", f"iter_{i}.jpg")
+                     for i in (0, 1)]
+                    + [os.path.join("val_image", "0_epoch", "iter_0.jpg")])
+    if files != expect:
+        fail(f"overlay CLI wrote {files}, expected {expect}")
+    for rel in files:
+        shape = imageio.imread_rgb(os.path.join(run_dir, rel)).shape
+        if shape != (SIZE, 2 * SIZE, 3):
+            fail(f"overlay {rel} decodes to {shape}")
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        ms = [float(v) for v in re.findall(r"overlay \w+ \d+ \d+: ([0-9.]+) ms",
+                                           f.read())]
+    secs = _by_epoch(rows, "perf/epoch_seconds")
+    print(f"[cli overlay] {wall:.1f} s in main; epoch wall s {secs}; "
+          f"overlays {files}; host ms per overlay (draw, encode, write) "
+          f"{ms}; launches {counts}")
+    if len(ms) != len(expect):
+        fail(f"overlay CLI logged {len(ms)} overlay times")
+    return counts, {"epoch_s": secs[0], "overlay_ms": ms}
+
+
+def plt_eval_phase(counters, tmp: str, synth: str) -> dict:
+    """Phase 9d: ``cli.eval --plt --plt_max 8`` on 9a's Armo tree (32
+    records) with 9c's checkpoint: exactly 8 overlay JPEGs, and
+    evaluation.json holding all 32 rows. Returns the launches."""
+    run_dir = os.path.join(tmp, "output", "simplebaseline", "ours",
+                           "overlay")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, _, wall, counts = run_cli(
+            ["--root", "simplebaseline/ours", "--name", "overlay", "--eval",
+             "--dataset-root", synth, "--batch_size", str(B_TRAIN), "--plt",
+             "--plt_max", "8"], counters, "eval plt", entry="eval")
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(run_dir, "evaluation.json")) as f:
+        store = json.load(f)[0]
+    n_rows = sum(len(v["gt"]) for v in store.values())
+    jpgs = sorted(os.listdir(os.path.join(run_dir, "eval_image", "0_epoch")))
+    print(f"[eval plt] rc {rc}, {wall:.2f} s; {len(jpgs)} overlays "
+          f"{jpgs}; {n_rows} rows in evaluation.json; launches {counts}")
+    if rc != 0 or n_rows != 32:
+        fail(f"cli.eval --plt: rc {rc}, {n_rows} rows (expected 32)")
+    if jpgs != [f"iter_{i}.jpg" for i in sorted(range(8), key=str)]:
+        fail(f"cli.eval --plt --plt_max 8 wrote {jpgs}")
+    return counts
+
+
+def make_lighthand_phase(tmp: str) -> None:
+    """Phase 9e: ``python -m lighthand_tpu_torch.cli.make_lighthand`` over
+    ``write_armhand_tree``'s capture tree: every output file's SHA-256
+    equal to the stored digests of the JAX CLI's tree."""
+    raw, out = os.path.join(tmp, "armhand"), os.path.join(tmp, "lighthand")
+    phase = write_armhand_tree(raw)
+    with open(DIGESTS) as f:
+        want = json.load(f)["make_lighthand"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "lighthand_tpu_torch.cli.make_lighthand",
+         "--root", raw, "--out", out, "--phase", phase, "--seed",
+         str(want["seed"])], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:])
+        fail(f"make_lighthand exited {proc.returncode}")
+    got = tree_digests(out)
+    wrong = sorted(k for k in set(got) | set(want["files"])
+                   if got.get(k) != want["files"].get(k))
+    print(f"[make_lighthand] {proc.stdout.strip()}; {len(got)} files, "
+          f"{len(got) - len(wrong)} equal to the JAX CLI's digests")
+    if wrong:
+        fail(f"make_lighthand's tree differs from the JAX CLI's: {wrong}")
+
+
+# the CPU tests' tolerances (tests/test_torch_geometry.py)
+GEOMETRY_RTOL, GEOMETRY_ATOL = 1e-5, 1e-6
+PROCRUSTES_ATOL = 1e-4
+
+
+def geometry_phase() -> None:
+    """Phase 9f: ``ops/geometry.py`` and ``ops/procrustes.py`` on CUDA
+    tensors against the same calls on the CPU, within the CPU tests'
+    tolerances."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.ops import geometry as g
+    from lighthand_tpu_torch.ops import procrustes as p
+
+    rng = np.random.default_rng(12)
+    cam = rng.normal(size=(21, 3)).astype(np.float32)
+    cam[:, 2] += 5
+    r = rng.normal(size=(3, 3)).astype(np.float32)
+    t = rng.normal(size=3).astype(np.float32)
+    theta = rng.normal(size=(8, 3)).astype(np.float32)
+    quat = rng.normal(size=(8, 4)).astype(np.float32)
+    pts = rng.normal(size=(4, 21, 3)).astype(np.float32)
+    scale_t = rng.normal(size=(4, 3)).astype(np.float32)
+    euler = np.array([10.0, -20.0, 35.0], np.float32)
+    s1 = rng.normal(size=(16, 21, 3)).astype(np.float32)
+    s2 = (s1 @ np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
+          * 1.3 + rng.normal(size=s1.shape).astype(np.float32) * 0.1)
+    calls = {
+        "cam2pixel": lambda d: g.cam2pixel(d(cam), (500.0, 510.0),
+                                           (112.0, 100.0)),
+        "pixel2cam": lambda d: g.pixel2cam(d(cam), (500.0, 510.0),
+                                           (112.0, 100.0)),
+        "world2cam": lambda d: g.world2cam(d(cam.T), d(r), d(t)),
+        "rodrigues": lambda d: g.rodrigues(d(theta)),
+        "quat2mat": lambda d: g.quat2mat(d(quat)),
+        "orthographic_projection": lambda d: g.orthographic_projection(
+            d(pts), d(scale_t)),
+        "euler_to_rotation": lambda d: g.euler_to_rotation(d(euler)),
+        "camera_calibration": lambda d: g.camera_calibration(
+            d(cam), d(euler), d(t - [0, 0, 10]), 500.0, (112.0, 112.0)),
+        "compute_similarity_transform":
+            lambda d: p.compute_similarity_transform(d(s1[0]), d(s2[0])),
+        "reconstruction_error": lambda d: p.reconstruction_error(
+            d(s1), d(s2), "none"),
+    }
+    errs = {}
+    for name, call in calls.items():
+        want = call(torch.from_numpy)
+        got = call(lambda a: torch.from_numpy(np.ascontiguousarray(a))
+                   .cuda())
+        if got.device.type != "cuda":
+            fail(f"{name} left the card: {got.device}")
+        got = got.cpu()
+        errs[name] = float((got - want).abs().max())
+        if name in ("compute_similarity_transform", "reconstruction_error"):
+            ok = errs[name] <= PROCRUSTES_ATOL
+        else:
+            ok = bool(torch.allclose(got, want, rtol=GEOMETRY_RTOL,
+                                     atol=GEOMETRY_ATOL))
+        if got.shape != want.shape or not ok:
+            fail(f"{name} on the card differs from the CPU: {errs[name]}")
+    print(f"[geometry] card vs CPU max|diff| (geometry rtol "
+          f"{GEOMETRY_RTOL:g} + atol {GEOMETRY_ATOL:g}, procrustes atol "
+          f"{PROCRUSTES_ATOL:g}): {errs}")
 
 
 def int8_times(kind: str, shape, seed: int) -> tuple:
@@ -1922,6 +2283,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aug_") as tmp:
         aug_cli_launches = aug_cli_phase(counters, tmp)
         dist_launches, dist_gaps, dist_ms = dist_phase(counters, tmp)
+    # 9a-9f. the tree-making CLIs, JPEG writing, overlays, geometry
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp:
+        synth, tree_fig = synth_tree_phase(tmp)
+        jpeg_ms = encode_phase(codec_ms)
+        overlay_launches, overlay_fig = overlay_cli_phase(counters, tmp,
+                                                          synth)
+        plt_launches = plt_eval_phase(counters, tmp, synth)
+        make_lighthand_phase(tmp)
+    geometry_phase()
+    print(f"[figures] {card}: make_synth_data {tree_fig['img_s']:.1f} img/s "
+          f"(host); JPEG ms {jpeg_ms}; overlay CLI (ResNet-50 bs{B_TRAIN}, "
+          f"64 train images, 1 epoch) epoch {overlay_fig['epoch_s']:.2f} s, "
+          f"host ms per overlay {overlay_fig['overlay_ms']}")
     print(f"[figures] {card}: flip + rotation 15 (phase 4c): HRNet-W32 "
           f"bs{B_TRAIN} step {aug_fig['step_ms']:.2f} ms against K1's "
           f"{aug_fig['k1_step_ms']:.2f} ms; at B={B_KERNEL} the chain "
@@ -1934,7 +2308,9 @@ def main() -> int:
           f"on a 1 x 1 mesh {dist_ms['mesh']:.2f} ms (Adam alone "
           f"{dist_ms['plain_adam']:.2f} / {dist_ms['mesh_adam']:.2f} ms)")
     print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
-          f"train images, SimpleBaseline ResNet-50, bf16): synthetic "
+          f"train images, SimpleBaseline ResNet-50, bf16; overlays on, a "
+          f"predict step and a JPEG at 3 train and up to 3 val iterations "
+          f"an epoch, in 6, 6b and 6e too): synthetic "
           f"{synth_fig['epoch_s']} / {synth_fig['img_s']}; LightHand tree "
           f"of fixture JPEGs {real_fig['epoch_s']} / {real_fig['img_s']}; "
           f"host codec ms {codec_ms}; eval CLI img/s (ResNet-50, 64 Armo "
@@ -1989,7 +2365,8 @@ def main() -> int:
              "real_tree_cli": real_launches,
              "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches,
              "aug_route_steps": aug_launches, "aug_route_cli": aug_cli_launches,
-             "dist_cli_world1": dist_launches}
+             "dist_cli_world1": dist_launches,
+             "overlay_cli": overlay_launches, "plt_eval_cli": plt_launches}
     errs = {"fused_aug_targets": k1_err,
             "heatmap_targets": max(k2_err, aug_k2_err)}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)

@@ -1051,6 +1051,459 @@ void warp_affine_inverse(const uint8_t* src, int h, int w, int c,
   }
 }
 
+// ------------------------------------------------------------ JPEG out ---
+//
+// Baseline JPEG as OpenCV's imencode / imwrite writes it through
+// libjpeg-turbo with its defaults: JFIF 1.1 APP0 (no density unit, 1:1),
+// one DQT marker per table, SOF0, the four (two for gray) standard
+// Huffman tables of JPEG Annex K in one DHT marker each, one interleaved
+// scan without restart intervals, then EOI. Colour images are YCbCr 4:2:0
+// with the fixed-point RGB -> YCbCr of jccolor.c, h2v2 downsampling with
+// its alternating 1/2 rounding bias, and edge replication to whole blocks;
+// gray images are one component. The forward DCT is jfdctint.c's ISLOW,
+// quantized as libjpeg-turbo's reciprocal multiply does it; blocks that
+// only fill an MCU are zero with the previous block's DC.
+
+const uint16_t kStdLumaQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint16_t kStdChromaQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// Annex K.3 tables: 16 code counts, then the symbols.
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// Code and length per symbol of a table given by counts (JPEG C.2).
+struct HuffCodes {
+  uint16_t code[256] = {};
+  uint8_t size[256] = {};
+  HuffCodes(const uint8_t* bits, const uint8_t* vals) {
+    uint16_t c = 0;
+    int k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      for (int i = 0; i < bits[len - 1]; ++i, ++k) {
+        code[vals[k]] = c++;
+        size[vals[k]] = static_cast<uint8_t>(len);
+      }
+      c = static_cast<uint16_t>(c << 1);
+    }
+  }
+};
+
+const HuffCodes kDcLuma(kDcLumaBits, kDcVals);
+const HuffCodes kAcLuma(kAcLumaBits, kAcLumaVals);
+const HuffCodes kDcChroma(kDcChromaBits, kDcVals);
+const HuffCodes kAcChroma(kAcChromaBits, kAcChromaVals);
+
+// jpeg_set_quality(q, force_baseline=TRUE): jpeg_quality_scaling, then
+// jpeg_add_quant_table's rounding and clamping to [1, 255].
+void scale_quant(const uint16_t* base, int quality, uint16_t* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  const int32_t scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    int32_t t = (static_cast<int32_t>(base[i]) * scale + 50) / 100;
+    out[i] = static_cast<uint16_t>(std::clamp(t, 1, 255));
+  }
+}
+
+// libjpeg-turbo's compute_reciprocal for a 16-bit DCTELEM: x / d rounded
+// to nearest as ((x + corr) * recip) >> shift.
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint32_t d) {
+  int b = 31 - __builtin_clz(d);  // floor(log2 d); d >= 8 here
+  int r = 16 + b;
+  uint32_t fq = (uint32_t{1} << r) / d, fr = (uint32_t{1} << r) % d;
+  uint32_t c = d / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= d / 2) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {fq, c, r};
+}
+
+// jfdctint.c's jpeg_fdct_islow on level-shifted samples, in place; the
+// outputs are scaled up by 8.
+void fdct_islow(int32_t* d) {
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass == 0 ? 1 : 8, next = pass == 0 ? 8 : 1;
+    for (int i = 0; i < 8; ++i) {
+      int32_t* p = d + i * next;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step];
+      int64_t tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step];
+      int64_t tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      // pass 1 keeps PASS1_BITS of fraction; pass 2 removes them
+      const int even = pass == 0 ? 0 : kPass1Bits;
+      const int odd = pass == 0 ? kConstBits - kPass1Bits
+                                : kConstBits + kPass1Bits;
+      if (pass == 0) {
+        p[0] = static_cast<int32_t>((tmp10 + tmp11) * (1 << kPass1Bits));
+        p[4 * step] =
+            static_cast<int32_t>((tmp10 - tmp11) * (1 << kPass1Bits));
+      } else {
+        p[0] = static_cast<int32_t>(descale(tmp10 + tmp11, even));
+        p[4 * step] = static_cast<int32_t>(descale(tmp10 - tmp11, even));
+      }
+      int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+      p[2 * step] =
+          static_cast<int32_t>(descale(z1 + tmp13 * FIX_0_765366865, odd));
+      p[6 * step] =
+          static_cast<int32_t>(descale(z1 + tmp12 * -FIX_1_847759065, odd));
+
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * FIX_1_175875602;
+      tmp4 *= FIX_0_298631336;
+      tmp5 *= FIX_2_053119869;
+      tmp6 *= FIX_3_072711026;
+      tmp7 *= FIX_1_501321110;
+      z1 *= -FIX_0_899976223;
+      z2 *= -FIX_2_562915447;
+      z3 = z3 * -FIX_1_961570560 + z5;
+      z4 = z4 * -FIX_0_390180644 + z5;
+      p[7 * step] = static_cast<int32_t>(descale(tmp4 + z1 + z3, odd));
+      p[5 * step] = static_cast<int32_t>(descale(tmp5 + z2 + z4, odd));
+      p[3 * step] = static_cast<int32_t>(descale(tmp6 + z2 + z3, odd));
+      p[step] = static_cast<int32_t>(descale(tmp7 + z1 + z4, odd));
+    }
+  }
+}
+
+// One component's samples, already padded by edge replication to whole
+// blocks (bw x bh blocks), and the quantized blocks the scan reads.
+struct EncPlane {
+  int bw = 0, bh = 0;
+  std::vector<uint8_t> px;  // (bh*8) x (bw*8)
+  std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
+
+  void quantize(const uint16_t* q) {
+    Divisor div[64];
+    for (int i = 0; i < 64; ++i) div[i] = reciprocal(uint32_t{q[i]} << 3);
+    const int stride = bw * 8;
+    coef.assign(static_cast<size_t>(bw) * bh * 64, 0);
+    int32_t ws[64];
+    for (int by = 0; by < bh; ++by) {
+      for (int bx = 0; bx < bw; ++bx) {
+        for (int y = 0; y < 8; ++y) {
+          const uint8_t* row =
+              px.data() + static_cast<size_t>(by * 8 + y) * stride + bx * 8;
+          for (int x = 0; x < 8; ++x) ws[y * 8 + x] = row[x] - 128;
+        }
+        fdct_islow(ws);
+        int16_t* out = coef.data() + (static_cast<size_t>(by) * bw + bx) * 64;
+        for (int i = 0; i < 64; ++i) {
+          const uint32_t a = static_cast<uint32_t>(std::abs(ws[i]));
+          const int32_t v = static_cast<int32_t>(
+              (static_cast<uint64_t>(a + div[i].corr) * div[i].recip) >>
+              div[i].shift);
+          out[i] = static_cast<int16_t>(ws[i] < 0 ? -v : v);
+        }
+      }
+    }
+  }
+};
+
+// Replicate the last column and row of a w x h plane out to W x H.
+EncPlane pad_plane(std::vector<uint8_t> src, int w, int h, int bw, int bh) {
+  EncPlane p;
+  p.bw = bw;
+  p.bh = bh;
+  const int W = bw * 8, H = bh * 8;
+  p.px.resize(static_cast<size_t>(W) * H);
+  for (int y = 0; y < H; ++y) {
+    const uint8_t* s = src.data() + static_cast<size_t>(std::min(y, h - 1)) * w;
+    uint8_t* d = p.px.data() + static_cast<size_t>(y) * W;
+    std::memcpy(d, s, static_cast<size_t>(w));
+    std::memset(d + w, s[w - 1], static_cast<size_t>(W - w));
+  }
+  return p;
+}
+
+class BitWriter {
+ public:
+  explicit BitWriter(std::vector<uint8_t>& out) : out_(out) {}
+  void put(uint32_t code, int size) {
+    acc_ = (acc_ << size) | (code & ((uint32_t{1} << size) - 1));
+    bits_ += size;
+    while (bits_ >= 8) {
+      const uint8_t b = static_cast<uint8_t>(acc_ >> (bits_ - 8));
+      out_.push_back(b);
+      if (b == 0xFF) out_.push_back(0);  // byte stuffing
+      bits_ -= 8;
+    }
+    acc_ &= (uint64_t{1} << bits_) - 1;
+  }
+  void flush() {  // pad the last byte with 1 bits
+    if (bits_ > 0) put(0x7F, 8 - bits_);
+  }
+
+ private:
+  std::vector<uint8_t>& out_;
+  uint64_t acc_ = 0;
+  int bits_ = 0;
+};
+
+inline int nbits(uint32_t v) { return v == 0 ? 0 : 32 - __builtin_clz(v); }
+
+// jchuff.c's encode_one_block.
+void encode_block(BitWriter& bw, const int16_t* blk, int& last_dc,
+                  const HuffCodes& dc, const HuffCodes& ac) {
+  int t = blk[0] - last_dc, t2 = t;
+  last_dc = blk[0];
+  if (t < 0) {
+    t = -t;
+    --t2;
+  }
+  int n = nbits(static_cast<uint32_t>(t));
+  bw.put(dc.code[n], dc.size[n]);
+  if (n) bw.put(static_cast<uint32_t>(t2), n);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    t = blk[kZigzag[k]];
+    if (t == 0) {
+      ++run;
+      continue;
+    }
+    while (run > 15) {
+      bw.put(ac.code[0xF0], ac.size[0xF0]);
+      run -= 16;
+    }
+    t2 = t;
+    if (t < 0) {
+      t = -t;
+      --t2;
+    }
+    n = nbits(static_cast<uint32_t>(t));
+    const int sym = (run << 4) + n;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put(static_cast<uint32_t>(t2), n);
+    run = 0;
+  }
+  if (run > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back(static_cast<uint8_t>(v >> 8));
+  o.push_back(static_cast<uint8_t>(v & 0xFF));
+}
+
+void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits,
+             const uint8_t* vals) {
+  int n = 0;
+  for (int i = 0; i < 16; ++i) n += bits[i];
+  o.push_back(0xFF);
+  o.push_back(0xC4);
+  put16(o, 2 + 1 + 16 + n);
+  o.push_back(static_cast<uint8_t>(cls_id));
+  o.insert(o.end(), bits, bits + 16);
+  o.insert(o.end(), vals, vals + n);
+}
+
+// fixed-point RGB -> YCbCr of jccolor.c (SCALEBITS 16)
+constexpr int kScaleBits = 16;
+constexpr int32_t fix16(double x) {
+  return static_cast<int32_t>(x * (1 << kScaleBits) + 0.5);
+}
+constexpr int32_t kOneHalf = 1 << (kScaleBits - 1);
+constexpr int32_t kCbCrOffset = 128 << kScaleBits;
+
+std::vector<uint8_t> jpeg_encode(const uint8_t* img, int h, int w, int c,
+                                 int quality) {
+  if (h <= 0 || w <= 0 || h > 65535 || w > 65535 || (c != 1 && c != 3)) {
+    fail("jpeg_encode: unsupported image " + std::to_string(w) + "x" +
+         std::to_string(h) + "x" + std::to_string(c));
+  }
+  uint16_t qt[2][64];
+  scale_quant(kStdLumaQ, quality, qt[0]);
+  scale_quant(kStdChromaQ, quality, qt[1]);
+  const size_t n = static_cast<size_t>(h) * w;
+  const bool color = c == 3;
+  // the MCU is 16x16 pixels for colour (4:2:0), 8x8 for gray
+  const int mcu = color ? 16 : 8;
+  const int mcu_w = (w + mcu - 1) / mcu, mcu_h = (h + mcu - 1) / mcu;
+  std::vector<EncPlane> planes;
+  if (!color) {
+    planes.push_back(pad_plane(std::vector<uint8_t>(img, img + n), w, h,
+                               mcu_w, mcu_h));
+  } else {
+    std::vector<uint8_t> y(n), cb(n), cr(n);
+    for (size_t i = 0; i < n; ++i) {
+      const int32_t r = img[3 * i], g = img[3 * i + 1], b = img[3 * i + 2];
+      y[i] = static_cast<uint8_t>(
+          (fix16(0.29900) * r + fix16(0.58700) * g + fix16(0.11400) * b +
+           kOneHalf) >> kScaleBits);
+      cb[i] = static_cast<uint8_t>(
+          (-fix16(0.16874) * r - fix16(0.33126) * g + fix16(0.50000) * b +
+           kCbCrOffset + kOneHalf - 1) >> kScaleBits);
+      cr[i] = static_cast<uint8_t>(
+          (fix16(0.50000) * r - fix16(0.41869) * g - fix16(0.08131) * b +
+           kCbCrOffset + kOneHalf - 1) >> kScaleBits);
+    }
+    // luma: whole blocks (ceil(w/8) x ceil(h/8)); chroma: h2v2 over the
+    // rows and columns replicated out to whole 16-pixel MCUs
+    planes.push_back(pad_plane(std::move(y), w, h, (w + 7) / 8, (h + 7) / 8));
+    const int W2 = mcu_w * 16, hs = (h + 1) / 2;
+    for (const std::vector<uint8_t>* full : {&cb, &cr}) {
+      std::vector<uint8_t> ds(static_cast<size_t>(mcu_w) * 8 * hs);
+      for (int oy = 0; oy < hs; ++oy) {
+        const uint8_t* r0 =
+            full->data() + static_cast<size_t>(2 * oy) * w;
+        const uint8_t* r1 =
+            full->data() + static_cast<size_t>(std::min(2 * oy + 1, h - 1)) * w;
+        int bias = 1;  // 1, 2, 1, 2, ... along the row
+        for (int ox = 0; ox < W2 / 2; ++ox) {
+          const int x0 = std::min(2 * ox, w - 1), x1 = std::min(2 * ox + 1, w - 1);
+          ds[static_cast<size_t>(oy) * (W2 / 2) + ox] = static_cast<uint8_t>(
+              (r0[x0] + r0[x1] + r1[x0] + r1[x1] + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+      planes.push_back(pad_plane(std::move(ds), W2 / 2, hs, mcu_w, mcu_h));
+    }
+  }
+  for (size_t i = 0; i < planes.size(); ++i) {
+    planes[i].quantize(qt[i == 0 ? 0 : 1]);
+  }
+
+  std::vector<uint8_t> o;
+  o.reserve(1024 + n);
+  const uint8_t head[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I',
+                          'F',  0x00, 0x01, 0x01, 0x00, 0x00, 0x01, 0x00,
+                          0x01, 0x00, 0x00};
+  o.insert(o.end(), head, head + sizeof(head));
+  for (int t = 0; t < (color ? 2 : 1); ++t) {
+    o.push_back(0xFF);
+    o.push_back(0xDB);
+    put16(o, 67);
+    o.push_back(static_cast<uint8_t>(t));
+    for (int k = 0; k < 64; ++k) {
+      o.push_back(static_cast<uint8_t>(qt[t][kZigzag[k]]));
+    }
+  }
+  const int nc = color ? 3 : 1;
+  o.push_back(0xFF);
+  o.push_back(0xC0);
+  put16(o, 8 + 3 * nc);
+  o.push_back(8);
+  put16(o, h);
+  put16(o, w);
+  o.push_back(static_cast<uint8_t>(nc));
+  for (int i = 0; i < nc; ++i) {
+    o.push_back(static_cast<uint8_t>(i + 1));
+    o.push_back(color && i == 0 ? 0x22 : 0x11);
+    o.push_back(i == 0 ? 0 : 1);
+  }
+  put_dht(o, 0x00, kDcLumaBits, kDcVals);
+  put_dht(o, 0x10, kAcLumaBits, kAcLumaVals);
+  if (color) {
+    put_dht(o, 0x01, kDcChromaBits, kDcVals);
+    put_dht(o, 0x11, kAcChromaBits, kAcChromaVals);
+  }
+  o.push_back(0xFF);
+  o.push_back(0xDA);
+  put16(o, 6 + 2 * nc);
+  o.push_back(static_cast<uint8_t>(nc));
+  for (int i = 0; i < nc; ++i) {
+    o.push_back(static_cast<uint8_t>(i + 1));
+    o.push_back(i == 0 ? 0x00 : 0x11);
+  }
+  o.push_back(0);
+  o.push_back(63);
+  o.push_back(0);
+
+  BitWriter bw(o);
+  int last_dc[3] = {0, 0, 0};
+  auto block = [&](int ci, int bx, int by) {
+    const EncPlane& p = planes[ci];
+    return p.coef.data() + (static_cast<size_t>(by) * p.bw + bx) * 64;
+  };
+  for (int my = 0; my < mcu_h; ++my) {
+    for (int mx = 0; mx < mcu_w; ++mx) {
+      if (!color) {
+        encode_block(bw, block(0, mx, my), last_dc[0], kDcLuma, kAcLuma);
+        continue;
+      }
+      // 2x2 luma blocks; those past the image's blocks are dummies: zero,
+      // with the DC of the block encoded before them (jccoefct.c)
+      const EncPlane& yp = planes[0];
+      int16_t prev_dc = 0;
+      for (int yy = 0; yy < 2; ++yy) {
+        for (int xx = 0; xx < 2; ++xx) {
+          const int bx = 2 * mx + xx, by = 2 * my + yy;
+          int16_t dummy[64] = {};
+          const int16_t* blk;
+          if (by < yp.bh && bx < yp.bw) {
+            blk = block(0, bx, by);
+          } else {
+            dummy[0] = prev_dc;
+            blk = dummy;
+          }
+          prev_dc = blk[0];
+          encode_block(bw, blk, last_dc[0], kDcLuma, kAcLuma);
+        }
+      }
+      encode_block(bw, block(1, mx, my), last_dc[1], kDcChroma, kAcChroma);
+      encode_block(bw, block(2, mx, my), last_dc[2], kDcChroma, kAcChroma);
+    }
+  }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+  return o;
+}
+
 template <typename F>
 int guarded(char* err, int errlen, F&& f) {
   try {
@@ -1105,6 +1558,23 @@ int lh_png_decode(uint8_t* raw, int64_t n, int w, int h, int depth,
   return guarded(err, errlen, [&] {
     png_unfilter(raw, static_cast<size_t>(n), w, h, depth, color_type);
     png_convert(raw, w, h, depth, color_type, palette, npal, gray, out);
+  });
+}
+
+// Encode h x w gray (c = 1) or h x w x 3 RGB (c = 3) pixels as a
+// baseline JPEG at `quality` (0-100) into `out`, which holds `cap` bytes;
+// *out_len is the length written. Returns 0, or -1 with the reason in
+// `err`.
+int lh_jpeg_encode(const uint8_t* img, int h, int w, int c, int quality,
+                   uint8_t* out, int64_t cap, int64_t* out_len, char* err,
+                   int errlen) {
+  return guarded(err, errlen, [&] {
+    const std::vector<uint8_t> o = jpeg_encode(img, h, w, c, quality);
+    if (static_cast<int64_t>(o.size()) > cap) {
+      fail("jpeg_encode: output buffer too small");
+    }
+    std::memcpy(out, o.data(), o.size());
+    *out_len = static_cast<int64_t>(o.size());
   });
 }
 

@@ -13,14 +13,17 @@ in parallel. They give the bytes OpenCV gives:
 - ``imread_gray``: ``cv2.imread(path, IMREAD_GRAYSCALE)``;
 - ``resize_linear``: ``cv2.resize(img, (size, size), INTER_LINEAR)``;
 - ``warp_affine_inverse``: ``cv2.warpAffine`` with ``INTER_LINEAR |
-  WARP_INVERSE_MAP`` and ``borderValue=0``.
+  WARP_INVERSE_MAP`` and ``borderValue=0``;
+- ``encode_jpeg_rgb`` / ``imwrite_rgb``: ``cv2.imencode(".jpg", ...)`` /
+  ``cv2.imwrite`` of ``cvtColor(img, COLOR_RGB2BGR)`` (or of a gray image)
+  with ``IMWRITE_JPEG_QUALITY`` (95 by default): baseline, 4:2:0 for
+  colour, the standard Huffman tables.
 
 PNG data is inflated with Python's ``zlib`` (which also releases the GIL);
 the C++ side undoes the scanline filters and converts the pixels.
 
 Refused, with an error naming the file: progressive, arithmetic-coded,
-lossless, hierarchical, 12-bit and CMYK JPEGs, and interlaced PNGs. There
-is no encoder.
+lossless, hierarchical, 12-bit and CMYK JPEGs, and interlaced PNGs.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ def _lib() -> ctypes.CDLL:
     lib.lh_resize_linear.restype = None
     lib.lh_warp_affine_inverse.argtypes = [p, i, i, i, p, p, i, i]
     lib.lh_warp_affine_inverse.restype = None
+    lib.lh_jpeg_encode.argtypes = [p, i, i, i, i, p, i64,
+                                   ctypes.POINTER(i64), s, i]
+    lib.lh_jpeg_encode.restype = i
     return lib
 
 
@@ -215,3 +221,36 @@ def warp_affine_inverse(img: np.ndarray, mat: np.ndarray,
     _lib().lh_warp_affine_inverse(_ptr(img), img.shape[0], img.shape[1], c,
                                   _ptr(m), _ptr(out), H, W)
     return out
+
+
+def encode_jpeg_rgb(img: np.ndarray, quality: int = 95) -> bytes:
+    """A gray uint8 [H, W] or RGB uint8 [H, W, 3] image as baseline JPEG
+    bytes: ``cv2.imencode(".jpg", cvtColor(img, COLOR_RGB2BGR),
+    [IMWRITE_JPEG_QUALITY, quality])`` (the image as is when gray)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError("expected a uint8 HW or HWx3 image, got "
+                         f"{img.dtype} {img.shape}")
+    if not 0 <= quality <= 100:
+        raise ValueError(f"JPEG quality must be in [0, 100], got {quality}")
+    h, w = img.shape[:2]
+    # whole 16x16 MCUs, 1.5 blocks a pixel block; a block is at most
+    # 27 + 63 * 26 bits, doubled for the 0xFF stuffing
+    blocks = ((h + 15) // 16) * ((w + 15) // 16) * 6
+    out = np.empty(2048 + blocks * 420, np.uint8)
+    n = ctypes.c_int64()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if _lib().lh_jpeg_encode(_ptr(img), h, w, 1 if img.ndim == 2 else 3,
+                             int(quality), _ptr(out), out.size,
+                             ctypes.byref(n), err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out[:n.value].tobytes()
+
+
+def imwrite_rgb(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write ``encode_jpeg_rgb(img, quality)`` to ``path`` (``cv2.imwrite``
+    of the BGR image)."""
+    data = encode_jpeg_rgb(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -165,3 +165,35 @@ class Loader:
             prev = cur
         if prev is not None:
             yield prev
+
+
+class IterationLoader:
+    """Fixed-iteration-count loader: cycles the underlying Loader, calling
+    ``set_epoch(epoch)`` at each pass (a new shuffle each epoch); yields
+    ``(iteration, batch)``.
+
+    Counterpart of ``lighthand_tpu/data/pipeline.py:IterationLoader`` (the
+    reference's dormant ``IterationBasedBatchSampler``,
+    src/datasets/build.py:13-106), for step-based schedules.
+    """
+
+    def __init__(self, loader: Loader, num_iterations: int,
+                 start_iteration: int = 0):
+        self.loader = loader
+        self.num_iterations = num_iterations
+        self.start_iteration = start_iteration
+
+    def __len__(self) -> int:
+        return self.num_iterations - self.start_iteration
+
+    def __iter__(self):
+        it = self.start_iteration
+        epoch = 0
+        while it < self.num_iterations:
+            self.loader.set_epoch(epoch)
+            for batch in self.loader:
+                if it >= self.num_iterations:
+                    return
+                yield it, batch
+                it += 1
+            epoch += 1

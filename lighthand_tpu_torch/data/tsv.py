@@ -10,12 +10,13 @@ Differences from the JAX package: lineidx generation, bulk row reads and
 base64 go through the port's TSV engine (``data/native.py``) on one path,
 with no Python fallback; ``img_from_base64`` decodes through the port's
 codec (``data/imageio.py``), returns RGB rather than BGR and raises on data
-it cannot decode; there is no ``img_to_base64`` (no encoder yet, ROADMAP.md
-Queue 1).
+it cannot decode; ``img_to_base64`` takes the RGB image and encodes it with
+the port's encoder (the bytes cv2 writes for the BGR one).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import os.path as op
@@ -27,7 +28,7 @@ import numpy as np
 import yaml
 
 from lighthand_tpu_torch.data import native
-from lighthand_tpu_torch.data.imageio import imdecode_rgb
+from lighthand_tpu_torch.data.imageio import encode_jpeg_rgb, imdecode_rgb
 
 
 def generate_lineidx(tsv_path: str, idx_path: Optional[str] = None) -> str:
@@ -184,6 +185,13 @@ def img_from_base64(s: str | bytes) -> np.ndarray:
     """base64 JPEG -> RGB uint8 [H, W, 3] (reference image_ops.py:16-23,
     which returned BGR)."""
     return imdecode_rgb(native.b64_decode(s), name="<base64 image>")
+
+
+def img_to_base64(img_rgb: np.ndarray, quality: int = 95) -> str:
+    """RGB uint8 [H, W, 3] -> base64 JPEG: the string the JAX package's
+    ``img_to_base64`` gives for the same image in BGR."""
+    return base64.b64encode(encode_jpeg_rgb(img_rgb, quality)).decode(
+        "ascii")
 
 
 def _config_save_file(tsv_path: str, save_file: Optional[str],

@@ -29,9 +29,9 @@ Differences from the JAX package: ``_local_rows`` is a copy to host
 numpy; the gathered rows keep the single-process order (JAX concatenates
 them process by process), so a store from any mesh equals the one-process
 store; ``preprocess`` is a function of the u8 images alone (the eval
-preprocessor draws nothing); and ``overlay_dir`` (``--plt``) raises, since
-the overlays are not ported yet (ROADMAP.md, Queue 1: ``--plt``
-overlays).
+preprocessor draws nothing). The ``--plt`` overlays are drawn and written
+on the host (``utils/visualize.py``) by rank 0, from its own rows, as the
+JAX package's host leader does.
 """
 
 from __future__ import annotations
@@ -95,6 +95,26 @@ def _images(batch, preprocess):
     return images_u8 if preprocess is None else preprocess(images_u8)
 
 
+def _save_overlays(images, gt, pred, valid, overlay_dir: str,
+                   sample_idx: int, overlay_max: int | None) -> int:
+    """The overlays of one batch's valid rows; returns the next index."""
+    from lighthand_tpu_torch.utils.visualize import save_overlay
+
+    imgs = None
+    for i in range(gt.shape[0]):
+        if not valid[i]:
+            continue
+        if overlay_max is None or sample_idx < overlay_max:
+            if imgs is None:  # the batch comes to the host once
+                imgs = (images.float() if isinstance(images, torch.Tensor)
+                        else np.asarray(images, np.float32))
+                imgs = _local_rows(imgs)
+            save_overlay(imgs[i], gt[i], pred[i], overlay_dir, "eval", 0,
+                         sample_idx)
+        sample_idx += 1
+    return sample_idx
+
+
 def pred_store(loader, predict_fn, out_path: str, preprocess=None,
                overlay_dir: str | None = None,
                overlay_max: int | None = None, mesh=None) -> Dict:
@@ -104,15 +124,16 @@ def pred_store(loader, predict_fn, out_path: str, preprocess=None,
     ``predict_fn(images) -> pred_joints [B,21,2]`` (already x4 to image
     space); ``preprocess(images_u8) -> images``. ``loader`` yields batches
     with joints [B,21,3] and, for the Armo set, the ``pose_ctgy`` list.
-    ``overlay_dir`` / ``overlay_max`` (``--plt`` / ``--plt_max``) raise:
-    the overlays are not ported."""
-    if overlay_dir is not None:
-        raise NotImplementedError(
-            "prediction overlays (--plt) are not ported yet (ROADMAP.md, "
-            "Queue 1: the --plt overlays of eval/harness.py)")
+    With ``overlay_dir`` (``--plt``) rank 0 writes the GT | prediction
+    overlay of each of its valid rows, numbered in order, to
+    ``{overlay_dir}/eval_image/0_epoch/iter_{n}.jpg``, the first
+    ``overlay_max`` of them (``--plt_max``; all with None); the store
+    holds every row whatever the cap."""
     preds, gts, valids, cat_idx = [], [], [], []
+    sample_idx = 0
     for batch in loader:
-        pred = _local_rows(predict_fn(_images(batch, preprocess)))
+        images = _images(batch, preprocess)
+        pred = _local_rows(predict_fn(images))
         gt = _local_rows(batch["joints"])  # [B,21,3] with visibility
         valid = _local_rows(batch.get("valid", np.ones(gt.shape[0])))
         cats = batch.get("pose_ctgy", ["Standard"] * gt.shape[0])
@@ -121,6 +142,9 @@ def pred_store(loader, predict_fn, out_path: str, preprocess=None,
         valids.append(valid)
         cat_idx.append(np.asarray([POSE_CATEGORIES.index(c) for c in cats],
                                   np.int32))
+        if overlay_dir is not None and is_host_leader():
+            sample_idx = _save_overlays(images, gt, pred, valid, overlay_dir,
+                                        sample_idx, overlay_max)
 
     rows = _gather_rows({
         "pred": np.concatenate(preds),

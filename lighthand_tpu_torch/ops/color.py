@@ -51,6 +51,14 @@ def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     return (img.float() - mean) / std
 
 
+def denormalize_imagenet(img: torch.Tensor) -> torch.Tensor:
+    """img * std + mean per channel, in f32, two roundings (the inverse of
+    ``normalize_imagenet`` up to rounding)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
+    return img.float() * std + mean
+
+
 def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
     return torch.clamp(img * _per_image(factor, img), 0.0, 1.0)
 

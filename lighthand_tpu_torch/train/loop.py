@@ -22,8 +22,16 @@ process's own card); one process runs per device, not per host; the
 per-epoch random draws come from one device ``torch.Generator`` seeded with
 ``seed + epoch`` at the start of each epoch (the same in every process,
 which keeps its rows of the global batch's draws), so a resumed run draws
-what an uninterrupted one would; prediction overlays are not written
-(ROADMAP.md, Queue 1: ``utils/`` visualisation).
+what an uninterrupted one would.
+
+Prediction overlays (``TrainConfig.visualize``, on by default) are written
+at train iterations {0, len//2, len-1} (the eval preprocess, then the
+predict step) and at the same val iterations, to
+``{output_dir}/{train,val}_image/{epoch}_epoch/iter_N.jpg``. Under a mesh
+every process runs the predict step (its forward gathers the sharded
+weights) and rank 0 alone draws and writes. A failure to draw, encode or
+write an overlay is logged at debug and training goes on, as in the JAX
+package; an error of the predict step on the device propagates.
 """
 
 from __future__ import annotations
@@ -70,7 +78,11 @@ from lighthand_tpu_torch.train.state import (
     create_train_state,
     set_learning_rate,
 )
-from lighthand_tpu_torch.train.step import make_eval_step, make_fused_train_step
+from lighthand_tpu_torch.train.step import (
+    make_eval_step,
+    make_fused_train_step,
+    make_predict_step,
+)
 from lighthand_tpu_torch.train.watchdog import (
     StallWatchdog,
     check_rss_limit,
@@ -84,6 +96,7 @@ from lighthand_tpu_torch.utils.logging import (
 )
 from lighthand_tpu_torch.utils.meters import AverageMeter
 from lighthand_tpu_torch.utils.misc import set_seed
+from lighthand_tpu_torch.utils.visualize import save_overlay
 from lighthand_tpu_torch.utils.progress import Bar
 
 _EVAL_KEYS = ("loss_sum", "n_valid", "pck_sum", "pck_count", "epe_sum",
@@ -108,6 +121,11 @@ def _policy(cfg: Config) -> DTypePolicy:
     if cfg.model.precision == "int8_fwd":
         return DTypePolicy.int8_fwd()  # int8 forward convs, STE backward
     return DTypePolicy()
+
+
+def _overlay_iters(n: int) -> set:
+    """The iterations of an epoch of ``n`` that draw overlays."""
+    return {0, n // 2, n - 1}
 
 
 def _pick_style(styles: set) -> str:
@@ -199,6 +217,8 @@ class Trainer:
         self.eval_step = make_eval_step(heatmap_size=hm, stride=stride,
                                         target_style=val_style,
                                         device=self.device, mesh=self.mesh)
+        self.predict_step = make_predict_step(stride=stride,
+                                              device=self.device)
         self.writer = ScalarWriter(cfg.tensorboard_dir,
                                    jsonl_dir=cfg.output_dir)
         self.dispatch_timer = DispatchTimer(self.device)
@@ -206,10 +226,6 @@ class Trainer:
         # the first heartbeat; 0 disables)
         self.watchdog = StallWatchdog(cfg.train.stall_timeout_s,
                                       logger=self.logger)
-        if cfg.train.visualize:
-            self.logger.info(
-                "prediction overlays are not ported yet (ROADMAP.md, "
-                "Queue 1: utils/ visualisation); none are written")
 
     # -- checkpoint / reset / transfer wiring (argparser.py:103-191) --------
 
@@ -285,6 +301,8 @@ class Trainer:
         t0 = time.time()
         pending = []  # (loss, n_images) read one dispatch late
         microbatches = []
+        vis_iters = (_overlay_iters(len(loader)) if cfg.train.visualize
+                     else set())
         trace_ctx = contextlib.ExitStack()
 
         def drain(limit: int) -> None:
@@ -293,6 +311,10 @@ class Trainer:
                 losses.update(float(loss), n)
 
         for it, batch in enumerate(loader):
+            if it in vis_iters:
+                # overlays at {0, mid, last}, as the reference train
+                # runner draws them (method.py:185-202)
+                self._train_overlay(batch, epoch, it)
             microbatches.append(batch)
             if len(microbatches) < k:
                 bar.next()
@@ -352,10 +374,40 @@ class Trainer:
             f"{host_rss_gb():.1f} GB")
         return losses.avg, ips
 
+    def _train_overlay(self, batch, epoch: int, it: int) -> None:
+        """Overlay the current predictions on a train batch's first row
+        (reference method.py:185-202): the eval preprocess (no jitter),
+        the predict step in every process, rank 0's drawing."""
+        images = preprocess_u8(batch["image_u8"], self.policy.compute_dtype)
+        pred, _ = self.predict_step(self.state, images)
+        self._save_overlay(images, batch["joints"], pred, "train", epoch, it)
+
+    def _save_overlay(self, images, gt_joints, pred_joints, phase: str,
+                      epoch: int, it: int) -> None:
+        """Rank 0 draws the first row's GT | prediction overlay and writes
+        it; only the host half (drawing, encoding, the file) is caught."""
+        if not is_host_leader():
+            return
+        # the row comes to the host once; a device error raises here
+        image = images[0].float().cpu().numpy()
+        gt = torch.as_tensor(gt_joints[0]).cpu().numpy()
+        pred = torch.as_tensor(pred_joints[0]).cpu().numpy()
+        t0 = time.perf_counter()
+        try:
+            save_overlay(image, gt, pred, self.cfg.output_dir, phase, epoch,
+                         it)
+        except Exception as e:  # an overlay must never stop training
+            self.logger.debug(f"overlay failed: {e}")
+            return
+        self.logger.debug(f"overlay {phase} {epoch} {it}: "
+                          f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+
     def run_valid_epoch(self, loader: Loader, epoch: int):
         losses, pcks, epes = AverageMeter(), AverageMeter(), AverageMeter()
         bar = Bar(colored(f"{epoch}_VALID", "blue"), max=len(loader))
-        for batch in loader:
+        vis_iters = (_overlay_iters(len(loader)) if self.cfg.train.visualize
+                     else set())
+        for it, batch in enumerate(loader):
             images = preprocess_u8(batch["image_u8"],
                                    self.policy.compute_dtype)
             m = self.eval_step(self.state,
@@ -370,6 +422,9 @@ class Trainer:
             pcks.update_p(pck_sum, pck_count)
             epes.update_p(epe_sum, epe_count)
             self.watchdog.heartbeat()
+            if it in vis_iters:
+                self._save_overlay(images, batch["joints"],
+                                   m["pred_joints"], "val", epoch, it)
             bar.next()
         bar.finish()
         self.writer.add_scalar("Loss/valid", losses.avg, epoch)

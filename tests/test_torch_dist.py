@@ -18,6 +18,9 @@ batch, every gap is 0):
   1.4e-13). f32 cannot hold such a bound: there the worst leaf (in the
   stem and ``layer1``) differs by 6.9e-2, as much as the two BatchNorm
   formulas (global and local) differ by in one f32 process;
+- two Adam steps over the shards (``train/state.py:ShardAdam``) given the
+  same seeded gradients as the plain model's: every parameter and moment
+  equal, bit for bit;
 - then three f32 Adam steps (two on the K1 route, one chain step; jitter on
   half the rows): each loss within 5e-3 relative, the JAX package's bound
   (``__graft_entry__.py:156-161``; measured 2.1e-7, 3.0e-5, 6.6e-5); the
@@ -132,6 +135,36 @@ def _update_err(sharded, ref, start) -> float:
     return (diff / norm) ** 0.5
 
 
+def _adam_err(ref, sharded) -> float:
+    """Two Adam steps of the sharded state (``ShardAdam`` over the local
+    shards) and of the plain one, given the same seeded gradients: the
+    largest |difference| of any parameter or moment, whole. Asserts that
+    the tensors the update is given are plain ones."""
+    from torch.distributed.tensor import distribute_tensor
+
+    gen = torch.Generator().manual_seed(11)
+    for _ in range(2):
+        for p, q in zip(sharded.model.parameters(), ref.model.parameters()):
+            g = torch.randn(q.shape, generator=gen, dtype=q.dtype)
+            q.grad = g
+            p.grad = distribute_tensor(g, p.device_mesh, p.placements)
+        ref.optimizer.step()
+        sharded.optimizer.step()
+    # the update itself runs over plain tensors, not per-op DTensor dispatch
+    lists = [[] for _ in range(6)]
+    sharded.optimizer._init_group(sharded.optimizer.param_groups[0], *lists)
+    assert lists[0] and all(type(t) in (torch.Tensor, torch.nn.Parameter)
+                            for seq in lists[:4] for t in seq)
+    worst = 0.0
+    for p, q in zip(sharded.model.parameters(), ref.model.parameters()):
+        pairs = [(p.detach(), q.detach())] + [
+            (sharded.optimizer.state[p][k], ref.optimizer.state[q][k])
+            for k in ("exp_avg", "exp_avg_sq")]
+        for got, want in pairs:
+            worst = max(worst, float((_full(got) - want).abs().max()))
+    return worst
+
+
 def _child(d: int, m: int, out_dir: str) -> None:
     """One process of a ``d`` x ``m`` mesh: every check raises on a
     mismatch; rank 0 writes the measured gaps and the gathered state."""
@@ -191,6 +224,10 @@ def _child(d: int, m: int, out_dir: str) -> None:
         sharded, torch.Generator().manual_seed(5), local)
     grad_err = _grad_err(sharded, ref)
     assert grad_err <= GRAD_RTOL, grad_err
+
+    adam_err = _adam_err(state(None, torch.float64),
+                         state(mesh, torch.float64))
+    assert adam_err == 0.0, adam_err
 
     ref, sharded = state(None), state(mesh)
     assert is_sharded(sharded.model) and not is_sharded(ref.model)
@@ -293,6 +330,7 @@ def _child(d: int, m: int, out_dir: str) -> None:
                    os.path.join(out_dir, "gathered.pt"))
         with open(os.path.join(out_dir, "result.json"), "w") as f:
             json.dump({"loss_gaps": gaps, "grad_err": grad_err,
+                       "adam_err": adam_err,
                        "update_err": update_err,
                        "stat_err": stat_err, "eval_err": eval_err}, f)
     dist.barrier()
@@ -343,6 +381,43 @@ def _child_trainer(out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def _child_overlay(out_dir: str) -> None:
+    """One process of a 2 x 1 Trainer run with overlays on, 1 epoch: each
+    process counts its predict steps and its overlay draws."""
+    import torch.distributed as dist
+
+    from lighthand_tpu_torch.core.dist import maybe_initialize_distributed
+    from lighthand_tpu_torch.train import loop
+
+    torch.set_num_threads(1)
+    assert maybe_initialize_distributed("cpu")
+    cfg = _trainer_cfg(out_dir)
+    cfg.mesh.data, cfg.mesh.model = 2, 1
+    cfg.train.epochs, cfg.train.visualize = 1, True
+    calls = {"predict": 0, "draw": 0}
+    draw = loop.save_overlay
+
+    def counted_draw(*args):
+        calls["draw"] += 1
+        return draw(*args)
+
+    loop.save_overlay = counted_draw
+    trainer = loop.Trainer(cfg)
+    predict = trainer.predict_step
+
+    def counted_predict(*args):
+        calls["predict"] += 1
+        return predict(*args)
+
+    trainer.predict_step = counted_predict
+    trainer.fit()
+    with open(os.path.join(out_dir, f"calls{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(calls, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ------------------------------------------------------------ the parent
 
 
@@ -376,8 +451,9 @@ def runs(tmp_path_factory):
     for d, m in MESHES:
         out = str(tmp_path_factory.mktemp(f"mesh{d}x{m}"))
         launched[d, m] = (_launch(d, m, out), out)
-    out = str(tmp_path_factory.mktemp("trainer"))
-    launched["trainer"] = (_launch(2, 1, out, "trainer"), out)
+    for mode in ("trainer", "overlay"):
+        out = str(tmp_path_factory.mktemp(mode))
+        launched[mode] = (_launch(2, 1, out, mode), out)
     done = {}
     for mesh, (procs, out) in launched.items():
         rcs, text = [], []
@@ -412,6 +488,15 @@ def test_mesh_train_step_matches_one_process(runs, mesh):
     assert res["grad_err"] <= GRAD_RTOL
     assert res["update_err"] <= UPDATE_RTOL
     assert res["stat_err"] <= STAT_ATOL
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+def test_mesh_adam_step_equals_plain(runs, mesh):
+    """Adam over the local shards of a sharded model (``ShardAdam``) and
+    over the whole parameters of a plain one, given the same gradients for
+    two steps: every parameter and moment equal, bit for bit."""
+    res, _ = _result(runs, mesh)
+    assert res["adam_err"] == 0.0
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
@@ -499,6 +584,25 @@ def test_trainer_on_two_processes_matches_one(runs, tmp_path):
 
 
 # ------------------------------------------------ rules, one process
+
+
+def test_mesh_trainer_overlays_predict_everywhere_and_draw_on_rank_0(runs):
+    """A 2 x 1 Trainer epoch with overlays on: both processes run the
+    predict step at the train iterations {0, 1} (the sharded forward
+    gathers, so rank 0 alone would hang), and rank 0 alone draws and writes
+    the train and val overlays."""
+    rcs, text, out = runs["overlay"]
+    assert rcs == [0, 0], text[-4000:]
+    calls = [json.load(open(os.path.join(out, f"calls{r}.json")))
+             for r in range(2)]
+    assert calls == [{"predict": 2, "draw": 3}, {"predict": 2, "draw": 0}]
+    run = os.path.join(out, "resnet18", "ours", "mesh")
+    jpgs = sorted(os.path.relpath(os.path.join(d, f), run)
+                  for d, _, fs in os.walk(run) for f in fs
+                  if f.endswith(".jpg"))
+    assert jpgs == [os.path.join("train_image", "0_epoch", "iter_0.jpg"),
+                    os.path.join("train_image", "0_epoch", "iter_1.jpg"),
+                    os.path.join("val_image", "0_epoch", "iter_0.jpg")]
 
 
 def _jax_resolve(spec, n):
@@ -613,5 +717,7 @@ def test_failed_init_raises(monkeypatch):
 if __name__ == "__main__":
     if sys.argv[1] == "trainer":
         _child_trainer(sys.argv[4])
+    elif sys.argv[1] == "overlay":
+        _child_overlay(sys.argv[4])
     else:
         _child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

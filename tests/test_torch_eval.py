@@ -188,7 +188,8 @@ def test_pred_store_matches_jax(tmp_path, armo_root, flat):
 
 def test_pred_store_preprocess_and_plt(tmp_path, armo_root):
     """``preprocess`` maps the u8 batch before predict_fn; an overlay
-    directory (--plt) raises instead of skipping the overlays."""
+    directory (--plt) gets one overlay per valid row, numbered in order
+    (the padding rows of the last batch are skipped)."""
     loader, _ = _both_loaders(armo_root)
     got = []
     h.pred_store_test(loader, lambda im: got.append(im.dtype)
@@ -196,9 +197,59 @@ def test_pred_store_preprocess_and_plt(tmp_path, armo_root):
                       str(tmp_path / "t.json"),
                       preprocess=lambda u8: preprocess_u8(u8))
     assert got == [torch.bfloat16] * 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.*--plt"):
-        h.pred_store(loader, lambda im: torch.zeros(4, 21, 2),
-                     str(tmp_path / "e.json"), overlay_dir=str(tmp_path))
+    store = h.pred_store(loader, lambda im: torch.zeros(4, 21, 2),
+                         str(tmp_path / "e.json"), preprocess=preprocess_u8,
+                         overlay_dir=str(tmp_path))
+    assert sum(len(v["gt"]) for v in store.values()) == N_ARMO
+    assert sorted(os.listdir(tmp_path / "eval_image" / "0_epoch")) == sorted(
+        f"iter_{i}.jpg" for i in range(N_ARMO))
+
+
+def test_pred_store_overlay_max(tmp_path):
+    """tests/test_overlay_cap.py on the port: --plt_max caps the overlay
+    files at 3 while the store still holds every sample."""
+    import glob
+
+    from lighthand_tpu_torch.data import SyntheticHands
+
+    bs, n = 8, 24
+    src = SyntheticHands(length=n, size=32, seed=77, with_visibility=True)
+    loader = Loader(src, bs, device="cpu", shuffle=False, num_workers=2,
+                    drop_last=False)
+    ov = str(tmp_path / "ov")
+    store = h.pred_store(loader, lambda im: torch.zeros(im.shape[0], 21, 2),
+                         str(tmp_path / "evaluation.json"), overlay_dir=ov,
+                         overlay_max=3)
+    jpgs = glob.glob(os.path.join(ov, "eval_image", "*", "*.jpg"))
+    assert len(jpgs) == 3
+    assert sum(len(v["pred"]) for v in store.values()) == n
+
+
+def test_pred_store_overlay_bytes_match_jax(tmp_path, armo_root):
+    """With the same fixed predictions (some joints off the image) and
+    each package's eval preprocess, the port's --plt overlays are JAX's
+    ``pred_store``'s, byte for byte."""
+    from lighthand_tpu.data import DevicePreprocessor
+
+    loader, jloader = _both_loaders(armo_root)
+    preds = [p * 1.1 - 10 for p in _predictions(len(loader), 4, seed=8)]
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    it = iter(preds)
+    h.pred_store(loader, lambda im: torch.from_numpy(next(it)),
+                 str(tmp_path / "p.json"), preprocess=preprocess_u8,
+                 overlay_dir=str(port_dir), overlay_max=7)
+    it = iter(preds)
+    jh.pred_store(jloader, lambda im: next(it), str(tmp_path / "j.json"),
+                  preprocess=DevicePreprocessor(jitter=False),
+                  rng_key=jax.random.PRNGKey(0), overlay_dir=str(jax_dir),
+                  overlay_max=7)
+    sub = os.path.join("eval_image", "0_epoch")
+    names = sorted(os.listdir(port_dir / sub))
+    assert names == sorted(os.listdir(jax_dir / sub))
+    assert len(names) == 7
+    for name in names:
+        assert (port_dir / sub / name).read_bytes() == (
+            jax_dir / sub / name).read_bytes(), name
 
 
 # --------------------------------------------------------- the CLIs
@@ -294,10 +345,23 @@ def test_eval_cli_matches_jax(trees, armo_root, monkeypatch, case):
 
 
 def test_eval_cli_plt_raises(trees, armo_root, monkeypatch):
-    _, pdir = trees["f32"]
-    with pytest.raises(NotImplementedError, match="--plt"):
-        _run(cli.main, pdir, _argv(armo_root, "--plt", "--platform", "cpu"),
-             monkeypatch)
+    """Once ``--plt`` raised (the overlays were not ported); now the CLI's
+    ``--plt --plt_max 3`` writes the JAX CLI's three overlay files, byte
+    for byte (the same f32 weights, bf16 images and predictions)."""
+    jdir, pdir = trees["f32"]
+    extra = ["--plt", "--plt_max", "3"]
+    assert _run(jax_cli.main, jdir, _argv(armo_root, *extra),
+                monkeypatch) == 0
+    assert _run(cli.main, pdir, _argv(armo_root, *extra, "--platform",
+                                      "cpu"), monkeypatch) == 0
+    sub = os.path.join("output", "hrnet", "ours", "x", "eval_image",
+                       "0_epoch")
+    names = sorted(os.listdir(pdir / sub))
+    assert names == sorted(os.listdir(jdir / sub)) == [
+        f"iter_{i}.jpg" for i in range(3)]
+    for name in names:
+        assert (pdir / sub / name).read_bytes() == (
+            jdir / sub / name).read_bytes(), name
 
 
 def test_eval_cli_orbax_checkpoint_raises(trees, armo_root, monkeypatch):

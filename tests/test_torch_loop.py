@@ -244,6 +244,61 @@ def test_steps_per_dispatch_with_ragged_tail(tmp_path, counted):
     assert sorted(_scalars(cfg, "perf/dispatch_ms")) == [0, 1]
 
 
+def _overlays(cfg) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), cfg.output_dir)
+                  for d, _, files in os.walk(cfg.output_dir)
+                  for f in files if f.endswith(".jpg"))
+
+
+def test_trainer_writes_jax_overlay_files(tmp_path):
+    """Overlays on (the default): the port's Trainer writes the files the
+    JAX Trainer writes for an epoch (train iterations {0, len//2, len-1},
+    the same val iterations), each a GT | prediction JPEG."""
+    import cv2
+
+    jcfg = _cfg(JaxConfig, tmp_path, "jax", epochs=1, train__visualize=True)
+    JaxTrainer(jcfg).fit()
+    cfg = _cfg(Config, tmp_path, "port", epochs=1, train__visualize=True)
+    loop.Trainer(cfg).fit()
+    got = _overlays(cfg)
+    assert got == _overlays(jcfg)
+    assert got == [os.path.join("train_image", "0_epoch", "iter_0.jpg"),
+                   os.path.join("train_image", "0_epoch", "iter_1.jpg"),
+                   os.path.join("val_image", "0_epoch", "iter_0.jpg")]
+    for rel in got:
+        assert cv2.imread(os.path.join(cfg.output_dir, rel)).shape == (
+            32, 64, 3)
+
+
+def test_trainer_logs_a_failed_overlay_and_trains_on(tmp_path, monkeypatch):
+    """A failure to draw, encode or write an overlay is logged at debug
+    (as the JAX Trainer logs it) and the epoch goes on."""
+    def broken(*args):
+        raise OSError("planted: disk full")
+
+    monkeypatch.setattr(loop, "save_overlay", broken)
+    cfg = _cfg(Config, tmp_path, "port", epochs=1, train__visualize=True)
+    result = loop.Trainer(cfg).fit()
+    assert np.isfinite(result.train_loss) and np.isfinite(result.val_loss)
+    log = open(os.path.join(cfg.output_dir, "log.txt")).read()
+    assert log.count("overlay failed: planted: disk full") == 3
+    assert _overlays(cfg) == []
+
+
+def test_trainer_predict_failure_propagates(tmp_path):
+    """The predict step is not caught: an error on the device stops the
+    run (no hidden fallback); only the host half of an overlay is."""
+    cfg = _cfg(Config, tmp_path, "port", epochs=1, train__visualize=True)
+    trainer = loop.Trainer(cfg)
+
+    def broken(state, images):
+        raise RuntimeError("planted: device fault")
+
+    trainer.predict_step = broken
+    with pytest.raises(RuntimeError, match="planted: device fault"):
+        trainer.fit()
+
+
 def _weights(trainer):
     return {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
 

@@ -249,6 +249,9 @@ def test_importing_the_port_loads_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "lighthand_tpu_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
+    for new in ("cli.make_synth_data", "cli.make_lighthand",
+                "utils.visualize", "ops.geometry", "ops.procrustes"):
+        assert f"lighthand_tpu_torch.{new}" in mods
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import importlib\n"
             f"for m in {mods!r} + ['chip_smoke', 'kernel_breakdown']: "
             "importlib.import_module(m)\n"
@@ -259,6 +262,36 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_tree_making_clis_run_without_jax_or_cv2(tmp_path):
+    """The two tree-making CLIs and an overlay, run to the end in a fresh
+    process (their imports inside functions included), load no jax, JAX
+    package, cv2 or PIL."""
+    import chip_smoke
+
+    raw = tmp_path / "raw"
+    phase = chip_smoke.write_armhand_tree(str(raw), n=2)
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import numpy as np\n"
+        "from lighthand_tpu_torch.cli import make_lighthand, make_synth_data\n"
+        "from lighthand_tpu_torch.utils.visualize import save_overlay\n"
+        "out = sys.argv[2]\n"
+        "assert make_synth_data.main(['--out', out + '/s', '--n-train', '1',"
+        " '--n-eval', '1', '--n-armo', '1', '--n-frei', '2']) == 0\n"
+        "assert make_lighthand.main(['--root', sys.argv[3], '--out', out +"
+        f" '/l', '--phase', '{phase}']) == 0\n"
+        "save_overlay(np.zeros((8, 8, 3), np.float32), np.ones((21, 2)),"
+        " None, out, 'train', 0, 0)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'lighthand_tpu', 'cv2', 'PIL', 'orbax')]\n"
+        "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO),
+                          str(tmp_path), str(raw)], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert (tmp_path / "train_image" / "0_epoch" / "iter_0.jpg").is_file()
 
 
 @pytest.mark.parametrize("style,exc", [("max", None), ("per_sample", None),
