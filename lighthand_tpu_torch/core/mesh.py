@@ -3,7 +3,13 @@
 A 2-D ("data", "model") mesh over the processes of a ``torch.distributed``
 run (``core/dist.py``): data-parallel over "data", the parameters sharded
 over "model" by FSDP2 (``fully_shard`` over the 2-D mesh is HSDP: replicate
-over data, shard over model; at model 1 it is replication).
+over data, shard over model).
+
+- At model axis 1 the parameters are replicated, as ``param_sharding``
+  replicates them there (``lighthand_tpu/core/mesh.py:81``): plain tensors
+  in every process, broadcast once from data index 0, with the gradients
+  averaged over the data axis after each backward (``average_gradients``,
+  one flat all-reduce per dtype). No FSDP2 wrap, no per-parameter copies.
 
 - ``MeshSpec.resolve`` keeps the JAX semantics and errors.
 - Torch runs one process a device where JAX runs one a host, so the mesh
@@ -107,11 +113,61 @@ def shard_dim(shape, n_model: int) -> int | None:
     return best
 
 
+def model_axis(mesh) -> int:
+    """The model axis's size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(mesh_dim=1)
+
+
+def replica_group(mesh):
+    """The group over which a replicated model's gradients are averaged:
+    the data group at model axis 1 (None where it has one member); None
+    where the model axis is above 1, since FSDP2 reduces its own."""
+    return data_group(mesh) if model_axis(mesh) == 1 else None
+
+
+def _coalesced(tensors, fn) -> None:
+    """``fn`` on one flat buffer per dtype of ``tensors``, the result copied
+    back into each tensor (in its own memory format)."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t.detach())
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        fn(flat)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()
+
+
+def average_gradients(params, group) -> None:
+    """The gradients of ``params``, in place, averaged over ``group``: one
+    summing all-reduce of a flat buffer per dtype (gloo has no average),
+    then a division by the group's size."""
+    n = dist.get_world_size(group)
+
+    def mean(flat):
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+
+    _coalesced([p.grad for p in params if p.grad is not None], mean)
+
+
 def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     """``fully_shard`` ``model`` over the 2-D mesh (HSDP), each parameter
-    on its ``shard_dim``. Call before the optimizer is built. The identity
-    without a mesh."""
+    on its ``shard_dim``, where the model axis is above 1. At model axis 1
+    the model stays plain and replicated: its parameters and buffers are
+    broadcast from data index 0, so the replicas cannot start apart. Call
+    before the optimizer is built. The identity without a mesh."""
     if mesh is None:
+        return model
+    if model_axis(mesh) == 1:
+        group = data_group(mesh)
+        if group is not None:
+            src = dist.get_global_rank(group, 0)
+            _coalesced([*model.parameters(), *model.buffers()],
+                       lambda flat: dist.broadcast(flat, src=src,
+                                                   group=group))
         return model
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
@@ -127,6 +183,8 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
+    """Whether FSDP2 wraps ``model`` (only where the model axis is above
+    1)."""
     from torch.distributed.fsdp import FSDPModule
 
     return isinstance(model, FSDPModule)

@@ -17,7 +17,13 @@ in parallel. They give the bytes OpenCV gives:
 - ``encode_jpeg_rgb`` / ``imwrite_rgb``: ``cv2.imencode(".jpg", ...)`` /
   ``cv2.imwrite`` of ``cvtColor(img, COLOR_RGB2BGR)`` (or of a gray image)
   with ``IMWRITE_JPEG_QUALITY`` (95 by default): baseline, 4:2:0 for
-  colour, the standard Huffman tables.
+  colour, the standard Huffman tables;
+- ``encode_png_rgb``: ``cv2.imencode(".png", cvtColor(img,
+  COLOR_RGB2BGR))`` as libpng writes it for OpenCV, in Python with
+  ``zlib``: the SUB filter on every row (none for a 1-pixel width), level
+  1 with the RLE strategy, the window cut to the image's size and the
+  zlib header's window field cut as libpng cuts it, IDAT chunks of 8192
+  bytes.
 
 PNG data is inflated with Python's ``zlib`` (which also releases the GIL);
 the C++ side undoes the scanline filters and converts the pixels.
@@ -254,3 +260,69 @@ def imwrite_rgb(path: str, img: np.ndarray, quality: int = 95) -> None:
     data = encode_jpeg_rgb(img, quality)
     with open(path, "wb") as f:
         f.write(data)
+
+
+def _png_chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def _png_window(size: int) -> int:
+    """libpng's deflate window bits for ``size`` bytes of filtered rows."""
+    bits = 15
+    if size <= 16384:
+        half = 1 << 14
+        while size + 262 <= half:
+            half >>= 1
+            bits -= 1
+    return max(bits, 9)  # zlib refuses a window of 8 bits
+
+
+def _png_cmf(data: bytearray, size: int) -> None:
+    """libpng's ``optimize_cmf``: the zlib header's window field cut to the
+    least that covers ``size``, its check bits made anew."""
+    cmf = data[0]
+    if size > 16384 or (cmf & 0x0F) != 8 or (cmf & 0xF0) > 0x70:
+        return
+    cinfo = cmf >> 4
+    half = 1 << (cinfo + 7)
+    if size > half:
+        return
+    while True:
+        half >>= 1
+        cinfo -= 1
+        if not (cinfo > 0 and size <= half):
+            break
+    cmf = (cmf & 0x0F) | (cinfo << 4)
+    flg = data[1] & 0xE0
+    data[0] = cmf
+    data[1] = flg + 0x1F - ((cmf << 8) + flg) % 0x1F
+
+
+def encode_png_rgb(img: np.ndarray) -> bytes:
+    """An RGB uint8 [H, W, 3] image as 8-bit RGB PNG bytes, as
+    ``cv2.imencode(".png", cvtColor(img, COLOR_RGB2BGR))`` writes them."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected a uint8 HWx3 image, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    _check_size(h, w, "PNG")
+    rows = img.reshape(h, w * 3)
+    if w == 1:  # libpng drops SUB where a row holds one pixel
+        filtered = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1)
+    else:
+        sub = rows.copy()
+        sub[:, 3:] -= rows[:, :-3]  # mod 256
+        filtered = np.concatenate([np.ones((h, 1), np.uint8), sub], 1)
+    raw = filtered.tobytes()
+    deflate = zlib.compressobj(1, zlib.DEFLATED, _png_window(len(raw)), 8,
+                               zlib.Z_RLE)
+    data = bytearray(deflate.compress(raw) + deflate.flush())
+    _png_cmf(data, len(raw))
+    return b"".join(
+        [_PNG_SIG, _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                   0, 0, 0))]
+        + [_png_chunk(b"IDAT", bytes(data[i:i + 8192]))
+           for i in range(0, len(data), 8192)]
+        + [_png_chunk(b"IEND", b"")])

@@ -2,7 +2,8 @@
 
   create_mesh / MeshSpec   ("data", "model") DeviceMesh over the processes
   shard_model              FSDP2 (HSDP) over the mesh, each parameter on
-                           ``shard_dim`` (``param_sharding``'s rule)
+                           ``shard_dim`` (``param_sharding``'s rule), where
+                           the model axis is above 1; replication at 1
   is_host_leader           rank-0 gating (comm.is_main_process)
   all_gather_metrics       every process's host values, on every process
 """

@@ -12,7 +12,7 @@ in mm (x0.26, method.py:131) and PCK% (T=0.2 proportion, method.py:243).
 
 In a process group (``core/dist.py``) the Trainer builds the
 ("data", "model") mesh (``core/mesh.py``), shards the model over it (HSDP)
-before Adam, loads each process's rows of every global batch, normalises
+where the model axis is above 1 and replicates it at 1, before Adam, loads each process's rows of every global batch, normalises
 BatchNorm over the data axis, and reduces the losses and the eval sums over
 it; rank 0 alone logs and writes scalars and checkpoints.
 
@@ -28,8 +28,8 @@ Prediction overlays (``TrainConfig.visualize``, on by default) are written
 at train iterations {0, len//2, len-1} (the eval preprocess, then the
 predict step) and at the same val iterations, to
 ``{output_dir}/{train,val}_image/{epoch}_epoch/iter_N.jpg``. Under a mesh
-every process runs the predict step (its forward gathers the sharded
-weights) and rank 0 alone draws and writes. A failure to draw, encode or
+every process runs the predict step (a sharded model's forward gathers
+its weights) and rank 0 alone draws and writes. A failure to draw, encode or
 write an overlay is logged at debug and training goes on, as in the JAX
 package; an error of the predict step on the device propagates.
 """

@@ -7,7 +7,10 @@ src/tools/train.py:45-58,117).
 
 A sharded model's parameters, gradients and moments are DTensors; Adam
 steps their local shards (``ShardAdam``), so the sharded and the plain
-model take one Adam arithmetic, with no DTensor dispatch per operation.
+model take one Adam arithmetic, with no DTensor dispatch per operation. At
+model axis 1 the model is replicated, not sharded (``core/mesh.py``): its
+parameters are plain, and the steps average its gradients over the data
+axis (``TrainState.grad_group``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,13 @@ import torch
 from torch import nn
 
 from lighthand_tpu_torch.core.device import resolve_device
-from lighthand_tpu_torch.core.mesh import data_group, data_index, shard_model
+from lighthand_tpu_torch.core.mesh import (
+    data_group,
+    data_index,
+    model_axis,
+    replica_group,
+    shard_model,
+)
 from lighthand_tpu_torch.models.layers import init_weights, set_batchnorm_group
 
 
@@ -62,6 +71,10 @@ class TrainState:
     optimizer: torch.optim.Adam
     device: torch.device
     step: int = 0
+    # the group over which the steps average a replicated model's gradients
+    # after backward (``core/mesh.py:average_gradients``); None in one
+    # process, at data axis 1, and where FSDP2 shards the model
+    grad_group: object = None
 
 
 def create_train_state(model: nn.Module,
@@ -74,19 +87,21 @@ def create_train_state(model: nn.Module,
     contiguous parameters only) and attach Adam. With a
     ``generator`` the weights are first drawn anew from it (torch's default
     init), so a seed gives the same model on any device and in every
-    process. Under ``mesh`` the model is sharded (``core/mesh.py:
-    shard_model``, HSDP) before Adam is built, and its BatchNorm layers
-    normalise over the data axis (``models/layers.py:BatchNorm2d``)."""
+    process. Under ``mesh`` the model is sharded where the model axis is
+    above 1 (``core/mesh.py:shard_model``, HSDP) and replicated at model
+    axis 1, before Adam is built, and its BatchNorm layers normalise over
+    the data axis (``models/layers.py:BatchNorm2d``)."""
     device = resolve_device(device)
     if generator is not None:
         init_weights(model, generator)
     model.to(device)
-    if device.type == "cuda" and mesh is None:
+    if device.type == "cuda" and model_axis(mesh) == 1:
         model.to(memory_format=torch.channels_last)
     shard_model(model, mesh)
     set_batchnorm_group(model, data_group(mesh), data_index(mesh)[1])
     optimizer = ShardAdam(model.parameters(), lr=lr)
-    return TrainState(model=model, optimizer=optimizer, device=device)
+    return TrainState(model=model, optimizer=optimizer, device=device,
+                      grad_group=replica_group(mesh))
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:

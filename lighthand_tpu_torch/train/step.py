@@ -34,7 +34,11 @@ from typing import Dict
 import torch
 
 from lighthand_tpu_torch.core.device import resolve_device
-from lighthand_tpu_torch.core.mesh import data_group, data_index
+from lighthand_tpu_torch.core.mesh import (
+    average_gradients,
+    data_group,
+    data_index,
+)
 from lighthand_tpu_torch.ops.affine import hflip_px, rotate_px_batch
 from lighthand_tpu_torch.ops.color import (
     channel_pixel_noise,
@@ -119,11 +123,14 @@ def _check_state(state: TrainState, device: torch.device) -> None:
 
 def _update(state: TrainState, images_nchw: torch.Tensor,
             targets: torch.Tensor) -> torch.Tensor:
-    """Forward in train mode, 0.5 * MSE, backward, one Adam step."""
+    """Forward in train mode, 0.5 * MSE, backward, the gradients of a
+    replicated model averaged over the data axis, one Adam step."""
     state.model.train()
     loss = joints_mse_loss(state.model(images_nchw), targets)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if state.grad_group is not None:
+        average_gradients(state.model.parameters(), state.grad_group)
     state.optimizer.step()
     state.step += 1
     return loss.detach()

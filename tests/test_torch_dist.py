@@ -29,16 +29,22 @@ batch, every gap is 0):
   steps are about lr * sign(g), and f32 flips the sign of gradients near
   0); the running statistics within 5e-3 (measured 4.5e-4).
 
-Two faults, each planted in a copy of the port, fail these checks:
+At model axis 1 the model is replicated, as the JAX package's
+``param_sharding`` replicates it there: plain parameters, broadcast from
+data index 0 at setup, the gradients averaged over the data axis by one
+flat all-reduce per dtype after backward (``core/mesh.py``); above 1, FSDP2
+shards it (HSDP). Two faults, each planted in a copy of the port, fail
+these checks on the (2, 1) mesh (measured on the replicated route):
 
-- no gradient reduction over the data axis (``fully_shard`` over the
-  model axis alone): gradients 3.5, update 1.02, loss at step 2 3.1e-2,
-  running statistics 6.1e-2;
+- no gradient all-reduce over the data axis: gradients 3.51, update 1.02,
+  loss at steps 2 and 3 3.1e-2 and 5.9e-2, running statistics 6.1e-2, and
+  the replicas part (rank 1's resumed parameters differ from rank 0's);
 - BatchNorm normalised per process: gradients 2.65, update 1.27, loss at
   step 1 9.9e-3, running statistics 8.2e-2.
 
 In the Trainer case (2 x 1, resnet18) the update of rank 0's checkpoint
-is within 1.4e-2 of one process's, and 0.97 and 1.27 off with those faults.
+is within 1.4e-2 of one process's; with those faults Loss/train is 1.9e-2
+and 5.2e-3 off one process's (bound 5e-3).
 This mesh equals the one-process port; the one-process port equals the JAX
 step (``tests/test_torch_step.py``), which equals JAX's pjit step
 (``tests/test_sharding.py``).
@@ -147,7 +153,8 @@ def _adam_err(ref, sharded) -> float:
         for p, q in zip(sharded.model.parameters(), ref.model.parameters()):
             g = torch.randn(q.shape, generator=gen, dtype=q.dtype)
             q.grad = g
-            p.grad = distribute_tensor(g, p.device_mesh, p.placements)
+            p.grad = (distribute_tensor(g, p.device_mesh, p.placements)
+                      if hasattr(p, "device_mesh") else g.clone())
         ref.optimizer.step()
         sharded.optimizer.step()
     # the update itself runs over plain tensors, not per-op DTensor dispatch
@@ -163,6 +170,29 @@ def _adam_err(ref, sharded) -> float:
         for got, want in pairs:
             worst = max(worst, float((_full(got) - want).abs().max()))
     return worst
+
+
+def _wrap(state, mesh, m: int, rank: int) -> dict:
+    """How ``create_train_state`` holds the model on the mesh: whether
+    FSDP2 wraps it, the types of its parameters, and (at model axis 1)
+    whether the replicas equal rank 0's after setup, each process having
+    drawn its weights from its own seed."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+
+    st = state(mesh, seed=rank)
+    params = list(st.model.parameters())
+    out = {"fsdp": isinstance(st.model, FSDPModule),
+           "param_types": sorted({type(p.data).__name__ for p in params}),
+           "grad_group": st.grad_group is not None}
+    if m == 1:
+        flat = torch.cat([t.detach().reshape(-1) for t in
+                          [*params, *st.model.buffers()]
+                          if t.is_floating_point()])
+        every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, flat)
+        out["replicas_equal"] = all(torch.equal(x, every[0]) for x in every)
+    return out
 
 
 def _child(d: int, m: int, out_dir: str) -> None:
@@ -202,12 +232,12 @@ def _child(d: int, m: int, out_dir: str) -> None:
     per = B // d
     rows = slice(index * per, (index + 1) * per)
 
-    def state(mesh_, dtype=torch.float32):
+    def state(mesh_, dtype=torch.float32, seed=0):
         policy = DTypePolicy(param_dtype=dtype, compute_dtype=dtype,
                              output_dtype=dtype)
         model = get_model("hrnet_tiny", policy=policy)
         return create_train_state(model.to(dtype),
-                                  torch.Generator().manual_seed(0),
+                                  torch.Generator().manual_seed(seed),
                                   lr=LR, device=cpu, mesh=mesh_)
 
     batch = _global_batch()
@@ -229,8 +259,9 @@ def _child(d: int, m: int, out_dir: str) -> None:
                          state(mesh, torch.float64))
     assert adam_err == 0.0, adam_err
 
+    wrap = _wrap(state, mesh, m, rank)
     ref, sharded = state(None), state(mesh)
-    assert is_sharded(sharded.model) and not is_sharded(ref.model)
+    assert is_sharded(sharded.model) == (m > 1) and not is_sharded(ref.model)
     start = [q.detach().clone() for q in ref.model.parameters()]
     kw = dict(heatmap_size=HM, compute_dtype=torch.float32, device=cpu)
     routes = [{}, {}, chain]
@@ -329,7 +360,7 @@ def _child(d: int, m: int, out_dir: str) -> None:
         torch.save({"model": gathered, "optimizer": optim},
                    os.path.join(out_dir, "gathered.pt"))
         with open(os.path.join(out_dir, "result.json"), "w") as f:
-            json.dump({"loss_gaps": gaps, "grad_err": grad_err,
+            json.dump({"wrap": wrap, "loss_gaps": gaps, "grad_err": grad_err,
                        "adam_err": adam_err,
                        "update_err": update_err,
                        "stat_err": stat_err, "eval_err": eval_err}, f)
@@ -371,7 +402,7 @@ def _child_trainer(out_dir: str) -> None:
     cfg.mesh.data, cfg.mesh.model = 2, 1
     trainer = Trainer(cfg)
     assert trainer.describe_mesh() == (
-        "{'data': 2, 'model': 1} over gloo, model sharded True")
+        "{'data': 2, 'model': 1} over gloo, model sharded False")
     trainer.fit()
     if dist.get_rank() != 0:  # rank 0 alone logs and writes
         assert trainer.writer._jsonl is None
@@ -488,6 +519,23 @@ def test_mesh_train_step_matches_one_process(runs, mesh):
     assert res["grad_err"] <= GRAD_RTOL
     assert res["update_err"] <= UPDATE_RTOL
     assert res["stat_err"] <= STAT_ATOL
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+def test_mesh_replicates_at_model_axis_1(runs, mesh):
+    """At model axis 1 the model is replicated as ``param_sharding``
+    replicates it (``lighthand_tpu/core/mesh.py:81``): no FSDP2 wrap, plain
+    parameters, the gradients averaged by the steps (``grad_group``), and
+    replicas equal after setup though each process drew its own weights.
+    Where the model axis is above 1, FSDP2 shards it into DTensors."""
+    res, _ = _result(runs, mesh)
+    wrap = res["wrap"]
+    if mesh[1] == 1:
+        assert wrap == {"fsdp": False, "param_types": ["Tensor"],
+                        "grad_group": mesh[0] > 1, "replicas_equal": True}
+    else:
+        assert wrap == {"fsdp": True, "param_types": ["DTensor"],
+                        "grad_group": False}
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)

@@ -250,7 +250,9 @@ def test_importing_the_port_loads_no_jax():
         for p in (REPO / "lighthand_tpu_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
     for new in ("cli.make_synth_data", "cli.make_lighthand",
-                "utils.visualize", "ops.geometry", "ops.procrustes"):
+                "utils.visualize", "ops.geometry", "ops.procrustes",
+                "utils.landmarks", "utils.vis3d", "utils.mesh_render",
+                "ops.kernels.rasterize"):
         assert f"lighthand_tpu_torch.{new}" in mods
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import importlib\n"
             f"for m in {mods!r} + ['chip_smoke', 'kernel_breakdown']: "
@@ -292,6 +294,58 @@ def test_tree_making_clis_run_without_jax_or_cv2(tmp_path):
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     assert (tmp_path / "train_image" / "0_epoch" / "iter_0.jpg").is_file()
+
+
+def test_port_imports_matplotlib_only_in_the_two_figure_functions():
+    """As the JAX package does: ``plot_landmarks`` and ``vis_3d_keypoints``
+    import matplotlib when called; nothing else of the port imports it."""
+    where = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text())
+        for fn in [n for n in ast.walk(tree)
+                   if isinstance(n, ast.FunctionDef)] + [tree]:
+            body = fn.body if fn is not tree else [
+                n for n in tree.body if not isinstance(n, ast.FunctionDef)]
+            for node in (m for b in body for m in ast.walk(b)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module] if isinstance(node, ast.ImportFrom)
+                         and node.module else [])
+                if any(n.split(".")[0] == "matplotlib" for n in names):
+                    where.append((path.name, getattr(fn, "name", None)))
+    assert sorted(set(where)) == [("landmarks.py", "plot_landmarks"),
+                                  ("vis3d.py", "vis_3d_keypoints")]
+
+
+def test_overlays_and_renderer_run_without_jax_cv2_or_matplotlib(tmp_path):
+    """The landmark, axis and skeleton overlays (written as JPEG and PNG)
+    and a CPU render, run in a fresh process, load no jax, JAX package,
+    cv2, PIL or matplotlib."""
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import numpy as np\n"
+        "from lighthand_tpu_torch.utils import landmarks, mesh_render, "
+        "vis3d\n"
+        "img = np.zeros((32, 32, 3), np.uint8)\n"
+        "rng = np.random.default_rng(0)\n"
+        "landmarks.draw_landmarks(img, rng.uniform(0, 1, (21, 4)), "
+        "landmarks.HAND_CONNECTIONS)\n"
+        "landmarks.draw_axis(img, np.eye(3), np.array([0, 0, -0.5]))\n"
+        "sk = vis3d.hand_skeleton_21()\n"
+        "for ext in ('jpg', 'png'):\n"
+        "    vis3d.vis_keypoints(img, rng.uniform(0, 32, (21, 2)), "
+        "np.ones(21), sk, filename=sys.argv[2] + '/kp.' + ext)\n"
+        "v = np.array([[-1, -1, 5], [1, -1, 5], [1, 1, 5.0]])\n"
+        "mesh_render.Renderer(16, 16, faces=np.array([[0, 2, 1]]), "
+        "device='cpu').render(v, focal_length=8.0)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'lighthand_tpu', 'cv2', 'PIL', 'orbax', 'matplotlib')]\n"
+        "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO),
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert (tmp_path / "kp.jpg").is_file() and (tmp_path / "kp.png").is_file()
 
 
 @pytest.mark.parametrize("style,exc", [("max", None), ("per_sample", None),

@@ -6,7 +6,11 @@ Tolerance: none. ``draw_joints`` must give the same pixels for joints on,
 off and around the image (negative, past the edge, on the edge), the
 drawing primitives the same pixels as cv2's circle and line on drawn
 cases, and ``save_overlay`` the same file bytes (denormalize, truncating
-cast, GT | prediction side by side, JPEG at quality 95).
+cast, GT | prediction side by side, JPEG at quality 95). The thick
+primitives of the landmark and skeleton overlays (``draw_line`` with a
+thickness, ``draw_circle`` as an outline, ``draw_arrowed_line``) give
+cv2's pixels, clipping at the image border included, over drawn ends,
+radii and thicknesses, points far off the image among them.
 """
 
 import os
@@ -132,3 +136,86 @@ def test_save_overlay_of_bf16_image_matches_jax(tmp_path):
     want = jv.save_overlay(jax_img, joints, joints, str(tmp_path / "j"),
                            "train", 0, 0)
     assert open(got, "rb").read() == open(want, "rb").read()
+
+
+THICK = settings(max_examples=120, deadline=None, derandomize=True)
+_POINT = st.tuples(st.integers(-300, 300), st.integers(-300, 300))
+
+
+@THICK
+@given(h=st.integers(1, 64), w=st.integers(1, 64), p1=_POINT, p2=_POINT,
+       thickness=st.integers(2, 5), near=st.booleans())
+def test_thick_line_matches_cv2(h, w, p1, p2, thickness, near):
+    if near:  # both ends within a few pixels of the image
+        p1, p2 = (p1[0] % (w + 8) - 4, p1[1] % (h + 8) - 4), \
+            (p2[0] % (w + 8) - 4, p2[1] % (h + 8) - 4)
+    img = np.zeros((h, w, 3), np.uint8)
+    want = img.copy()
+    tv.draw_line(img, p1, p2, (10, 20, 30), thickness)
+    cv2.line(want, p1, p2, (10, 20, 30), thickness)
+    np.testing.assert_array_equal(img, want)
+
+
+@THICK
+@given(h=st.integers(1, 64), w=st.integers(1, 64), c=_POINT,
+       radius=st.integers(0, 40), thickness=st.integers(1, 5))
+def test_outline_circle_matches_cv2(h, w, c, radius, thickness):
+    c = (c[0] % (w + 2 * radius + 8) - radius - 4,
+         c[1] % (h + 2 * radius + 8) - radius - 4)
+    img = np.zeros((h, w, 3), np.uint8)
+    want = img.copy()
+    tv.draw_circle(img, c, radius, (10, 20, 30), thickness)
+    cv2.circle(want, c, radius, (10, 20, 30), thickness)
+    np.testing.assert_array_equal(img, want)
+
+
+@THICK
+@given(h=st.integers(1, 64), w=st.integers(1, 64), p1=_POINT, p2=_POINT,
+       thickness=st.integers(1, 5))
+def test_arrowed_line_matches_cv2(h, w, p1, p2, thickness):
+    p1 = (p1[0] % (w + 40) - 20, p1[1] % (h + 40) - 20)
+    img = np.zeros((h, w, 3), np.uint8)
+    want = img.copy()
+    tv.draw_arrowed_line(img, p1, p2, (10, 20, 30), thickness)
+    cv2.arrowedLine(want, p1, p2, (10, 20, 30), thickness)
+    np.testing.assert_array_equal(img, want)
+
+
+@pytest.mark.parametrize("case", ["point", "far", "filled", "radius_0",
+                                  "big_radius"])
+def test_thick_primitive_edge_cases_match_cv2(case):
+    """A zero-length thick line (the two end caps alone), ends thousands of
+    pixels off the image, a negative thickness (filled), radius 0, and a
+    radius whose polygon takes the 5-degree step."""
+    img = np.zeros((40, 50, 3), np.uint8)
+    want = img.copy()
+    if case == "point":
+        tv.draw_line(img, (20, 20), (20, 20), (1, 2, 3), 5)
+        cv2.line(want, (20, 20), (20, 20), (1, 2, 3), 5)
+    elif case == "far":
+        tv.draw_line(img, (-4000, 3000), (5000, -2500), (1, 2, 3), 4)
+        cv2.line(want, (-4000, 3000), (5000, -2500), (1, 2, 3), 4)
+        tv.draw_arrowed_line(img, (-900, 25), (60, 12), (4, 5, 6), 3)
+        cv2.arrowedLine(want, (-900, 25), (60, 12), (4, 5, 6), 3)
+    elif case == "filled":
+        tv.draw_circle(img, (3, 37), 9, (1, 2, 3), -1)
+        cv2.circle(want, (3, 37), 9, (1, 2, 3), -1)
+    elif case == "radius_0":
+        for t in (1, 2, 3):
+            tv.draw_circle(img, (10 * t, 20), 0, (1, 2, 3), t)
+            cv2.circle(want, (10 * t, 20), 0, (1, 2, 3), t)
+    else:
+        tv.draw_circle(img, (25, 60), 47, (1, 2, 3), 3)
+        cv2.circle(want, (25, 60), 47, (1, 2, 3), 3)
+    np.testing.assert_array_equal(img, want)
+
+
+def test_sin_table_is_opencvs():
+    """The circle polygon's sine table equals the one cv2's
+    ``ellipse2Poly`` uses, read from it at axes of 2^30 (exact in f64)."""
+    axis = 2 ** 30
+    pts = cv2.ellipse2Poly((0, 0), (axis, axis), 0, 0, 360, 1)
+    assert len(pts) == 361
+    for deg, (x, y) in enumerate(pts):
+        assert tv._SIN_TABLE[450 - deg] * axis == x
+        assert tv._SIN_TABLE[deg] * axis == y
