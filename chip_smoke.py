@@ -141,6 +141,26 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    ``Renderer.render`` and ``render_vertex_color`` end to end on the card
    (one rasterizer launch each) against the CPU; the kernel's times beside
    the twin's and its bound (the ``rasterize`` row of the kernels line);
+10a. fine-tuning and scoring: phase 4's trained HRNet-W32 (256x256, bs32,
+   bf16) in a state whose stem and ``layer1`` are frozen
+   (``freeze_mask``, ``create_train_state(trainable=...)``), 3 fused
+   steps (K1 3 launches): frozen parameters bit-equal with no gradient,
+   every trainable one moved, ``param_count`` unchanged; then the predict
+   step (its joints are its heatmaps' argmax), and the heatmaps scored on
+   the card and on the CPU: ``get_max_preds``, ``pck_2d`` (proportion and
+   mm), ``pck_2d_visible``, ``pck_curve`` over the offline eval's pckb and
+   mm grids and ``pck_3d`` on a lifted, jittered copy of the joints all
+   equal, ``soft_argmax_preds`` within 1e-4 px, the keypoint losses within
+   1e-5 relative; the steps' ms and the scores printed;
+10b. single-sample targets: ``generate_target`` on CUDA joints at J=21,
+   H=64, stride 4, and at H=50, stride 3.0 with [J, 3] joints and one
+   joint off the map: one K2 launch a call, maps within 1e-5 of the plain
+   twin on the card and of the CPU, weights equal to the CPU's;
+10c. the jittering preprocessor: ``DevicePreprocessor(jitter=True)`` on a
+   u8 bs32 256x256 batch on the card and on the CPU with the same
+   injected draws (every op order), f32 out, within 3e-4 in normalised
+   units (the chain's bound, phase 4c); no kernel launched; its device ms
+   (the profiler's kernel sum) beside K1's at the same batch;
 7. reference: the trained W32 in f32 on the card (TF32 off) against the
    same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
    the CPU tests hold the port's CPU forward to against JAX);
@@ -152,10 +172,10 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e, 6f, 9c and 9d (each also under
-   ``launches_by_path``; each path's counts are zeroed just before it and
-   read just after); the rasterizer's row is phase 9h's, its launches
-   those of 9h's renders;
+   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e, 6f, 9c, 9d, 10a and 10b (each
+   also under ``launches_by_path``; each path's counts are zeroed just
+   before it and read just after); the rasterizer's row is phase 9h's, its
+   launches those of 9h's renders;
 8b. both int8 kernels at the heaviest conv shape (by operations a
    forward) of ResNet-50 and of HRNet-W32, batch 32, bf16 activations:
    eager and device time, the twin's time and the bound (int8 tensor-core
@@ -339,7 +359,8 @@ def bf16_ulp(x):
 
 
 def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
-              cols: int = 2, order=None, njoints: int = JOINTS):
+              cols: int = 2, order=None, njoints: int = JOINTS,
+              device="cuda"):
     """u8 images, joints and packed draws: the first half of the batch (its
     larger half) has
     jitter on, every 4th sample noise on, and sample i takes the i-th of
@@ -360,7 +381,7 @@ def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
     pn = rng.uniform(0.6, 1.4, (b, 3)) * noise[:, None] + (1 - noise[:, None])
     params = np.concatenate([aug[:, None], rng.uniform(0.5, 1.5, (b, 3)),
                              rng.uniform(-0.5, 0.5, (b, 1)), order, pn], 1)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     return (torch.from_numpy(images).to(dev),
             torch.from_numpy(joints.astype(np.float32)).to(dev),
             torch.from_numpy(params.astype(np.float32)).to(dev))
@@ -2417,6 +2438,280 @@ def forward_times() -> None:
                  f"kernels a forward, bf16 {launches['bf16']}")
 
 
+# phase 10a's frozen parameters: the stem and layer1, by the reference's
+# state_dict names (its freeze_weights matched the same names)
+FREEZE = [r"^(conv1|bn1|conv2|bn2|layer1)\."]
+# the tolerances of phase 10a's scores, card against CPU on the same
+# heatmaps: soft-argmax in px, the losses relative; PCK values and the
+# argmax decode must be equal
+SOFT_ATOL_PX, SCORE_LOSS_RTOL = 1e-4, 1e-5
+
+
+def _pck_margin(norm, thresholds) -> float:
+    """The least |normalised distance - threshold| over the threshold, in
+    f64: how far the scored inputs lie from a threshold."""
+    import numpy as np
+
+    norm = np.asarray(norm, np.float64).reshape(-1, 1)
+    t = np.asarray(thresholds, np.float64).reshape(1, -1)
+    return float((np.abs(norm - t) / t).min())
+
+
+def finetune_phase(weights: dict, batch: dict, counters, card: str,
+                   k1_step_ms: float, name: str = "hrnet_w32",
+                   dev=None) -> tuple:
+    """Phase 10a: fine-tuning with a frozen stem, then the full metric set.
+    Phase 4's trained ``name`` (``weights``) in a state built with
+    ``trainable=freeze_mask(model, FREEZE)``; 3 fused steps (K1 3, K2 0):
+    every frozen parameter bit-equal to its start with no gradient, every
+    trainable one moved, ``param_count`` unchanged; then the predict step,
+    and its heatmaps scored on the card and on the CPU: ``get_max_preds``
+    (equal), ``soft_argmax_preds`` (within SOFT_ATOL_PX), ``pck_2d``
+    (proportion and mm), ``pck_2d_visible``, ``pck_curve`` over the offline
+    eval's two grids, ``pck_3d`` on a lifted copy of the joints (all equal),
+    ``keypoint_2d_loss`` and ``keypoint_3d_loss`` (within SCORE_LOSS_RTOL).
+    Returns the steps' launches and the figures."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.ops import decode, metrics
+    from lighthand_tpu_torch.ops.color import divide, normalize_imagenet
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_fused_train_step,
+        make_predict_step,
+    )
+    from lighthand_tpu_torch.train.state import param_count
+    from lighthand_tpu_torch.utils.misc import freeze_mask
+
+    dev = dev or torch.device("cuda")
+    model = get_model(name)
+    model.load_state_dict(weights)
+    mask = freeze_mask(model, FREEZE)
+    state = create_train_state(model, lr=1e-3, device=dev, trainable=mask)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    n_params = param_count(state)
+    step = make_fused_train_step(scan_steps=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    zero(counters)
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, out = step(state, gen, batch)
+        losses.append(float(out["loss"]))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+    counts = read(counters)
+    want = {"fused_aug_targets": 3, "heatmap_targets": 0, "int8_conv": 0,
+            "quantize_weight": 0}
+    if counts != want:
+        fail(f"the fine-tune steps launched {counts}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite fine-tune losses: {losses}")
+    frozen = [k for k, v in mask.items() if not v]
+    for k, p in state.model.named_parameters():
+        same = torch.equal(p.detach(), start[k])
+        if not mask[k] and not (same and p.grad is None
+                                and not p.requires_grad):
+            fail(f"frozen parameter {k} changed or holds a gradient")
+        if mask[k] and same:
+            fail(f"trainable parameter {k} did not move")
+    if param_count(state) != n_params:
+        fail(f"param_count moved: {n_params} -> {param_count(state)}")
+    ms_step = statistics.median(step_s[1:]) * 1e3
+    n_frozen = sum(start[k].numel() for k in frozen)
+    print(f"[finetune] {name} 256x256 bs{B_TRAIN} bf16, {len(frozen)} of "
+          f"{len(mask)} parameters frozen ({n_frozen} of {n_params} "
+          f"elements): losses {losses}; step ms "
+          f"{[round(s * 1e3, 2) for s in step_s]}; steady {ms_step:.2f} "
+          f"ms/step against phase 4's {k1_step_ms:.2f} on {card}; "
+          f"launches {counts}; frozen bit-equal with no gradient, every "
+          "trainable parameter moved")
+
+    # the predict step, then its heatmaps scored on the card and the CPU
+    images = normalize_imagenet(divide(batch["image_u8"].float(), 255.0))
+    joints_px, _ = make_predict_step(device=dev)(state, images)
+    with torch.no_grad():
+        hm = state.model(images.permute(0, 3, 1, 2)).float()
+    rng = np.random.default_rng(11)
+    gt = batch["joints"]
+    b, j = gt.shape[:2]
+    vis = torch.from_numpy((rng.uniform(size=(b, j, 1)) > 0.25)
+                           .astype(np.float32)).to(dev)
+    depth = torch.from_numpy(rng.uniform(-40, 40, size=(b, j, 1))
+                             .astype(np.float32)).to(dev)
+    noise = torch.from_numpy(rng.normal(scale=4.0, size=(b, j, 3))
+                             .astype(np.float32)).to(dev)
+    grids = {"proportion": np.linspace(0.1, 0.3, 100),  # pckb [0.1, 0.3]
+             "mm": np.linspace(0, 30, 101)[1:] * metrics.MM_THRESH_SCALE_EVAL}
+
+    def scores(hm, gt, vis, depth, noise):
+        preds, maxvals = decode.get_max_preds(hm)
+        px = preds * 4.0
+        soft, conf = decode.soft_argmax_preds(hm)
+        gt_v = torch.cat([gt, vis], dim=-1)
+        gt3 = torch.cat([gt, depth], dim=-1)  # the joints, lifted
+        pred3 = gt3 + noise
+        return {
+            "argmax": preds, "maxvals": maxvals, "soft": soft, "conf": conf,
+            "pck_2d": metrics.pck_2d(px, gt, 0.2),
+            "pck_2d_mm": metrics.pck_2d(px, gt, 20.0, "mm"),
+            "pck_2d_visible": metrics.pck_2d_visible(px, gt_v, 0.2),
+            **{f"pck_curve_{k}": metrics.pck_curve(px, gt, torch.tensor(
+                g, dtype=torch.float32), k) for k, g in grids.items()},
+            "pck_3d": metrics.pck_3d(pred3, gt3, 20.0)[0],
+            "keypoint_2d_loss": metrics.keypoint_2d_loss(px, gt_v),
+            "keypoint_3d_loss": metrics.keypoint_3d_loss(pred3, gt3)}
+
+    card_s = {k: v.cpu() for k, v in
+              scores(hm, gt, vis, depth, noise).items()}
+    cpu_s = scores(*(x.cpu() for x in (hm, gt, vis, depth, noise)))
+    if not torch.equal(joints_px.cpu(), card_s["argmax"] * 4.0):
+        fail("the predict step's joints are not its heatmaps' argmax")
+    soft_err = float((card_s["soft"] - cpu_s["soft"]).abs().max())
+    loss_err = {k: abs(float(card_s[k]) / float(cpu_s[k]) - 1.0)
+                for k in ("keypoint_2d_loss", "keypoint_3d_loss")}
+    unequal = [k for k, v in card_s.items() if k not in ("soft", *loss_err)
+               and not torch.equal(v, cpu_s[k])]
+    dist = (gt.cpu().double() - cpu_s["argmax"] * 4.0).norm(dim=-1)
+    diag = metrics.bbox_diagonal(gt.cpu()).double()[:, None]
+    margin = min(_pck_margin(dist / diag, [0.2]),
+                 _pck_margin(dist, [20.0 * metrics.MM_SCALE_PCK]),
+                 _pck_margin(dist / diag, grids["proportion"]),
+                 _pck_margin(dist / metrics.MM_SCALE_PCK, grids["mm"]))
+    pck = {k: round(float(card_s[k]), 6) for k in
+           ("pck_2d", "pck_2d_mm", "pck_2d_visible", "pck_3d")}
+    pck.update({f"{k}[first,last]": [round(float(card_s[k][0]), 4),
+                                     round(float(card_s[k][-1]), 4)]
+                for k in ("pck_curve_proportion", "pck_curve_mm")})
+    print(f"[finetune] scores card vs CPU on the same heatmaps: unequal "
+          f"{unequal}; soft-argmax max|diff| {soft_err:.3g} px (atol "
+          f"{SOFT_ATOL_PX:g}); losses relative {loss_err} (rtol "
+          f"{SCORE_LOSS_RTOL:g}); least relative margin of a distance to a "
+          f"threshold {margin:.3g}; PCK {pck}")
+    if unequal or not soft_err <= SOFT_ATOL_PX or not all(
+            e <= SCORE_LOSS_RTOL for e in loss_err.values()):
+        fail("the scores on the card disagree with the CPU's")
+    if not all(math.isfinite(float(v)) for k, v in card_s.items()
+               if v.ndim == 0):
+        fail("non-finite scores")
+    return counts, {"step_ms": ms_step, "pck": pck}
+
+
+def single_target_phase(counters, dev=None) -> tuple:
+    """Phase 10b: ``generate_target`` (one sample) on CUDA joints, through
+    K2 with B=1: J=21, H=64, stride 4, [J, 2] joints, and H=50, stride 3.0,
+    [J, 3] joints with one joint off the map. Each call launches K2 once;
+    its maps within F32_ATOL of the plain twin on the card and of the CPU's,
+    its weights equal to the CPU's, the off-map joint's 0. Returns the
+    launches and the largest error."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.ops.heatmap import (
+        generate_target,
+        generate_target_batch,
+    )
+    from lighthand_tpu_torch.ops.kernels.heatmap import (
+        generate_target_batch_cuda,
+    )
+
+    dev = dev or torch.device("cuda")
+    rng = np.random.default_rng(21)
+    zero(counters)
+    worst = 0.0
+    for hm, stride, cols in ((HM, 4.0, 2), (50, 3.0, 3)):
+        joints = rng.uniform(0, hm * stride, size=(JOINTS, cols)).astype(
+            np.float32)
+        joints[3, :2] = [-80.0, hm * stride + 200.0]  # off the map
+        joints = torch.from_numpy(joints).to(dev)
+        before = generate_target_batch_cuda.launches
+        maps, weight = generate_target(joints, heatmap_size=hm, stride=stride,
+                                       return_weight=True)
+        launched = generate_target_batch_cuda.launches - before
+        twin = generate_target_batch(joints[None], hm, stride)[0]
+        cpu_maps, cpu_weight = generate_target(
+            joints.cpu(), heatmap_size=hm, stride=stride, return_weight=True)
+        err = max(float((maps - twin).abs().max()),
+                  float((maps.cpu() - cpu_maps).abs().max()))
+        print(f"[target] J={JOINTS} H={hm} stride {stride} joints [J, "
+              f"{cols}]: K2 launches {launched}; max|kernel - plain| "
+              f"{err:.3g} (atol {F32_ATOL:g}); weights "
+              f"{weight.cpu().int().tolist()}")
+        if (maps.shape != (JOINTS, hm, hm) or launched != 1
+                or not err <= F32_ATOL
+                or not torch.equal(weight.cpu(), cpu_weight)
+                or float(weight[3]) != 0.0 or float(weight.sum()) < 10):
+            fail(f"generate_target on the card is wrong at H={hm}")
+        worst = max(worst, err)
+    return read(counters), worst
+
+
+def preprocessor_phase(counters, card: str, dev=None) -> dict:
+    """Phase 10c: ``DevicePreprocessor(jitter=True)`` on a u8 bs32 256x256
+    batch on the card and on the CPU with the same injected draws (CPU
+    ``draw_jitter``, every op order): f32 outputs within CHAIN_IMAGE_ATOL in
+    normalised units (the chain's bound: the same jitter and normalize,
+    each image's contrast mean summed in another order); no kernel
+    launches; the default bf16 call with its own draws from a generator on
+    the card; device ms of that call (the profiler's kernel sum) beside
+    K1's at the same batch. Returns the figures."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.data import DevicePreprocessor
+    from lighthand_tpu_torch.ops.color import draw_jitter
+    from lighthand_tpu_torch.ops.kernels.fused_aug import (
+        fused_aug_targets_cuda,
+    )
+
+    dev = dev or torch.device("cuda")
+    rng = np.random.default_rng(31)
+    images = torch.from_numpy(rng.integers(
+        0, 256, size=(B_TRAIN, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
+    aug = torch.from_numpy((np.arange(B_TRAIN) % 4 != 3)
+                           .astype(np.float32)).to(dev)
+    factors, order = draw_jitter(torch.Generator().manual_seed(32), B_TRAIN)
+    perms = list(itertools.permutations(range(4)))
+    order = torch.tensor([perms[i % 24] for i in range(B_TRAIN)])
+    zero(counters)
+    card_pre = DevicePreprocessor(out_dtype=torch.float32, device=dev)
+    got = card_pre(images, aug, factors=factors, order=order)
+    bf16 = DevicePreprocessor(device=dev)(
+        images, aug, torch.Generator(device=dev).manual_seed(33))
+    counts = read(counters)
+    want = DevicePreprocessor(out_dtype=torch.float32, device="cpu")(
+        images.cpu(), aug.cpu(), factors=factors, order=order)
+    err = float((got.cpu() - want).abs().max())
+    print(f"[preprocess] DevicePreprocessor(jitter=True) B={B_TRAIN} "
+          f"{SIZE}x{SIZE} card vs CPU, same draws: max|diff| {err:.3g} "
+          f"(atol {CHAIN_IMAGE_ATOL:g}, normalised units); launches "
+          f"{counts}; bf16 call {bf16.dtype} {tuple(bf16.shape)}")
+    if (got.shape != (B_TRAIN, SIZE, SIZE, 3) or not err <= CHAIN_IMAGE_ATOL
+            or any(counts.values()) or bf16.dtype != torch.bfloat16
+            or not torch.isfinite(bf16.float()).all()):
+        fail("DevicePreprocessor on the card disagrees with the CPU")
+    pre = DevicePreprocessor(device=dev)
+    factors, order = factors.to(dev), order.to(dev)
+    k1_images, k1_joints, params = k1_inputs(B_TRAIN, 34, device=dev)
+
+    def plain():
+        return pre(images, aug, factors=factors, order=order)
+
+    def k1():
+        return fused_aug_targets_cuda(k1_images, k1_joints, params)
+
+    figures = {}
+    for tag, fn, graph in (("preprocessor", plain, None),
+                           ("K1", k1, capture(k1))):
+        figures[f"{tag}_eager_ms"] = eager_ms(fn)
+        figures[f"{tag}_device_ms"], how = device_ms(fn, graph)
+        print(f"[preprocess] {tag} B={B_TRAIN} {SIZE}x{SIZE} bf16: eager "
+              f"{figures[f'{tag}_eager_ms']:.4f} ms, device "
+              f"{figures[f'{tag}_device_ms']:.4f} ms ({how}) on {card}")
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -2632,6 +2927,10 @@ def main() -> int:
             or not torch.isfinite(maxvals).all()):
         fail("bad predict output")
 
+    # phase 4's trained weights, for phase 10a (6c trains ``state`` on)
+    w32_weights = {k: v.detach().clone()
+                   for k, v in state.model.state_dict().items()}
+
     # 4b-5b. the int8_fwd policy: training, then serving phase 4's weights
     int8_launches = int8_train_phase(batch, counters, n_quant["hrnet_w32"])
     serve_launches = int8_serving_phase(state, images, counters,
@@ -2670,6 +2969,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_draw_") as tmp:
         drawing_phase(tmp)
     raster_row, render_launches = render_phase(kind)
+    # 10a-10c. fine-tuning with a frozen stem and the metric set; single
+    # sample targets through K2; the jittering preprocessor
+    ft_launches, ft_fig = finetune_phase(w32_weights, batch, counters, card,
+                                         ms_step)
+    del w32_weights
+    target_launches, target_err = single_target_phase(counters)
+    pre_fig = preprocessor_phase(counters, card)
     print(f"[figures] {card}: make_synth_data {tree_fig['img_s']:.1f} img/s "
           f"(host); JPEG ms {jpeg_ms}; overlay CLI (ResNet-50 bs{B_TRAIN}, "
           f"64 train images, 1 epoch) epoch {overlay_fig['epoch_s']:.2f} s, "
@@ -2685,6 +2991,14 @@ def main() -> int:
           f"HRNet-W32 bs{B_TRAIN} bf16 step plain {dist_ms['plain']:.2f} ms, "
           f"on a 1 x 1 mesh {dist_ms['mesh']:.2f} ms (Adam alone "
           f"{dist_ms['plain_adam']:.2f} / {dist_ms['mesh_adam']:.2f} ms)")
+    print(f"[figures] {card}: fine-tune (phase 10a): HRNet-W32 "
+          f"bs{B_TRAIN} step with the stem and layer1 frozen "
+          f"{ft_fig['step_ms']:.2f} ms against phase 4's {ms_step:.2f} ms; "
+          f"PCK {ft_fig['pck']}; DevicePreprocessor(jitter=True) (phase "
+          f"10c) B={B_TRAIN} {pre_fig['preprocessor_device_ms']:.4f} ms "
+          f"device ({pre_fig['preprocessor_eager_ms']:.4f} ms eager) "
+          f"against K1's {pre_fig['K1_device_ms']:.4f} ms "
+          f"({pre_fig['K1_eager_ms']:.4f} ms eager)")
     print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
           f"train images, SimpleBaseline ResNet-50, bf16; overlays on, a "
           f"predict step and a JPEG at 3 train and up to 3 val iterations "
@@ -2744,9 +3058,11 @@ def main() -> int:
              "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches,
              "aug_route_steps": aug_launches, "aug_route_cli": aug_cli_launches,
              "dist_cli_world1": dist_launches,
-             "overlay_cli": overlay_launches, "plt_eval_cli": plt_launches}
+             "overlay_cli": overlay_launches, "plt_eval_cli": plt_launches,
+             "finetune_steps": ft_launches,
+             "single_sample_targets": target_launches}
     errs = {"fused_aug_targets": k1_err,
-            "heatmap_targets": max(k2_err, aug_k2_err)}
+            "heatmap_targets": max(k2_err, aug_k2_err, target_err)}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for b, seed in ((B_TRAIN, 2), (B_KERNEL, 1)):

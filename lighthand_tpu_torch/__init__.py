@@ -16,3 +16,5 @@ without that argument they raise.
 """
 
 __version__ = "0.1.0"
+
+from lighthand_tpu_torch import ops  # noqa: E402,F401

@@ -52,6 +52,11 @@ class MeshSpec:
         return MeshSpec(data=data, model=model)
 
 
+def local_device_count() -> int:
+    """CUDA devices this process sees (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

@@ -1,4 +1,8 @@
-from lighthand_tpu_torch.data.pipeline import Loader, preprocess_u8
+from lighthand_tpu_torch.data.pipeline import (
+    DevicePreprocessor,
+    Loader,
+    preprocess_u8,
+)
 from lighthand_tpu_torch.data.records import (
     ConcatSource,
     Sample,
@@ -12,6 +16,7 @@ from lighthand_tpu_torch.data.synthetic import SyntheticHands
 
 __all__ = [
     "ConcatSource",
+    "DevicePreprocessor",
     "Loader",
     "Sample",
     "Source",

@@ -23,9 +23,14 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from lighthand_tpu_torch.core.device import resolve_device
 from lighthand_tpu_torch.core.mesh import data_index
 from lighthand_tpu_torch.data.records import Source
-from lighthand_tpu_torch.ops.color import divide, normalize_imagenet
+from lighthand_tpu_torch.ops.color import (
+    color_jitter_batch,
+    divide,
+    normalize_imagenet,
+)
 
 
 def preprocess_u8(images_u8: torch.Tensor,
@@ -34,6 +39,43 @@ def preprocess_u8(images_u8: torch.Tensor,
     ``DevicePreprocessor(jitter=False)`` of the JAX package (plain XLA there,
     plain PyTorch here)."""
     return normalize_imagenet(divide(images_u8.float(), 255.0)).to(out_dtype)
+
+
+class DevicePreprocessor:
+    """u8 NHWC -> ImageNet-normalised NHWC in ``out_dtype``, with per-sample
+    ColorJitter first when ``jitter`` (the reference's ToTensor ->
+    [ColorJitter for the aug-enabled samples] -> Normalize,
+    src/tools/dataset.py:134-157). Plain PyTorch on the device, as the JAX
+    package runs it in jnp; the train step's K1 fuses the same jitter with
+    noise and targets, which this API does not ask for. Runs on ``cuda``
+    unless ``device`` names the CPU."""
+
+    def __init__(self, jitter: bool = True, brightness: float = 0.5,
+                 contrast: float = 0.5, saturation: float = 0.5,
+                 hue: float = 0.5, out_dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        self.jitter = jitter
+        self.ranges = {"brightness": brightness, "contrast": contrast,
+                       "saturation": saturation, "hue": hue}
+        self.out_dtype = out_dtype
+        self.device = resolve_device(device)
+
+    def __call__(self, images_u8: torch.Tensor, aug_enabled,
+                 generator: torch.Generator | None = None, *,
+                 factors: torch.Tensor | None = None,
+                 order: torch.Tensor | None = None) -> torch.Tensor:
+        """``aug_enabled`` [B] gates each sample's jitter; the draws come
+        from ``generator`` (``ops/color.py:draw_jitter``) unless
+        ``factors`` and ``order`` are given."""
+        images_u8 = torch.as_tensor(images_u8).to(self.device,
+                                                  non_blocking=True)
+        if not self.jitter:
+            return preprocess_u8(images_u8, self.out_dtype)
+        imgs = color_jitter_batch(
+            divide(images_u8.float(), 255.0),
+            torch.as_tensor(aug_enabled).to(self.device), generator=generator,
+            factors=factors, order=order, **self.ranges)
+        return normalize_imagenet(imgs).to(self.out_dtype)
 
 
 def _collate(samples, valid: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:

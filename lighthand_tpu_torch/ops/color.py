@@ -6,9 +6,10 @@ ColorJitter (brightness, contrast, saturation, hue via HSV) in a per-sample
 order, FreiHAND per-channel noise, ImageNet normalize. Images are float in
 [0, 1], channels last: ``[..., H, W, 3]``.
 
-The random draws are not made here: factors, the op order and the enable
-gates are arguments (``ops/kernels/fused_aug.py:draw_aug_params`` draws
-them), so these functions are also the plain twin of the CUDA kernel. The
+The op functions take their draws as arguments (factors, the op order and
+the enable gates), so they are also the plain twin of the CUDA kernel.
+``draw_jitter`` makes the jitter draws from a ``torch.Generator`` (for
+``color_jitter_batch`` and ``ops/kernels/fused_aug.py:draw_aug_params``). The
 arithmetic follows the JAX kernel op for op (gray = 0.299 r + 0.587 g +
 0.114 b left to right; divisions kept as divisions; the hue modulo is a
 floor modulo).
@@ -147,3 +148,50 @@ def channel_pixel_noise(img: torch.Tensor, factors: torch.Tensor,
     e = _per_image(enable, img, 1)
     pn = factors * e + (1.0 - e)
     return torch.clamp(img * pn[..., None, None, :], 0.0, 1.0)
+
+
+def draw_jitter(generator: torch.Generator, b: int, brightness: float = 0.5,
+                contrast: float = 0.5, saturation: float = 0.5,
+                hue: float = 0.5):
+    """Per-sample ColorJitter draws on the generator's device, in the ranges
+    of ``lighthand_tpu/ops/color.py:108-123``: (factors f32 [b, 4], each of
+    brightness, contrast and saturation uniform in [max(0, 1 - r), 1 + r)
+    and hue in [-hue, hue); order int64 [b, 4], a random permutation of the
+    4 ops). One ``rand`` of [b, 4] for the factors, then one for the
+    order."""
+    dev = generator.device
+    lo = [max(0.0, 1.0 - r) for r in (brightness, contrast, saturation)]
+    width = [1.0 + r - low for r, low in zip((brightness, contrast,
+                                              saturation), lo)]
+    lo = torch.tensor(lo + [-hue], dtype=torch.float32, device=dev)
+    width = torch.tensor(width + [2.0 * hue], dtype=torch.float32, device=dev)
+    u = torch.rand((b, 4), generator=generator, device=dev)
+    factors = lo + width * u
+    order = torch.argsort(torch.rand((b, 4), generator=generator, device=dev),
+                          dim=1)
+    return factors, order
+
+
+def color_jitter_batch(imgs: torch.Tensor, enable, *, brightness: float = 0.5,
+                       contrast: float = 0.5, saturation: float = 0.5,
+                       hue: float = 0.5,
+                       generator: torch.Generator | None = None,
+                       factors: torch.Tensor | None = None,
+                       order: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-sample ColorJitter of [B, H, W, 3] images in [0, 1] -> f32:
+    ``draw_jitter``'s draws from ``generator``, then ``color_jitter``;
+    ``enable`` [B] (or a scalar) gates each sample. ``factors`` [B, 4] and
+    ``order`` [B, 4] replace the draws where given (torch cannot replay
+    the JAX package's RNG, so its tests inject JAX's)."""
+    if factors is None or order is None:
+        if generator is None:
+            raise ValueError("color_jitter_batch needs a generator, or both "
+                             "factors and order")
+        drawn = draw_jitter(generator, imgs.shape[0], brightness, contrast,
+                            saturation, hue)
+        factors = drawn[0] if factors is None else factors
+        order = drawn[1] if order is None else order
+    dev = imgs.device
+    enable = torch.as_tensor(enable, dtype=torch.float32, device=dev)
+    return color_jitter(imgs.float(), factors.to(dev, torch.float32),
+                        order.to(dev), enable)

@@ -7,8 +7,9 @@ Gaussian exp(-(dx^2+dy^2) / (2 sigma^2)); a joint whose window lies wholly
 outside the map gives a zero map. This is the plain twin of the CUDA
 kernel in ``ops/kernels/heatmap.py``.
 
-``generate_heatmap_max_batch`` is the max-combine style of the GAN source
-and the Armo train/val phases.
+``generate_target`` is the single-sample form of the same target (K2 on a
+CUDA tensor, the twin on a CPU one). ``generate_heatmap_max_batch`` is the
+max-combine style of the GAN source and the Armo train/val phases.
 """
 
 from __future__ import annotations
@@ -62,6 +63,31 @@ def generate_target_batch(joints: torch.Tensor,
     return rasterize_centers(
         pack_centers(joints, heatmap_size, stride, sigma), heatmap_size,
         sigma)
+
+
+def generate_target(joints: torch.Tensor, *,
+                    heatmap_size: int = HEATMAP_SIZE,
+                    stride: float = FEAT_STRIDE, sigma: float = SIGMA,
+                    return_weight: bool = False):
+    """MSRA target of one sample: joints [J, 2+] in input pixels -> f32
+    [J, H, H], and with ``return_weight`` the [J] f32 weights (0 where the
+    13x13 window lies wholly outside the map: ``pack_centers``'s valid
+    column). On a CUDA tensor the maps come from K2 (one launch, B=1), on a
+    CPU tensor from its plain twin."""
+    # the kernel's module imports this one
+    from lighthand_tpu_torch.ops.kernels.heatmap import (
+        generate_target_batch_cuda,
+    )
+
+    joints = torch.as_tensor(joints)
+    if not joints.is_floating_point():
+        joints = joints.float()
+    target = generate_target_batch_cuda(joints[None], heatmap_size, stride,
+                                        sigma)[0]
+    if not return_weight:
+        return target
+    valid = pack_centers(joints[None], heatmap_size, stride, sigma)[0, :, 2]
+    return target, valid.float()
 
 
 def generate_heatmap_max(joints: torch.Tensor, output_res: int = HEATMAP_SIZE,

@@ -26,6 +26,7 @@ from lighthand_tpu_torch.ops.color import (
     channel_pixel_noise,
     color_jitter,
     divide,
+    draw_jitter,
     normalize_imagenet,
 )
 from lighthand_tpu_torch.ops.heatmap import (
@@ -93,16 +94,13 @@ def launch_geometry(height: int, width: int) -> Geometry:
 def draw_aug_params(generator: torch.Generator, aug_enabled: torch.Tensor,
                     noise_enabled: torch.Tensor | None = None) -> torch.Tensor:
     """Per-sample jitter/noise draws, packed [B, 12] f32 on the generator's
-    device, in the ranges of ``fused_aug.py:171-185``: brightness, contrast,
-    saturation in [0.5, 1.5), hue in [-0.5, 0.5), a random permutation of
-    the 4 ops, noise in [0.6, 1.4) gated to 1.0 where ``noise_enabled`` is 0
-    (absent == all 0)."""
+    device, in the ranges of ``fused_aug.py:171-185``: ``draw_jitter`` at its
+    default ranges (brightness, contrast, saturation in [0.5, 1.5), hue in
+    [-0.5, 0.5), a random permutation of the 4 ops), then noise in [0.6,
+    1.4) gated to 1.0 where ``noise_enabled`` is 0 (absent == all 0)."""
     b = aug_enabled.shape[0]
     dev = generator.device
-    u = torch.rand((b, 4), generator=generator, device=dev)
-    factors = torch.cat([0.5 + u[:, :3], u[:, 3:] - 0.5], dim=1)
-    order = torch.argsort(torch.rand((b, 4), generator=generator, device=dev),
-                          dim=1).float()
+    factors, order = draw_jitter(generator, b)
     pn = 0.6 + 0.8 * torch.rand((b, 3), generator=generator, device=dev)
     aug = aug_enabled.to(dev, torch.float32)[:, None]
     if noise_enabled is not None:
@@ -110,7 +108,7 @@ def draw_aug_params(generator: torch.Generator, aug_enabled: torch.Tensor,
         pn = pn * noise + (1.0 - noise)
     else:
         pn = torch.ones_like(pn)
-    return torch.cat([aug, factors, order, pn], dim=1)
+    return torch.cat([aug, factors, order.float(), pn], dim=1)
 
 
 def _check(images_u8: torch.Tensor, joints: torch.Tensor,

@@ -4,7 +4,8 @@
 - ``StepTimer``: moving-average step time and images/sec, measured in the
   loop (a copy of the JAX package's);
 - ``trace()``: a ``torch.profiler`` window around any steps, written as a
-  Chrome trace (``trace.json``, loadable in Perfetto or chrome://tracing).
+  Chrome trace (``trace.json``, loadable in Perfetto or chrome://tracing);
+- ``annotate(name)``: a named range inside such a trace.
 """
 
 from __future__ import annotations
@@ -89,3 +90,9 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named range inside a trace (``with annotate("eval"): ...``), shown
+    on the profiler's timeline and in its ``key_averages()``."""
+    return torch.profiler.record_function(name)

@@ -30,6 +30,7 @@ from lighthand_tpu_torch.core.mesh import (
     shard_model,
 )
 from lighthand_tpu_torch.models.layers import init_weights, set_batchnorm_group
+from lighthand_tpu_torch.utils.misc import masked_optimizer
 
 
 def cosine_lr(base_lr: float, epoch: int, t_max: int,
@@ -65,6 +66,12 @@ class ShardAdam(torch.optim.Adam):
         return has_complex
 
 
+def make_optimizer(params, lr: float = 1e-3) -> ShardAdam:
+    """Adam with the torch defaults the reference uses (train.py:45-48) over
+    ``params``; ``set_learning_rate`` sets the per-epoch cosine value."""
+    return ShardAdam(params, lr=lr)
+
+
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
@@ -76,12 +83,24 @@ class TrainState:
     # process, at data axis 1, and where FSDP2 shards the model
     grad_group: object = None
 
+    def apply_gradients(self) -> "TrainState":
+        """One optimizer step, then ``step += 1``; returns the state. The
+        signature is torch's: backward leaves the gradients on the
+        parameters and BatchNorm updates its running stats in the forward,
+        where JAX's ``apply_gradients(grads, new_batch_stats)`` takes both
+        as arguments and returns a new state."""
+        self.optimizer.step()
+        self.step += 1
+        return self
+
 
 def create_train_state(model: nn.Module,
                        generator: torch.Generator | None = None,
                        lr: float = 1e-3,
                        device: str | torch.device | None = None,
-                       mesh=None) -> TrainState:
+                       mesh=None,
+                       trainable: dict[str, bool] | None = None
+                       ) -> TrainState:
     """Move ``model`` to ``device`` (``cuda`` unless the caller says
     ``"cpu"``; ``channels_last`` on the card, unless sharded: FSDP2 shards
     contiguous parameters only) and attach Adam. With a
@@ -90,7 +109,9 @@ def create_train_state(model: nn.Module,
     process. Under ``mesh`` the model is sharded where the model axis is
     above 1 (``core/mesh.py:shard_model``, HSDP) and replicated at model
     axis 1, before Adam is built, and its BatchNorm layers normalise over
-    the data axis (``models/layers.py:BatchNorm2d``)."""
+    the data axis (``models/layers.py:BatchNorm2d``). A ``trainable`` mask
+    ({parameter name: bool}, ``utils/misc.py:freeze_mask``) freezes the
+    parameters it maps to False (``masked_optimizer``)."""
     device = resolve_device(device)
     if generator is not None:
         init_weights(model, generator)
@@ -99,7 +120,8 @@ def create_train_state(model: nn.Module,
         model.to(memory_format=torch.channels_last)
     shard_model(model, mesh)
     set_batchnorm_group(model, data_group(mesh), data_index(mesh)[1])
-    optimizer = ShardAdam(model.parameters(), lr=lr)
+    optimizer = (make_optimizer(model.parameters(), lr) if trainable is None
+                 else masked_optimizer(model, trainable, lr))
     return TrainState(model=model, optimizer=optimizer, device=device,
                       grad_group=replica_group(mesh))
 
@@ -109,3 +131,9 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     return state
+
+
+def param_count(state: TrainState) -> int:
+    """Elements of every parameter, frozen ones included (a sharded
+    parameter counts whole)."""
+    return sum(p.numel() for p in state.model.parameters())

@@ -131,8 +131,7 @@ def _update(state: TrainState, images_nchw: torch.Tensor,
     loss.backward()
     if state.grad_group is not None:
         average_gradients(state.model.parameters(), state.grad_group)
-    state.optimizer.step()
-    state.step += 1
+    state.apply_gradients()
     return loss.detach()
 
 

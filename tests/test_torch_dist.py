@@ -78,6 +78,7 @@ UPDATE_RTOL = 0.2
 STAT_ATOL = 5e-3
 EVAL_RTOL = 1e-5  # of each eval sum (measured up to 3e-7: the weights differ)
 CHILD_TIMEOUT = 240
+FROZEN = r"^(conv1|bn1|conv2|bn2|layer1)\."  # a fine-tune's frozen stem
 
 
 # ------------------------------------------------------------- the child
@@ -356,6 +357,36 @@ def _child(d: int, m: int, out_dir: str) -> None:
         assert torch.equal(_full(p.detach()), _full(q.detach())), name
         for k, v in fresh.optimizer.state[p].items():
             assert torch.equal(_full(v), optim[name][k]), (name, k)
+    # fine-tuning with the stem and layer1 frozen: FSDP2 (model axis 2)
+    # takes frozen and trainable parameters in one module; one step's loss
+    # and update as one process's, the frozen parameters bit-equal
+    from lighthand_tpu_torch.utils.misc import freeze_mask
+
+    def frozen_state(mesh_):
+        model = get_model("hrnet_tiny", policy=DTypePolicy(
+            param_dtype=torch.float32, compute_dtype=torch.float32,
+            output_dtype=torch.float32))
+        return create_train_state(
+            model, torch.Generator().manual_seed(0), lr=LR, device=cpu,
+            mesh=mesh_, trainable=freeze_mask(model, [FROZEN]))
+
+    fref, fmesh = frozen_state(None), frozen_state(mesh)
+    fstart = [_full(p.detach()).clone() for p in fmesh.model.parameters()]
+    _, want = make_fused_train_step(**kw)(
+        fref, torch.Generator().manual_seed(5), batch)
+    _, got = make_fused_train_step(**kw, mesh=mesh)(
+        fmesh, torch.Generator().manual_seed(5), local)
+    n_frozen = 0
+    for p, p0 in zip(fmesh.model.parameters(), fstart):
+        if p.requires_grad:
+            assert not torch.equal(_full(p.detach()), p0)
+        else:
+            n_frozen += 1
+            assert p.grad is None and torch.equal(_full(p.detach()), p0)
+    frozen = {"n_frozen": n_frozen,
+              "loss_gap": abs(float(got["loss"]) - float(want["loss"]))
+              / abs(float(want["loss"])),
+              "update_err": _update_err(fmesh, fref, fstart)}
     if rank == 0:
         torch.save({"model": gathered, "optimizer": optim},
                    os.path.join(out_dir, "gathered.pt"))
@@ -363,7 +394,8 @@ def _child(d: int, m: int, out_dir: str) -> None:
             json.dump({"wrap": wrap, "loss_gaps": gaps, "grad_err": grad_err,
                        "adam_err": adam_err,
                        "update_err": update_err,
-                       "stat_err": stat_err, "eval_err": eval_err}, f)
+                       "stat_err": stat_err, "eval_err": eval_err,
+                       "frozen": frozen}, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -545,6 +577,18 @@ def test_mesh_adam_step_equals_plain(runs, mesh):
     two steps: every parameter and moment equal, bit for bit."""
     res, _ = _result(runs, mesh)
     assert res["adam_err"] == 0.0
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+def test_mesh_fine_tunes_with_frozen_parameters(runs, mesh):
+    """A ``freeze_mask`` state (``masked_optimizer``) on the mesh, FSDP2's
+    included: the 45 frozen parameters of hrnet_tiny's stem and layer1
+    keep their values and hold no gradient, the others move (checked in
+    each child), and the step's loss and update are one process's."""
+    res, _ = _result(runs, mesh)
+    assert res["frozen"]["n_frozen"] == 45
+    assert res["frozen"]["loss_gap"] <= LOSS_RTOL
+    assert res["frozen"]["update_err"] <= UPDATE_RTOL
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
