@@ -41,7 +41,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    conv shape of ResNet-50 (53 convs) and HRNet-W32 (292), read by hooks,
    at batch 32, 256x256, and ragged cases (N=3 at 97x131 with the 7x7 and
    3x3 stems, Cout 40, 33, 48 and 100, Cin 8, 48 and 96); the twin runs on
-   the card with cuDNN off (im2col + DGEMM, exact on integers);
+   the card with cuDNN off (im2col + DGEMM, exact on integers); then the
+   grouped weight quantize (``quantize_weights_cuda``, one launch for a
+   list of weights) against ``quantize_weights_plain``, bit for bit, over
+   all 292 HRNet-W32 and all 53 ResNet-50 weights in one group each, in
+   both layouts, and ragged groups (the K = 27 and 147 stems, Cout 40 and
+   33, rows of 45 and 20 values, all-zero channels, a source off 16-byte
+   alignment, every other output or input channel of a weight, rows
+   beyond a stage buffer, a group of one), each w_q at a 128-byte offset;
 2c. a ``QuantConv2d`` on the card equals the same module on the CPU, bit
    for bit, at ResNet-50's and HRNet-W32's heaviest shapes, bf16 and f32:
    the weight scale divides on both devices;
@@ -52,11 +59,11 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    4 rows are padding (n_valid must be 28, K2 must launch), then
    ``make_predict_step`` once;
 4b. int8 training: HRNet-W32, ``DTypePolicy.int8_fwd()``, 3 fused steps:
-   finite losses, K1 3 launches, each int8 kernel (the weight quantize
-   and the conv) 3 x 292;
+   finite losses, K1 3 launches, the int8 conv 3 x 292 and the grouped
+   weight quantize 3 (one a forward);
 5b. int8 serving: phase 4's W32 weights predicted under bf16 and under
    int8_fwd (``load_state_dict``), the share of joints within 1 heatmap px
-   of each other printed; 292 launches of each int8 kernel;
+   of each other printed; 292 int8 conv launches and 1 weight quantize;
 4c. the flip / rotation route: HRNet-W32, 256x256, bs32, bf16,
    ``make_fused_train_step(flip=True, rot_deg=15.0)`` for 3 steps: finite
    losses, K1 0 and K2 3 launches; the chain (jitter, noise, rotate,
@@ -94,15 +101,16 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    records dropped), with the checkpoint's precision, with ``--precision
    int8_fwd`` and with ``--test``: exit 0, evaluation.json's categories and
    counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
-   the --test AUC lines, 53 launches of each int8 kernel a batch under
-   int8_fwd and none otherwise; img/s of each run;
+   the --test AUC lines, under int8_fwd 53 int8 conv launches and 1 weight
+   quantize a batch (106 and 2) and none otherwise; img/s of each run;
 6e. the training CLI with ``--flip --rot-aug 15`` (SimpleBaseline
    ResNet-50, synthetic, 64 train and 32 val samples, bs32, 1 epoch): the
    done line, finite losses, K1 0 and K2 3 launches, the route logged once;
 6f. the distributed path at world size 1: ``cli.train`` in a subprocess
    under the environment contract (``LIGHTHAND_COORDINATOR`` on a free
    local port, 1 process, ``--mesh-data 1 --mesh-model 1``) against a plain
-   subprocess run of the same seed (ResNet-50, f32, 1 epoch): the NCCL
+   subprocess run of the same seed (ResNet-50, f32, 1 epoch; the child sets
+   no TF32 switch, so both runs take the f32 policy's own): the NCCL
    backend and the replicated model (the run's log line: at model axis 1
    nothing is sharded, as in the JAX package), Loss/train and Loss/valid
    within 5e-3 relative, and ``cli.eval`` on the checkpoint rank 0 wrote
@@ -161,9 +169,12 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    injected draws (every op order), f32 out, within 3e-4 in normalised
    units (the chain's bound, phase 4c); no kernel launched; its device ms
    (the profiler's kernel sum) beside K1's at the same batch;
-7. reference: the trained W32 in f32 on the card (TF32 off) against the
-   same weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances
-   the CPU tests hold the port's CPU forward to against JAX);
+7. reference: the trained W32 in f32 on the card against the same
+   weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances the
+   CPU tests hold the port's CPU forward to against JAX), with both TF32
+   switches set True beforehand and only the f32 policy's
+   ``core/dtypes.py:numerics`` around the forward: it fails if that
+   context does not make the convs full f32;
 8. kernel times beside their plain twins' and their bounds, at the main
    path's batch (32) and at the bench's (128): the eager call time (CUDA
    events around 20 back-to-back calls, over 20) and the device time (the
@@ -180,25 +191,35 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    forward) of ResNet-50 and of HRNet-W32, batch 32, bf16 activations:
    eager and device time, the twin's time and the bound (int8 tensor-core
    operations or bytes, bf16 in and out, for the conv; 5 bytes a weight
-   for the weight quantize); for the conv, the GEMM of ``torch._int_mm``
-   on the pre-quantized im2col of the same operands (checked equal to the
-   kernel) and cuDNN's bf16 conv of the shape; the shape with more
-   operations a call makes the kernels line's ``int8_conv`` and
-   ``quantize_weight`` rows;
+   for the weight quantize, here a group of one); for the conv, the GEMM
+   of ``torch._int_mm`` on the pre-quantized im2col of the same operands
+   (checked equal to the kernel) and cuDNN's bf16 conv of the shape; the
+   shape with more operations a call makes the kernels line's
+   ``int8_conv`` row;
 8c. the eval forward of ResNet-50 and HRNet-W32 at bs32 under bf16 and
    int8_fwd, with the profiler's device time by kernel, the device's busy
    share of it and its count of device kernels a forward, which must not
    be larger under int8_fwd than under bf16;
-8d. the quantized convs of a forward, every distinct shape of both nets
-   at bs32 weighted by its uses: device ms of the weight quantize and the
-   conv together and of the conv alone, each shape's plan, and the host us
-   a call of ``quant_forward`` beside a bf16 conv with its weight cast.
+8d. the grouped weight quantize over each whole model's weights (292 of
+   W32, 53 of ResNet-50): eager ms, device ms in a replayed CUDA graph,
+   its byte bound, the twin's ms and the host us a call, beside the same
+   weights quantized a launch a conv (eager and device ms); the grouped
+   launch over W32's weights makes the kernels line's ``quantize_weight``
+   row. Then the quantized convs of a forward, every distinct shape of
+   both nets at bs32 weighted by its uses: device ms of the conv alone
+   (plus the grouped launch: a forward's quantized convs) and with a
+   quantize a conv, each shape's plan, and the host us a call of
+   ``quant_forward`` (its weights quantized already, and quantizing its
+   own) beside a bf16 conv with its weight cast.
    The last line is the ok line.
 
-Every phase runs with ``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` False: f32 convolutions and
-matmuls are full f32. The main path's convolutions are bf16, which TF32
-does not touch.
+TF32: phases 1 to 10 run with torch's defaults (``cudnn.allow_tf32`` True,
+``cuda.matmul.allow_tf32`` False), as a user's process does: the entry
+points' f32 runs set their own full f32 (``core/dtypes.py:numerics``), and
+no other phase compares an f32 convolution; the main path's convolutions
+are bf16, which TF32 does not touch. Phase 7 sets both True and relies on
+the policy's context. Phases 8 to 8d, which only time kernels, run with
+both False.
 """
 
 from __future__ import annotations
@@ -1126,10 +1147,119 @@ def quant_module_phase() -> None:
                      f"{shape} {dtype}")
 
 
+def model_quant_weights(name: str, layout) -> list:
+    """The f32 master weights of model ``name``'s ``QuantConv2d`` modules
+    under int8_fwd, in ``modules()`` order (the order of its forward's
+    grouped quantize call), drawn by ``init_weights`` from a seed, with an
+    all-zero output channel in every seventh; on the card in ``layout``
+    (``channels_last``, as the models hold them there, or contiguous)."""
+    import torch
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.models.layers import init_weights
+
+    model = get_model(name, policy=DTypePolicy.int8_fwd())
+    init_weights(model, torch.Generator().manual_seed(11))
+    ws = []
+    for i, m in enumerate(model.quant_convs):
+        w = m.weight.detach().clone()
+        if i % 7 == 0:
+            w[min(1, w.shape[0] - 1)] = 0.0
+        ws.append(w.to("cuda", memory_format=layout))
+    return ws
+
+
+def ragged_weight_groups() -> dict:
+    """{label: weights} on the card that take every route of the grouped
+    weight kernel: the stems (K = 27 and 147: the block's own loads), Cout
+    40 and 33, rows of 45 values (180 bytes) and of 20 (80 bytes, K not a
+    multiple of 16), an all-zero channel in each; a source 4 bytes off
+    16-byte alignment (own loads), every other output channel of a weight
+    (a bulk copy a row), every other input channel (strides no span
+    describes: read in place) and rows of 288 KB (beyond a stage buffer:
+    read in place); and a group of one."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(21)
+
+    def draw(shape):
+        w = (rng.normal(size=shape) * 0.05).astype(np.float32)
+        w[min(1, shape[0] - 1)] = 0.0
+        return torch.from_numpy(w).cuda()
+
+    base = [draw((64, 3, 3, 3)), draw((64, 3, 7, 7)), draw((40, 64, 3, 3)),
+            draw((33, 48, 1, 1)), draw((24, 5, 3, 3)), draw((16, 20, 1, 1))]
+    cl = [w.contiguous(memory_format=torch.channels_last) for w in base]
+    flat = torch.empty(32 * 32 * 9 + 1, device="cuda")
+    off = flat[1:].view(32, 32, 3, 3)
+    off.copy_(draw((32, 32, 3, 3)))
+    return {
+        "ragged, contiguous": base,
+        "ragged, channels_last": cl,
+        "strided": [off, draw((64, 32, 3, 3))[::2],
+                    draw((32, 64, 3, 3))[:, ::2], draw((4, 8192, 3, 3)),
+                    base[0]],
+        "one": [draw((256, 256, 3, 3))],
+    }
+
+
+def grouped_check_phase() -> float:
+    """Phase 2b, the grouped weight kernel: ``quantize_weights_cuda``
+    against ``quantize_weights_plain`` on the card, bit for bit (0
+    differing values of w_q, s_w and scale), over all 292 HRNet-W32 and 53
+    ResNet-50 weights in one group each, channels_last and contiguous, and
+    the ragged groups; every w_q ``[Cout, kh, kw, Cin]`` contiguous at a
+    128-byte offset of its pool. Returns the largest |kernel - twin|."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        quantize_weights_cuda,
+        quantize_weights_plain,
+    )
+
+    groups = {}
+    for name in ("hrnet_w32", "resnet50"):
+        for tag, layout in (("channels_last", torch.channels_last),
+                            ("contiguous", torch.contiguous_format)):
+            groups[f"{name}, {tag}"] = model_quant_weights(name, layout)
+    groups.update(ragged_weight_groups())
+    err = 0.0
+    for label, ws in groups.items():
+        got = quantize_weights_cuda(ws, ACT_CLIP)
+        want = quantize_weights_plain(ws, ACT_CLIP)
+        torch.cuda.synchronize()
+        bad = 0
+        base = got[0][0].data_ptr()
+        for w, mine, plain in zip(ws, got, want):
+            cout, cin, kh, kw = w.shape
+            w_q = mine[0]
+            if (w_q.shape != (cout, kh, kw, cin) or not w_q.is_contiguous()
+                    or (w_q.data_ptr() - base) % 128):
+                fail(f"grouped weight kernel ({label}): w_q of "
+                     f"{tuple(w.shape)} is {tuple(w_q.shape)} at "
+                     f"{w_q.data_ptr() - base}")
+            for a, b in zip(mine, plain):
+                if a.shape != b.shape:
+                    fail(f"grouped weight kernel ({label}): shapes "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+                bad += int((a != b).sum())
+                err = max(err, float((a.float() - b.float()).abs().max()))
+        n = sum(w.numel() for w in ws)
+        print(f"[quantize_weights] {label}: {len(ws)} weights, {n} values: "
+              f"{bad} differing values against the twin")
+        if bad:
+            fail(f"the grouped weight kernel differs from its twin "
+                 f"({label}): {bad} values")
+    return err
+
+
 def int8_train_phase(batch, counters, n_quant: int) -> dict:
     """Phase 4b: HRNet-W32 256x256 bs32 under DTypePolicy.int8_fwd(), 3
-    fused train steps. Every loss finite; K1 3 launches, the int8 kernel 3
-    x the model's quantized convs. Returns the launches."""
+    fused train steps. Every loss finite; K1 3 launches, the int8 conv 3 x
+    the model's quantized convs, the grouped weight quantize 3 (one a
+    forward). Returns the launches."""
     import torch
 
     from lighthand_tpu_torch.core.dtypes import DTypePolicy
@@ -1158,7 +1288,7 @@ def int8_train_phase(batch, counters, n_quant: int) -> dict:
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite int8 train loss: {losses}")
     want = {"fused_aug_targets": 3, "heatmap_targets": 0,
-            "int8_conv": 3 * n_quant, "quantize_weight": 3 * n_quant}
+            "int8_conv": 3 * n_quant, "quantize_weight": 3}
     if counts != want:
         fail(f"int8 train launches {counts}, expected {want}")
     return counts
@@ -1168,8 +1298,8 @@ def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
     """Phase 5b: phase 4's trained W32 served under bf16 and under
     int8_fwd (the same weights through load_state_dict); prints the share
     of joints whose two predictions lie within 1 heatmap px of each other
-    on both axes. The int8 predict launches the kernel once per quantized
-    conv."""
+    on both axes. The int8 predict launches the conv kernel once a
+    quantized conv and the grouped weight quantize once."""
     import torch
 
     from lighthand_tpu_torch.core.dtypes import DTypePolicy
@@ -1195,9 +1325,9 @@ def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
             or not torch.isfinite(maxvals).all()):
         fail("non-finite int8 predictions")
     if counts != {"fused_aug_targets": 0, "heatmap_targets": 0,
-                  "int8_conv": n_quant, "quantize_weight": n_quant}:
-        fail(f"int8 serving launches {counts}, expected {n_quant} of each "
-             "int8 kernel")
+                  "int8_conv": n_quant, "quantize_weight": 1}:
+        fail(f"int8 serving launches {counts}, expected {n_quant} int8 "
+             "convs and 1 weight quantize")
     return counts
 
 
@@ -1214,7 +1344,8 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
     with ``--precision int8_fwd`` and with ``--test``. Checks exit code 0,
     evaluation.json's categories and counts, the three pck_eval files (5
     rows of finite AUC and EPE and 100 PCK values), the --test AUC lines,
-    and int8 launches of 53 per batch under int8_fwd and none otherwise.
+    and under int8_fwd 53 int8 conv launches and 1 weight quantize a batch,
+    none otherwise.
     Returns the launches summed over the three runs and img/s per run."""
     import numpy as np
 
@@ -1243,9 +1374,10 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
                   f"img/s ({n_rec} images, bs{B_TRAIN}); launches {counts}")
             if rc != 0:
                 fail(f"eval CLI ({tag}) exited {rc}")
-            n_int8 = n_quant * batches if tag == "int8_fwd" else 0
+            int8 = tag == "int8_fwd"
             want = {"fused_aug_targets": 0, "heatmap_targets": 0,
-                    "int8_conv": n_int8, "quantize_weight": n_int8}
+                    "int8_conv": n_quant * batches if int8 else 0,
+                    "quantize_weight": batches if int8 else 0}
             if counts != want:
                 fail(f"eval CLI ({tag}): launches {counts}, expected {want}")
             for name in total:
@@ -1480,8 +1612,6 @@ DIST_CHILD = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
 from lighthand_tpu_torch.cli import train
 from lighthand_tpu_torch.ops.kernels.fused_aug import fused_aug_targets_cuda
 from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
@@ -1639,8 +1769,9 @@ def dist_phase(counters, tmp: str) -> dict:
     contract (``LIGHTHAND_COORDINATOR`` on a free local port, 1 process,
     rank 0, ``--mesh-data 1 --mesh-model 1``) against a plain subprocess
     run of the same seed (SimpleBaseline ResNet-50, f32 as the JAX bound's
-    run, synthetic data, 64 train and 32 val samples, bs32, 1 epoch; TF32
-    off in both). Checks the NCCL backend and the replicated (not sharded)
+    run, synthetic data, 64 train and 32 val samples, bs32, 1 epoch; each
+    under the f32 policy's own full-f32 setting, which the child does not
+    touch). Checks the NCCL backend and the replicated (not sharded)
     model in the run's log line, Loss/train and Loss/valid within 5e-3
     relative of the plain run, and that ``cli.eval`` reads the checkpoint
     rank 0 wrote; times phase 4's step plain and on a 1 x 1 mesh
@@ -2324,15 +2455,68 @@ def host_us(fn, calls: int = 400) -> float:
     return t / calls * 1e6
 
 
-def quant_conv_breakdown(shapes: dict) -> dict:
+def grouped_times(kind: str) -> dict:
+    """Phase 8d, the grouped weight kernel over each whole model's weights
+    (``model_quant_weights``, channels_last): eager ms (events around 20
+    calls) and device ms (one call captured in a CUDA graph, replayed),
+    its byte bound (5 bytes a weight, 8 a channel), the plain twin's ms, a
+    call's host us; beside the per-conv launches of the same weights (a
+    group of one each, a launch a conv as before the grouped kernel), eager
+    and device ms of the loop over them. Returns {model: figures}."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        quantize_weight_cuda,
+        quantize_weights_cuda,
+        quantize_weights_plain,
+    )
+
+    out = {}
+    for name in ("hrnet_w32", "resnet50"):
+        ws = model_quant_weights(name, torch.channels_last)
+        group = lambda: quantize_weights_cuda(ws, ACT_CLIP)  # noqa: E731
+        per_conv = lambda: [quantize_weight_cuda(w, ACT_CLIP)  # noqa: E731
+                            for w in ws]
+        ms = eager_ms(group)
+        dev_ms, how = device_ms(group, capture(group))
+        per_ms = eager_ms(per_conv, calls=5)
+        per_dev, _ = device_ms(per_conv, capture(per_conv), calls=5)
+        plain_ms = eager_ms(lambda: quantize_weights_plain(ws, ACT_CLIP),
+                            calls=3, warmup=1)
+        values = sum(w.numel() for w in ws)
+        channels = sum(w.shape[0] for w in ws)
+        nbytes = 5 * values + 8 * channels
+        bound, by = bound_ms(nbytes, WEIGHT_OPS_PER_VALUE * values, kind)
+        host = host_us(group, calls=50)
+        print(f"[quantize_weights] {name}: {len(ws)} weights, {values} "
+              f"values, {channels} channels in one launch: eager {ms:.4f} "
+              f"ms, device {dev_ms:.4f} ms ({how}), bound {bound * 1e3:.2f} "
+              f"us by {by} ({nbytes / 1e6:.1f} MB), {100 * bound / dev_ms:.1f}"
+              f" % of bound, plain {plain_ms:.4f} ms, host {host:.1f} us a "
+              f"call; the same weights a launch a conv ({len(ws)} launches):"
+              f" eager {per_ms:.4f} ms, device {per_dev:.4f} ms")
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "host_us": host, "per_conv_ms": per_ms,
+                     "per_conv_device_ms": per_dev,
+                     "shape": f"{name}: {len(ws)} weights, {values} values"}
+        del ws
+    return out
+
+
+def quant_conv_breakdown(shapes: dict, grouped: dict) -> dict:
     """Phase 8d: a forward's quantized convs, every distinct shape of
     ResNet-50 and HRNet-W32 at batch 32 with bf16 activations: the device
-    time (CUDA graph replay) of ``ops/quant.py:quant_forward`` (the weight
-    quantize and the conv) and of the conv alone, times the shape's uses,
-    summed a forward, with each shape's plan; then the host microseconds a
-    call of ``quant_forward`` and of a bf16 conv with its weight cast (4 x
-    32 x 16 x 16, 3x3), the host work a quantized conv adds to an eager
-    forward."""
+    time (CUDA graph replay) of ``ops/quant.py:quant_forward`` with a
+    conv's own weight quantize (a group of one, as a ``QuantConv2d`` called
+    on its own) and of the conv alone, times the shape's uses, summed a
+    forward, with each shape's plan; a forward's quantized convs are the
+    convs alone and one grouped weight quantize (``grouped``, from
+    ``grouped_times``). Then the host microseconds a call of
+    ``quant_forward``, with its weights quantized already (as in a model's
+    forward) and quantizing its own, and of a bf16 conv with its weight
+    cast (4 x 32 x 16 x 16, 3x3), the host work a quantized conv adds to an
+    eager forward."""
     import torch
     import torch.nn.functional as F
 
@@ -2363,12 +2547,16 @@ def quant_conv_breakdown(shapes: dict) -> dict:
             del x, wt, w_q, scale
         total = sum(u * ms for _, u, ms, _, _ in rows)
         conv_total = sum(u * ms for _, u, _, ms, _ in rows)
-        result[name] = {"quantized_conv_ms": total, "conv_ms": conv_total}
-        print(f"[int8 convs] {name} bs{B_TRAIN}: {total:.4f} ms device time "
-              f"a forward in quantized convs ({len(rows)} shapes, "
-              f"{sum(u for _, u, _, _, _ in rows)} convs), the conv kernel "
-              f"alone {conv_total:.4f} ms; the heaviest (shape x uses: ms "
-              "a call whole / conv, plan):")
+        forward = conv_total + grouped[name]["device_ms"]
+        result[name] = {"quantized_conv_ms": forward, "conv_ms": conv_total,
+                        "per_conv_quantize_ms": total}
+        print(f"[int8 convs] {name} bs{B_TRAIN}: {forward:.4f} ms device "
+              f"time a forward in quantized convs ({len(rows)} shapes, "
+              f"{sum(u for _, u, _, _, _ in rows)} convs): the conv kernel "
+              f"{conv_total:.4f} ms and one grouped weight quantize "
+              f"{grouped[name]['device_ms']:.4f} ms; with a quantize a conv "
+              f"{total:.4f} ms; the heaviest (shape x uses: ms a call with "
+              "its quantize / conv, plan):")
         for shape, u, ms, c_ms, plan in sorted(
                 rows, key=lambda r: -r[1] * r[2])[:6]:
             print(f"    {shape} x{u}: {ms:.4f} / {c_ms:.4f} ms {plan}")
@@ -2376,8 +2564,11 @@ def quant_conv_breakdown(shapes: dict) -> dict:
         torch.bfloat16, memory_format=torch.channels_last)
     wt = torch.randn(32, 32, 3, 3, device="cuda").contiguous(
         memory_format=torch.channels_last)
+    made = quant.quantize_group([wt], ACT_CLIP)[0]
     result["host_us"] = {
         "quant_forward": host_us(lambda: quant.quant_forward(
+            x, wt, 1, 1, ACT_CLIP, torch.bfloat16, made)),
+        "quant_forward_own_quantize": host_us(lambda: quant.quant_forward(
             x, wt, 1, 1, ACT_CLIP, torch.bfloat16)),
         "bf16_cast_and_conv": host_us(lambda: F.conv2d(
             x, wt.to(torch.bfloat16), None, 1, 1))}
@@ -2720,7 +2911,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy, numerics
     from lighthand_tpu_torch.models import get_model
     from lighthand_tpu_torch.ops.color import normalize_imagenet
     from lighthand_tpu_torch.ops.heatmap import generate_target_batch
@@ -2736,7 +2927,7 @@ def main() -> int:
     )
     from lighthand_tpu_torch.ops.kernels.int8_conv import (
         int8_conv2d_cuda,
-        quantize_weight_cuda,
+        quantize_weights_cuda,
     )
     from lighthand_tpu_torch.train import (
         create_train_state,
@@ -2745,8 +2936,6 @@ def main() -> int:
         make_predict_step,
     )
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -2854,12 +3043,13 @@ def main() -> int:
     if n_quant != {"resnet50": 53, "hrnet_w32": 292}:
         fail(f"quantized conv counts {n_quant}, expected 53 and 292")
     weight_err, int8_err = int8_check_phase(shapes)
+    weight_err = max(weight_err, grouped_check_phase())
     # 2c. fault 3: the weight scale on the card is the CPU's
     quant_module_phase()
     counters = {"fused_aug_targets": fused_aug_targets_cuda,
                 "heatmap_targets": generate_target_batch_cuda,
                 "int8_conv": int8_conv2d_cuda,
-                "quantize_weight": quantize_weight_cuda}
+                "quantize_weight": quantize_weights_cuda}
 
     # 4. main path: train ---------------------------------------------------
     rng = np.random.default_rng(3)
@@ -3008,7 +3198,10 @@ def main() -> int:
           f"host codec ms {codec_ms}; eval CLI img/s (ResNet-50, 64 Armo "
           f"images) {eval_ips}")
 
-    # 7. reference: the trained weights in f32, card vs CPU ----------------
+    # 7. reference: the trained weights in f32, card vs CPU, with both TF32
+    # switches on outside the f32 policy's own context ---------------------
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
     weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     f32 = DTypePolicy.full_precision()
     cpu_model = get_model("hrnet_w32", policy=f32).eval()
@@ -3020,16 +3213,21 @@ def main() -> int:
         size=(2, 64, 64, 3)).astype(np.float32)).permute(0, 3, 1, 2)
     with torch.no_grad():
         ref = cpu_model(x)
-        got = gpu_model(x.to(dev)).cpu()
+        with numerics(f32):
+            got = gpu_model(x.to(dev)).cpu()
         got_bf16 = state.model.eval()(x.to(dev)).float().cpu()
     err = float((got - ref).abs().max())
     ok = bool(torch.allclose(got, ref, atol=2e-4, rtol=1e-3))
     rel16 = float((got_bf16 - ref).abs().max() / ref.abs().max())
-    print(f"[reference] W32 f32 card vs CPU at 64x64: max|diff| {err:.3g} "
-          f"(atol 2e-4, rtol 1e-3: {ok}); bf16 card vs f32 CPU: max|diff| / "
-          f"max|ref| = {rel16:.3g}")
+    print(f"[reference] W32 f32 card vs CPU at 64x64, TF32 on outside the "
+          f"f32 policy's context: max|diff| {err:.3g} (atol 2e-4, rtol 1e-3:"
+          f" {ok}); bf16 card vs f32 CPU: max|diff| / max|ref| = "
+          f"{rel16:.3g}")
     if not ok:
         fail("the port's W32 forward on the card disagrees with the CPU")
+    # the phases from here on only time kernels, with f32 math full f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # 8. kernel times and bounds -------------------------------------------
     def cases(b, seed):
@@ -3106,9 +3304,14 @@ def main() -> int:
               "forward at bs32")
         timed[name] = int8_times(kind, heavy, 900 + i)
     forward_times()
-    breakdown = quant_conv_breakdown(shapes)
-    conv_row, weight_row = max(
+    grouped = grouped_times(kind)
+    breakdown = quant_conv_breakdown(shapes, grouped)
+    conv_row, _ = max(
         timed.values(), key=lambda t: conv_ops(B_TRAIN, t[0]["shape"]))
+    weight_row = {**grouped["hrnet_w32"],
+                  "resnet50": grouped["resnet50"],
+                  "heaviest_shape": {name: fig for name, (_, fig)
+                                     in timed.items()}}
     for name, fig, err, replaces in (
             ("int8_conv", conv_row, int8_err,
              "lighthand_tpu/ops/quant.py:54"),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the port's two CUDA kernels spend their time, on one NVIDIA GPU.
+"""Where the port's CUDA kernels and forwards spend their time, on one
+NVIDIA GPU.
 
     python3 kernel_breakdown.py                 # this checkout's kernels
     python3 kernel_breakdown.py --root DIR      # the kernels of another
@@ -14,8 +15,15 @@ bf16 under op mixes that isolate its parts: jitter off (load, noise,
 normalize, store, targets), each op four times in every sample, every
 sample jittered with the 24 op orders, and the smoke's mix. It prints the
 ptxas report and, where ``cuobjdump`` is found, K1's SASS instruction and
-division (MUFU.RCP) counts. The last line is one JSON object with every
-number. Without a card it exits nonzero and prints no result.
+division (MUFU.RCP) counts. Then the eval forward of ResNet-50 and
+HRNet-W32 at bs32, 256x256, under bf16 and int8_fwd (the same random
+weights): CUDA events around 5 blocks of 4 forwards after 3 warm-ups, the
+host ms a forward of 4 unsynchronised calls, and the profiler's device
+ms and kernel count a forward over 3, with the int8 weight quantize's
+share (every kernel whose name holds ``quantize_weight``). With ``--root``
+run parent, change, change, parent in one call to compare two commits.
+The last line is one JSON object with every number. Without a card it
+exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import chip_smoke as cs
 
@@ -59,6 +68,57 @@ def sass_counts(lib_path: str):
             counts[name][0] += 1
             counts[name][1] += "MUFU.RCP" in line
     return counts
+
+
+def forwards() -> dict:
+    """{"model policy": figures} of the eval forwards (see the module
+    docstring), from whichever ``lighthand_tpu_torch`` is on the path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.models.layers import init_weights
+
+    x = torch.randn(cs.B_TRAIN, 3, cs.SIZE, cs.SIZE, device="cuda").to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    out = {}
+    for name in ("resnet50", "hrnet_w32"):
+        for tag, policy in (("bf16", DTypePolicy()),
+                            ("int8_fwd", DTypePolicy.int8_fwd())):
+            model = get_model(name, policy=policy)
+            init_weights(model, torch.Generator().manual_seed(0))
+            model = model.eval().to("cuda", memory_format=torch.channels_last)
+            with torch.no_grad():
+                blocks = sorted(cs.eager_ms(lambda: model(x), calls=4,
+                                            warmup=3) for _ in range(5))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    model(x)
+                host = (time.perf_counter() - t0) / 4 * 1e3
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        model(x)
+                    torch.cuda.synchronize()
+            kernels = [(e.self_device_time_total / 3e3, e.count // 3, e.key)
+                       for e in prof.key_averages()
+                       if e.self_device_time_total > 0]
+            quant = [k for k in kernels if "quantize_weight" in k[2]]
+            fig = {"ms": blocks, "host_ms": host,
+                   "kernel_ms": sum(k[0] for k in kernels),
+                   "kernels": sum(k[1] for k in kernels),
+                   "quantize_ms": sum(k[0] for k in quant),
+                   "quantize_launches": sum(k[1] for k in quant)}
+            out[f"{name} {tag}"] = fig
+            print(f"[forward] {name} {tag} bs{cs.B_TRAIN}: ms a forward "
+                  f"(5 blocks of 4) {[round(t, 3) for t in blocks]}, host "
+                  f"{host:.3f} ms, kernels {fig['kernel_ms']:.3f} ms x"
+                  f"{fig['kernels']}, weight quantize "
+                  f"{fig['quantize_ms']:.4f} ms x{fig['quantize_launches']}")
+            del model
+    return out
 
 
 def main() -> int:
@@ -129,6 +189,7 @@ def main() -> int:
                 print(f"[K1 mix] B={b} {mix}: device {dev_ms:.4f} ms ({how})")
             result["mixes"]["smoke mix"] = \
                 result["times"][f"fused_aug_targets B={b}"]["device_ms"]
+    result["forwards"] = forwards()
     print(json.dumps(result))
     return 0
 

@@ -36,7 +36,7 @@ from lighthand_tpu_torch.core.dist import (
     shutdown,
 )
 from lighthand_tpu_torch.core.mesh import MeshSpec, create_mesh, is_host_leader
-from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.core.dtypes import DTypePolicy, numerics
 from lighthand_tpu_torch.data import Loader, build_dataset, preprocess_u8
 from lighthand_tpu_torch.eval.harness import (
     pred_eval,
@@ -152,8 +152,8 @@ def _evaluate(cfg) -> int:
         # --precision int8_fwd is a SERVING override: quantized-forward
         # convs (ops/quant.py) on any checkpoint, which shares the bf16
         # parameters. Otherwise the checkpoint's recorded precision wins.
-        model = get_model(model_name,
-                          policy=serving_policy(cfg.model.precision, info))
+        policy = serving_policy(cfg.model.precision, info)
+        model = get_model(model_name, policy=policy)
         state = load_weights_only(create_train_state(model, device=device),
                                   ckpt)
 
@@ -170,20 +170,23 @@ def _evaluate(cfg) -> int:
                         drop_last=False,  # keep all 971 eval samples
                         mesh=mesh)
         # preprocess_u8 normalises to bf16 whatever the policy, as the JAX
-        # CLI's DevicePreprocessor(jitter=False) does
-        if cfg.eval.test:
-            # flat --test flow (reference pred_store_test/pred_test,
-            # argparser.py:284-323,391-438): final_model/{name}/test.json
-            out_json = os.path.join("final_model", run_name, "test.json")
-            pred_store_test(loader, predict, out_json,
-                            preprocess=preprocess_u8, mesh=mesh)
-        else:
-            out_json = os.path.join("output", run_name, "evaluation.json")
-            overlay_dir = (os.path.join("output", run_name)
-                           if cfg.eval.plt else None)
-            pred_store(loader, predict, out_json, preprocess=preprocess_u8,
-                       overlay_dir=overlay_dir,
-                       overlay_max=cfg.eval.plt_max, mesh=mesh)
+        # CLI's DevicePreprocessor(jitter=False) does; an f32 checkpoint
+        # predicts in full f32 (core/dtypes.py:numerics)
+        with numerics(policy):
+            if cfg.eval.test:
+                # flat --test flow (reference pred_store_test/pred_test,
+                # argparser.py:284-323,391-438): final_model/{name}/test.json
+                out_json = os.path.join("final_model", run_name, "test.json")
+                pred_store_test(loader, predict, out_json,
+                                preprocess=preprocess_u8, mesh=mesh)
+            else:
+                out_json = os.path.join("output", run_name,
+                                        "evaluation.json")
+                overlay_dir = (os.path.join("output", run_name)
+                               if cfg.eval.plt else None)
+                pred_store(loader, predict, out_json,
+                           preprocess=preprocess_u8, overlay_dir=overlay_dir,
+                           overlay_max=cfg.eval.plt_max, mesh=mesh)
         stores.append((out_json, run_name))
 
     watchdog.stop()

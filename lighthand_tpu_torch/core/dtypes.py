@@ -16,11 +16,21 @@ therefore numerically the default policy in both packages, and the port's
 ``quant_fwd`` runs every backbone conv (the JAX package's ``ConvBN``) as
 an int8 forward with a straight-through backward (``ops/quant.py``); the
 deconv head and the final 1x1 stay in ``compute_dtype``.
+
+f32 (``full_precision``) means full f32 on the card too, as the JAX
+package computes on the CPU and as the tests hold the port: torch's cuDNN
+convolutions default to TF32 (10-bit mantissas), so the entry points run
+an f32 policy inside ``numerics(policy)``, which turns TF32 off for convs
+and matmuls and restores both switches on exit. The other policies compute
+their convs in bf16, which TF32 does not touch, and leave the switches as
+they are.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Iterator
 
 import torch
 
@@ -48,3 +58,23 @@ class DTypePolicy:
 
 
 DEFAULT_POLICY = DTypePolicy()
+
+
+@contextlib.contextmanager
+def numerics(policy: DTypePolicy) -> Iterator[None]:
+    """Run ``policy``'s f32 math as full f32: for an f32 ``compute_dtype``,
+    ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` are False inside and restored
+    on exit; any other policy changes neither."""
+    if policy.compute_dtype != torch.float32:
+        yield
+        return
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before

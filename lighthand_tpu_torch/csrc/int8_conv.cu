@@ -1,8 +1,9 @@
 // The int8_fwd policy's quantized convolution in two kernels, NHWC:
 //
-//   lh_quantize_weight: f32 master weights w [Cout, Cin, kh, kw] (any
-//     strides) -> w_q s8 [Cout, kh, kw, Cin], s_w f32 [Cout] and the
-//     dequantising scale f32 [Cout], one block per output channel;
+//   lh_quantize_weights: the f32 master weights w [Cout, Cin, kh, kw] (any
+//     strides) of a list of convs -> w_q s8 [Cout, kh, kw, Cin], s_w f32
+//     [Cout] and the dequantising scale f32 [Cout] of each, one launch for
+//     the list (a model's forward quantizes all its convs in one);
 //   lh_int8_conv: x bf16 or f32 [N, H, W, Cin], quantized as it is loaded,
 //     times w_q -> y [N, Ho, Wo, Cout] = float(sum x_q * w_q) * scale[c],
 //     bf16 or f32.
@@ -37,7 +38,7 @@
 // against 2.1 us of bytes), bytes where it is small (HRNet-W32's 3x3 32 ->
 // 32 at 64^2: 16.8 MB of bf16 in and out, 5.0 us against 1.2 us of
 // operations). The weight kernel is bound by bytes: 5 bytes a weight (f32
-// in, s8 out) and 8 a channel.
+// in, s8 out) and 8 a channel; its own note says what its design does.
 //
 // Design of the conv: an implicit GEMM, M = N*Ho*Wo output pixels by Cout
 // channels by K = kh*kw*Cin, that reads each activation once a block.
@@ -780,46 +781,264 @@ int8_conv_wgmma(const __grid_constant__ CUtensorMap wmap,
 }
 
 // ------------------------------------------------------- weight quantize
+//
+// quantize_weights_kernel: the weights of every quantized conv of a
+// forward in one launch. Replaces XLA's per-channel weight quantize,
+// lighthand_tpu/ops/quant.py:45-47, which the JAX package runs in each
+// conv; the function is the same. Bound: bytes, 4 read and 1 written a
+// weight and 8 written a channel (HRNet-W32's 28.5 M weights: 142.6 MB,
+// 42.6 us at 3.35 TB/s). The per-value IEEE division (about 20
+// instructions) costs about as much, so the design keeps copies in flight
+// under the arithmetic:
+//   - the host (ops/kernels/int8_conv.py:quantize_plan) writes a table: a
+//     row a conv (QConv) and a flat list of work items, each some output
+//     channels of one conv, about 16 KB of f32 an item (one channel where K
+//     = Cin * kh * kw is large, up to 64 where it is small, a conv's
+//     channels split evenly), so that the items are even in bytes;
+//   - a persistent grid (as many blocks as fit on the SMs at once) walks
+//     the items with a stride of the grid. A block stages item i +
+//     grid by a 1D TMA bulk copy (cp.async.bulk, completed on an mbarrier)
+//     into one of two buffers while it quantizes item i from the other, so
+//     every weight is read from device memory once: one output channel's K
+//     values are one span in the contiguous and the channels_last layouts;
+//   - amax: a warp a channel (or a slice of one where the item has fewer
+//     channels than warps), the warp max of the bit patterns of |w| (non-
+//     negative floats order as their bits), then a shared-memory atomicMax;
+//     a max is exact in any order;
+//   - stores: where the staged rows are in w_q's [kh, kw, Cin] order
+//     (channels_last masters, 1x1 convs) and K % 16 == 0, a thread
+//     quantizes the 4 values of one float4 and four lanes pool their words
+//     into one 16-byte store; otherwise (contiguous masters, whose rows are
+//     transposed through shared memory, and ragged K) a thread writes
+//     16-byte chunks of w_q, its source index set up once a chunk and
+//     stepped by counters;
+//   - rows the bulk copy cannot take (a source not 16-byte aligned, or K
+//     % 4 != 0: the stems' K = 27 and 147) are staged by the block's own
+//     loads, float4 where aligned; rows of other strides, or larger than a
+//     stage buffer, are read from device memory where they lie (twice).
 
 constexpr int kQThreads = 256;
+constexpr int kQWarps = kQThreads / 32;
+constexpr int kQMaxCh = 64;            // channels an item
+constexpr int kQMaxStage = 96 * 1024;  // bytes a stage buffer
+enum QMode { kQBulk = 0, kQLoad = 1, kQGlobal = 2 };
 
-// One block per output channel co: the amax of |w[co]| over the block (a
-// max is exact in any order), then w_q[co] in [kh, kw, Cin] order (the
-// conv's K order), so the stores are contiguous and, for channels_last
-// master weights, so are the loads.
+// A conv's row of the table (ops/kernels/int8_conv.py:QCONV packs it).
+struct QConv {
+  const float* w;            // f32 master weights [cout, cin, kh, kw]
+  long long s0, s1, s2, s3;  // their element strides
+  long long wq;              // byte offset of w_q [cout, kh, kw, cin]
+  int cout, cin, kh, kw;
+  int sw;    // offset of s_w in the f32 pool; scale at n_sw + sw
+  int cpi;   // channels an item
+  int mode;  // QMode
+  int flat;  // staged rows in [kh, kw, cin] order and K % 16 == 0
+};
+static_assert(sizeof(QConv) == 80, "QConv is the table's 80-byte row");
+
+// JAX's weight quantize of one value: clip(round(w / s_w), -127, 127),
+// an IEEE division.
+__device__ __forceinline__ int quantize_w(float v, float sw) {
+  return (int)fminf(fmaxf(rintf(v / sw), -127.0f), 127.0f);
+}
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __global__ void __launch_bounds__(kQThreads)
-quantize_weight_kernel(const float* __restrict__ w, long long s0,
-                       long long s1, long long s2, long long s3, int cin,
-                       int kh, int kw, float sx, int8_t* __restrict__ w_q,
-                       float* __restrict__ s_w, float* __restrict__ scale) {
-  __shared__ float s_max[kQThreads / 32];
-  const int co = blockIdx.x;
-  const int K = kh * kw * cin;
-  const float* wc = w + co * s0;
-  auto at = [&](int k) {
-    const int rs = k / cin;
-    const int c = k - rs * cin;
-    const int r = rs / kw;
-    return wc[c * s1 + r * s2 + (rs - r * kw) * s3];
-  };
-  float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += kQThreads)
-    amax = fmaxf(amax, fabsf(at(k)));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = amax;
+quantize_weights_kernel(const QConv* __restrict__ convs,
+                        const int2* __restrict__ items, int n_items,
+                        int stage_bytes, float sx, int8_t* __restrict__ wq,
+                        float* __restrict__ fpool, int n_sw) {
+  extern __shared__ __align__(16) uint8_t q_smem[];
+  __shared__ uint64_t bar[2];
+  __shared__ unsigned s_amax[kQMaxCh];
+  __shared__ float s_sw[kQMaxCh];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* const stage[2] = {reinterpret_cast<float*>(q_smem),
+                           reinterpret_cast<float*>(q_smem + stage_bytes)};
+
+  if (tid < kQMaxCh) s_amax[tid] = 0u;
+  if (tid == 0) {
+    mbar_init(smem_addr(&bar[0]), 1);
+    mbar_init(smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  amax = s_max[0];
-  for (int i = 1; i < kQThreads / 32; ++i) amax = fmaxf(amax, s_max[i]);
-  const float m = fmaxf(amax, 1e-8f);
-  const float sw = m / 127.0f;  // IEEE division, as eager JAX divides
-  int8_t* out = w_q + (long long)co * K;
-  for (int k = threadIdx.x; k < K; k += kQThreads)
-    out[k] = (int8_t)fminf(fmaxf(rintf(at(k) / sw), -127.0f), 127.0f);
-  if (threadIdx.x == 0) {
-    s_w[co] = sw;
-    scale[co] = sw * sx;
+
+  // Thread 0: item it's rows by bulk copy into buffer b (bulk items only).
+  // The buffer was last read before a __syncthreads; the proxy fence orders
+  // those reads before the copy's writes.
+  auto issue = [&](int it, int b) {
+    const int2 item = items[it];
+    const QConv& c = convs[item.x];
+    if (c.mode != kQBulk) return;
+    const int K = c.cin * c.kh * c.kw;
+    const int nch = min(c.cpi, c.cout - item.y);
+    const uint32_t row = 4u * K, bar_b = smem_addr(&bar[b]);
+    const uint32_t dst = smem_addr(stage[b]);
+    const float* src = c.w + item.y * c.s0;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar_b, nch * row);
+    if (c.s0 == K) {
+      bulk_load(dst, src, nch * row, bar_b);
+    } else {
+      for (int i = 0; i < nch; ++i)
+        bulk_load(dst + i * row, src + i * c.s0, row, bar_b);
+    }
+  };
+
+  unsigned phase = 0;  // bit b: the parity of buffer b's next completion
+  int b = 0;
+  if (tid == 0 && (int)blockIdx.x < n_items) issue(blockIdx.x, 0);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x, b ^= 1) {
+    if (tid == 0 && it + (int)gridDim.x < n_items)
+      issue(it + gridDim.x, b ^ 1);
+    const int2 item = items[it];
+    const QConv c = convs[item.x];
+    const int ch0 = item.y, K = c.cin * c.kh * c.kw;
+    const int nch = min(c.cpi, c.cout - ch0);
+    const int n = nch * K;  // values (and w_q bytes) of the item
+    float* const st = stage[b];
+    const float* src = st;  // channel 0 of the item: staged, or in place
+    long long chs = K;      // values from one channel's row to the next
+    if (c.mode == kQBulk) {
+      mbar_wait(smem_addr(&bar[b]), (phase >> b) & 1);
+      phase ^= 1u << b;
+    } else if (c.mode == kQLoad) {  // dense, adjacent rows (s0 == K)
+      const float* g = c.w + ch0 * c.s0;
+      if (((uintptr_t)g & 15) == 0 && (n & 3) == 0) {
+        for (int i = tid; i < n / 4; i += kQThreads)
+          reinterpret_cast<float4*>(st)[i] =
+              __ldg(reinterpret_cast<const float4*>(g) + i);
+      } else {
+        for (int i = tid; i < n; i += kQThreads) st[i] = __ldg(g + i);
+      }
+      __syncthreads();
+    } else {
+      src = c.w + ch0 * c.s0;
+      chs = c.s0;
+    }
+
+    // amax of each channel: warps over (channel, slice) units
+    const int parts = nch >= kQWarps ? 1 : kQWarps / nch;
+    for (int u = warp; u < nch * parts; u += kQWarps) {
+      const int ch = u / parts, part = u - ch * parts;
+      unsigned m = 0u;
+      if (c.mode != kQGlobal && (K & 3) == 0) {
+        const float4* r4 = reinterpret_cast<const float4*>(src + ch * K);
+        const int n4 = K / 4;
+        const int hi = (part + 1) * n4 / parts;
+        for (int j = part * n4 / parts + lane; j < hi; j += 32) {
+          const float4 v = r4[j];
+          m = max(max(m, max(abs_bits(v.x), abs_bits(v.y))),
+                  max(abs_bits(v.z), abs_bits(v.w)));
+        }
+      } else if (c.mode != kQGlobal) {
+        const float* row = src + ch * K;
+        const int hi = (part + 1) * K / parts;
+        for (int j = part * K / parts + lane; j < hi; j += 32)
+          m = max(m, abs_bits(row[j]));
+      } else {
+        const float* row = src + ch * chs;
+        const int hi = (int)((long long)(part + 1) * K / parts);
+        for (int k = (int)((long long)part * K / parts) + lane; k < hi;
+             k += 32) {
+          const int rs = k / c.cin, ci = k - rs * c.cin, r = rs / c.kw;
+          m = max(m, abs_bits(__ldg(row + ci * c.s1 + r * c.s2 +
+                                    (rs - r * c.kw) * c.s3)));
+        }
+      }
+      m = __reduce_max_sync(0xffffffffu, m);
+      if (lane == 0) atomicMax(&s_amax[ch], m);
+    }
+    __syncthreads();
+    if (tid < nch) {
+      const float amax = __uint_as_float(s_amax[tid]);
+      s_amax[tid] = 0u;
+      const float m = fmaxf(amax, 1e-8f);
+      const float sw = m / 127.0f;  // IEEE division, as eager JAX divides
+      s_sw[tid] = sw;
+      fpool[c.sw + ch0 + tid] = sw;
+      fpool[n_sw + c.sw + ch0 + tid] = sw * sx;
+    }
+    __syncthreads();
+
+    // w_q: the item's bytes are one span [lo, lo + n) of the s8 pool
+    const long long lo = c.wq + (long long)ch0 * K;
+    if (c.flat) {
+      // a word of 4 values never straddles a channel; the span is 16-byte
+      // aligned (the pool's offsets are multiples of 128)
+      const float4* s4 = reinterpret_cast<const float4*>(src);
+      uint4* out = reinterpret_cast<uint4*>(wq + lo);
+      const float inv_k = 1.0f / (float)K;
+      for (int base = warp * 32; base < n / 4; base += kQThreads) {
+        const int u = base + lane;
+        uint32_t word = 0u;
+        if (u < n / 4) {
+          int ch = (int)((float)(4 * u) * inv_k);  // then made exact
+          if (ch * K > 4 * u)
+            --ch;
+          else if ((ch + 1) * K <= 4 * u)
+            ++ch;
+          const float sw = s_sw[ch];
+          const float4 v = s4[u];
+          word = pack4(quantize_w(v.x, sw), quantize_w(v.y, sw),
+                       quantize_w(v.z, sw), quantize_w(v.w, sw));
+        }
+        const uint32_t w1 = __shfl_down_sync(0xffffffffu, word, 1);
+        const uint32_t w2 = __shfl_down_sync(0xffffffffu, word, 2);
+        const uint32_t w3 = __shfl_down_sync(0xffffffffu, word, 3);
+        if ((lane & 3) == 0 && u < n / 4)
+          out[u >> 2] = make_uint4(word, w1, w2, w3);
+      }
+    } else {
+      // 16-byte chunks of the pool that meet the span; a chunk's first
+      // value's channel and (r, s, ci) by division, then counters
+      for (long long q = (lo >> 4) + tid; q < (lo + n + 15) >> 4;
+           q += kQThreads) {
+        int e = (int)((q << 4) - lo);  // the chunk's first byte in the span
+        const bool whole = e >= 0 && e + 16 <= n;
+        const int first = max(e, 0);
+        int ch = first / K;
+        const int k = first - ch * K;
+        const int rs = k / c.cin;
+        int ci = k - rs * c.cin, r = rs / c.kw, s = rs - r * c.kw;
+        uint32_t word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 16; ++i, ++e) {
+          if (e < 0 || e >= n) continue;
+          const float v = src[ch * chs + ci * c.s1 + r * c.s2 + s * c.s3];
+          const int qv = quantize_w(v, s_sw[ch]);
+          word[i >> 2] |= (uint32_t)(qv & 0xff) << (8 * (i & 3));
+          if (!whole) wq[lo + e] = (int8_t)qv;
+          if (++ci == c.cin) {
+            ci = 0;
+            if (++s == c.kw) {
+              s = 0;
+              if (++r == c.kh) {
+                r = 0;
+                ++ch;
+              }
+            }
+          }
+        }
+        if (whole)
+          *reinterpret_cast<uint4*>(wq + (q << 4)) =
+              make_uint4(word[0], word[1], word[2], word[3]);
+      }
+    }
+    __syncthreads();  // the stage buffer, s_sw and s_amax free again
   }
 }
 
@@ -1055,18 +1274,42 @@ extern "C" int lh_int8_conv_plan(const void* x, int x_f32, const void* w,
   return 0;
 }
 
-// w: [cout, cin, kh, kw] f32 with element strides (s0, s1, s2, s3); sx:
-// f32(act_clip / 127); w_q: [cout, kh, kw, cin] s8, s_w and scale: [cout]
-// f32, all dense. Returns cudaGetLastError() after the one launch.
-extern "C" int lh_quantize_weight(const float* w, long long s0, long long s1,
-                                  long long s2, long long s3, int cout,
-                                  int cin, int kh, int kw, float sx,
-                                  int8_t* w_q, float* s_w, float* scale,
-                                  void* stream) {
-  if (cout == 0) return 0;
-  if (cout < 0 || cout > 0x7fffffff || cin <= 0 || kh <= 0 || kw <= 0)
+// table: n_convs QConv rows, then (from the next multiple of 16 bytes)
+// n_items int2 items (conv, first channel), as ops/kernels/int8_conv.py:
+// quantize_plan writes them; stage_bytes: a stage buffer, at most
+// kQMaxStage, a multiple of 16; sx: f32(act_clip / 127); w_q: the s8 pool;
+// fpool: s_w then scale, n_sw f32 each. Returns cudaGetLastError() after
+// the one launch.
+extern "C" int lh_quantize_weights(const void* table, int n_convs,
+                                   int n_items, int stage_bytes, float sx,
+                                   int8_t* w_q, float* fpool, int n_sw,
+                                   void* stream) {
+  if (n_items == 0) return 0;
+  if (n_convs <= 0 || n_items < 0 || stage_bytes < 0 ||
+      stage_bytes > kQMaxStage || stage_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  quantize_weight_kernel<<<cout, kQThreads, 0, (cudaStream_t)stream>>>(
-      w, s0, s1, s2, s3, cin, kh, kw, sx, w_q, s_w, scale);
+  const QConv* convs = static_cast<const QConv*>(table);
+  const int2* items = reinterpret_cast<const int2*>(
+      static_cast<const uint8_t*>(table) +
+      (((long long)n_convs * sizeof(QConv) + 15) & ~15LL));
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        quantize_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        2 * kQMaxStage);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int smem = 2 * stage_bytes;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, quantize_weights_kernel, kQThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  // as many blocks as fit on the card at once (five of 256 threads at 48
+  // registers), each walking its items
+  const long long fill = (long long)(per_sm < 1 ? 1 : per_sm) * sm_count();
+  const int blocks = (int)(n_items < fill ? n_items : fill);
+  quantize_weights_kernel<<<blocks, kQThreads, smem, (cudaStream_t)stream>>>(
+      convs, items, n_items, stage_bytes, sx, w_q, fpool, n_sw);
   return (int)cudaGetLastError();
 }

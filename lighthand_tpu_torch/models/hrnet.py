@@ -28,6 +28,8 @@ from lighthand_tpu_torch.models.layers import (
     ConvBN,
     conv,
     nearest_upsample,
+    quant_convs,
+    quantized_weights,
 )
 
 
@@ -174,6 +176,7 @@ class PoseHRNet(nn.Module):
         # final 1x1 conv on the highest-resolution branch (pose_hrnet.py:323)
         self.final_layer = conv(chans[0], cfg.num_joints,
                                 cfg.final_conv_kernel, bias=True)
+        self.quant_convs = quant_convs(self)
 
     @staticmethod
     def _widths(cfg: HRNetStageCfg) -> List[int]:
@@ -217,11 +220,13 @@ class PoseHRNet(nn.Module):
                 for i, layer in enumerate(layers)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.policy.compute_dtype)
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        x = self.layer1(x)
-        xs = self.stage2(self._transition(self.transition1, [x]))
-        xs = self.stage3(self._transition(self.transition2, xs))
-        xs = self.stage4(self._transition(self.transition3, xs))
-        return self.final_layer(xs[0]).to(self.policy.output_dtype)
+        # under int8_fwd, every QuantConv2d weight quantized in one call
+        with quantized_weights(self.quant_convs):
+            x = x.to(self.policy.compute_dtype)
+            x = torch.relu(self.bn1(self.conv1(x)))
+            x = torch.relu(self.bn2(self.conv2(x)))
+            x = self.layer1(x)
+            xs = self.stage2(self._transition(self.transition1, [x]))
+            xs = self.stage3(self._transition(self.transition2, xs))
+            xs = self.stage4(self._transition(self.transition3, xs))
+            return self.final_layer(xs[0]).to(self.policy.output_dtype)

@@ -20,19 +20,23 @@ Numerics that follow the JAX package rather than torch's habits:
 - under a policy with ``quant_fwd``, every conv the JAX package wraps in
   ``ConvBN`` (stems, block convs, downsamples, HRNet's transitions and
   fuse layers) is a ``QuantConv2d``: the same ``weight`` parameter and
-  ``state_dict`` key, an int8 forward (``ops/quant.py``).
+  ``state_dict`` key, an int8 forward (``ops/quant.py``). A model's forward
+  quantizes all their weights in one grouped call first
+  (``quantized_weights``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from lighthand_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
-from lighthand_tpu_torch.ops.quant import int8_conv
+from lighthand_tpu_torch.ops import quant
 
 BN_MOMENTUM = 0.1  # torch convention; == 1 - flax momentum 0.9
 BN_EPS = 1e-5
@@ -50,7 +54,11 @@ class Conv2d(nn.Conv2d):
 class QuantConv2d(Conv2d):
     """int8-forward conv (``ops/quant.py:int8_conv``, STE backward) with the
     parameters of the ``Conv2d`` it replaces, so the bf16 and int8_fwd
-    policies share checkpoints. No bias: no backbone conv has one."""
+    policies share checkpoints. No bias: no backbone conv has one.
+
+    Inside its model's forward it takes the (``w_q``, ``scale``) that
+    ``quantized_weights`` made for that forward; called on its own, it
+    quantizes its weight itself (a group of one)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  policy: DTypePolicy):
@@ -58,10 +66,41 @@ class QuantConv2d(Conv2d):
                          padding=kernel // 2, bias=False)
         self.act_clip = policy.act_clip
         self.compute_dtype = policy.compute_dtype
+        self.quantized = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_conv(x, self.weight, self.stride[0], self.padding[0],
-                         self.act_clip, self.compute_dtype)
+        return quant.int8_conv(x, self.weight, self.stride[0],
+                               self.padding[0], self.act_clip,
+                               self.compute_dtype, self.quantized)
+
+
+def quant_convs(model: nn.Module) -> tuple:
+    """``model``'s ``QuantConv2d`` modules, in ``modules()`` order."""
+    return tuple(m for m in model.modules() if isinstance(m, QuantConv2d))
+
+
+@contextlib.contextmanager
+def quantized_weights(convs: Sequence[QuantConv2d]) -> Iterator[None]:
+    """For the span of a model's forward, each conv of ``convs`` holds the
+    (``w_q``, ``scale``) of its weight, all made by one grouped call
+    (``ops/quant.py:quantize_group``: one kernel launch on the card) before
+    the first conv runs. They are cleared on exit, so no ``w_q`` outlives
+    the forward that made it. Under FSDP2 the root's forward sees the
+    unsharded weights, so the call does too."""
+    if not convs:
+        yield
+        return
+    # one policy builds a model, so its convs share one act_clip
+    made = quant.quantize_group([c.weight for c in convs], convs[0].act_clip)
+    # straight into each module's __dict__: nn.Module.__setattr__ costs
+    # about 2 us a call, 1 ms a W32 forward
+    try:
+        for c, q in zip(convs, made):
+            vars(c)["quantized"] = q
+        yield
+    finally:
+        for c in convs:
+            vars(c)["quantized"] = None
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,

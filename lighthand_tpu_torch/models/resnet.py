@@ -29,6 +29,8 @@ from lighthand_tpu_torch.models.layers import (
     ConvTranspose2d,
     conv,
     max_pool_3x3_s2,
+    quant_convs,
+    quantized_weights,
 )
 
 # resnet_spec (pose_resnet.py:301-305)
@@ -78,10 +80,13 @@ class PoseResNet(nn.Module):
         self.deconv_layers = nn.Sequential(*head)
         self.final_layer = conv(inplanes, num_joints, final_conv_kernel,
                                 bias=True)
+        self.quant_convs = quant_convs(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.policy.compute_dtype)
-        x = max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x))))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        x = self.deconv_layers(x)
-        return self.final_layer(x).to(self.policy.output_dtype)
+        # under int8_fwd, every QuantConv2d weight quantized in one call
+        with quantized_weights(self.quant_convs):
+            x = x.to(self.policy.compute_dtype)
+            x = max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x))))
+            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            x = self.deconv_layers(x)
+            return self.final_layer(x).to(self.policy.output_dtype)

@@ -1,8 +1,9 @@
 """The int8_fwd policy's quantized convolution as two CUDA kernels
 (``csrc/int8_conv.cu``), with their plain twins:
 
-- ``quantize_weight_cuda``: the f32 master weights to s8 per output channel,
-  their scales and the dequantizing scales, one launch;
+- ``quantize_weights_cuda``: the f32 master weights of a list of convs to
+  s8 per output channel, their scales and the dequantizing scales, one
+  launch for the list (``quantize_weight_cuda``: a list of one);
 - ``int8_conv2d_cuda``: the conv on float activations, which the kernel
   quantizes at the static clip as it loads them, with the dequantizing
   epilogue.
@@ -23,6 +24,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import struct
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +86,12 @@ def quantize_weight_plain(w: torch.Tensor, act_clip: float):
     return w_q, s_w, s_w * act_scale(act_clip)
 
 
+def quantize_weights_plain(ws: Sequence[torch.Tensor], act_clip: float):
+    """The grouped weight kernel's function: ``quantize_weight_plain`` of
+    each weight."""
+    return [quantize_weight_plain(w, act_clip) for w in ws]
+
+
 def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor,
                       scale: torch.Tensor, act_clip: float, stride: int,
                       padding: int,
@@ -117,53 +126,215 @@ def _launch_on(device: torch.device):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("int8_conv")
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lh_int8_conv.argtypes = [p, i, f, p, p, p, i] + [i] * 11 + [p]
     lib.lh_int8_conv.restype = i
     lib.lh_int8_conv_plan.argtypes = [p, i, p] + [i] * 12 + [p]
     lib.lh_int8_conv_plan.restype = i
-    lib.lh_quantize_weight.argtypes = [p, ll, ll, ll, ll, i, i, i, i, f, p, p,
-                                       p, p]
-    lib.lh_quantize_weight.restype = i
+    lib.lh_quantize_weights.argtypes = [p, i, i, i, f, p, p, i, p]
+    lib.lh_quantize_weights.restype = i
     return lib
+
+
+# The grouped weight kernel's table (csrc/int8_conv.cu): a QConv row a
+# conv (the weight's pointer and strides, w_q's byte offset in the s8 pool,
+# Cout, Cin, kh, kw, s_w's offset in the f32 pool, channels an item, mode,
+# flat), then from the next multiple of 16 bytes an int32 pair (conv, first
+# channel) an item.
+QCONV = struct.Struct("<q4qq8i")
+Q_MAX_CH = 64             # channels an item (kQMaxCh)
+Q_ITEM_BYTES = 16384      # f32 bytes an item, at most
+Q_MAX_STAGE = 96 * 1024   # bytes a stage buffer (kQMaxStage)
+Q_BULK, Q_LOAD, Q_GLOBAL = 0, 1, 2  # how an item's rows reach the block
+Q_ALIGN = 128             # w_q's offsets in the s8 pool, in bytes
+
+
+def _row_dense(shape, stride) -> bool:
+    """Whether each output channel's Cin * kh * kw values are one dense
+    span (in some order of the three axes)."""
+    want = 1
+    for st, n in sorted((st, n) for st, n in zip(stride[1:], shape[1:])
+                        if n > 1):
+        if st != want:
+            return False
+        want *= n
+    return True
+
+
+def _row_flat(shape, stride) -> bool:
+    """Whether each output channel's values lie in w_q's [kh, kw, Cin]
+    order (channels_last, or a 1x1 conv)."""
+    _, cin, kh, kw = shape
+    _, s1, s2, s3 = stride
+    return ((cin == 1 or s1 == 1) and (kw == 1 or s3 == cin)
+            and (kh == 1 or s2 == kw * cin))
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def quantize_plan(weights: Sequence[Tuple[int, tuple, tuple]],
+                  sms: int = 132) -> dict:
+    """The grouped weight kernel's work for ``weights``, a list of (data
+    pointer, shape ``[Cout, Cin, kh, kw]``, element strides) of f32
+    tensors, on a card of ``sms`` SMs:
+
+    - ``table``: the bytes of the kernel's table (``QCONV`` rows, then the
+      items), ``n_convs`` and ``n_items``;
+    - ``stage``: the bytes a stage buffer (the largest staged item);
+    - ``wq_views``: each w_q's (shape, stride, byte offset) in the s8 pool
+      of ``wq_bytes`` (offsets multiples of 128, so that each w_q starts
+      as a fresh allocation's 16-byte TMA and vector loads want);
+    - ``couts``: each weight's channels, whose s_w lie one after the other
+      in the first ``n_sw`` values of the f32 pool, their scales in the
+      next ``n_sw``.
+
+    A row's mode says how a conv's rows reach a block: ``Q_BULK``, a TMA
+    bulk copy; ``Q_LOAD``, the block's own loads, for dense rows the copy
+    cannot take; ``Q_GLOBAL``, read in place, for other strides or rows
+    larger than a stage buffer.
+
+    Items hold up to ``Q_ITEM_BYTES`` of f32 (less for a small group, so
+    that every SM gets work), one channel where a row alone is larger, and
+    a conv's items even channel counts."""
+    total = sum(4 * s[0] * s[1] * s[2] * s[3] for _, s, _ in weights)
+    item_bytes = min(Q_ITEM_BYTES, max(1024, total // (8 * sms)))
+    rows, items, views = [], [], []
+    wq_bytes = n_sw = stage = 0
+    for i, (ptr, shape, stride) in enumerate(weights):
+        cout, cin, kh, kw = shape
+        k = cin * kh * kw
+        row = 4 * k
+        dense = _row_dense(shape, stride)
+        if not dense or row > Q_MAX_STAGE:
+            mode = Q_GLOBAL
+        elif ptr % 16 == 0 and 4 * stride[0] % 16 == 0 and row % 16 == 0:
+            mode = Q_BULK
+        elif stride[0] == k or cout == 1:
+            mode = Q_LOAD
+        else:
+            mode = Q_GLOBAL
+        # channels an item: the fewest items of at most item_bytes (or one
+        # row), the conv's channels spread evenly over them
+        cpi = max(1, min(Q_MAX_CH, item_bytes // row))
+        cpi = -(-cout // -(-cout // cpi)) if cout else 1
+        flat = mode != Q_GLOBAL and k % 16 == 0 and _row_flat(shape, stride)
+        if mode != Q_GLOBAL:
+            stage = max(stage, min(cpi, cout) * row)
+        views.append(((cout, kh, kw, cin), (k, kw * cin, cin, 1), wq_bytes))
+        rows.append(QCONV.pack(ptr, *stride, wq_bytes, cout, cin, kh, kw,
+                               n_sw, cpi, mode, int(flat)))
+        items.extend((i, c) for c in range(0, cout, cpi))
+        wq_bytes += _align(cout * k, Q_ALIGN)
+        n_sw += cout
+    head = b"".join(rows)
+    table = (head + bytes(_align(len(head), 16) - len(head))
+             + struct.pack(f"<{2 * len(items)}i",
+                           *[v for item in items for v in item]))
+    return {"table": table, "n_convs": len(weights), "n_items": len(items),
+            "stage": _align(stage, 16), "wq_views": views,
+            "wq_bytes": wq_bytes, "n_sw": n_sw,
+            "couts": [s[0] for _, s, _ in weights]}
+
+
+def _check(entries) -> None:
+    """ValueError unless ``entries``, the (dtype, device, shape) of each
+    weight of a group, are f32 ``[Cout, Cin, kh, kw]`` with input values,
+    all on one device."""
+    if not entries:
+        raise ValueError("no weights to quantize")
+    device = entries[0][1]
+    for dtype, dev, shape in entries:
+        if len(shape) != 4 or dtype != torch.float32:
+            raise ValueError(f"w must be f32 [Cout, Cin, kh, kw], got "
+                             f"{dtype} {tuple(shape)}")
+        if dev != device:
+            raise ValueError(f"weights on devices {device} and {dev}: a "
+                             "group lies on one device")
+        if shape[1] * shape[2] * shape[3] == 0:
+            raise ValueError(f"w has no input values: {tuple(shape)}")
+
+
+@functools.lru_cache(maxsize=512)
+def _device_plan(key: tuple) -> tuple:
+    """(the plan of a group of weights on the card, its table there), from
+    the (data pointer, dtype, device index, shape, strides) of each weight,
+    checked and built once: a repeated forward copies nothing to the card
+    and can be captured in a CUDA graph; new pointers (after a ``.to()``,
+    FSDP2's all-gather buffers) make a new table."""
+    _check([k[1:4] for k in key])
+    index = key[0][2]
+    plan = quantize_plan([(k[0], tuple(k[3]), k[4]) for k in key],
+                         _sm_count(index))
+    table = torch.frombuffer(bytearray(plan["table"]), dtype=torch.uint8)
+    return plan, table.to(torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def quantize_weights_cuda(ws: Sequence[torch.Tensor], act_clip: float
+                          ) -> List[tuple]:
+    """One (``w_q`` s8 ``[Cout, kh, kw, Cin]`` contiguous, ``s_w`` f32
+    ``[Cout]``, ``scale`` f32 ``[Cout]``) for each f32 master weight ``w``
+    ``[Cout, Cin, kh, kw]`` of ``ws``, in any layout, all on one device.
+
+    On the card this is one launch of the grouped kernel (or raises), its
+    results views of one s8 and one f32 pool allocated here, each w_q at a
+    128-byte offset; on the CPU it computes the plain twin of each weight.
+    ``quantize_weights_cuda.launches`` counts the kernel launches."""
+    if not act_clip > 0:
+        raise ValueError(f"act_clip must be positive, got {act_clip}")
+    if not ws or not ws[0].is_cuda:
+        _check([(w.dtype, w.device, w.shape) for w in ws])
+        if ws[0].device.type != "cpu":
+            raise ValueError(f"unsupported device {ws[0].device}")
+        return quantize_weights_plain(ws, act_clip)
+    plan, table = _device_plan(tuple(
+        (w.data_ptr(), w.dtype, w.get_device(), w.shape, w.stride())
+        for w in ws))
+    device = ws[0].device
+    pool = torch.empty(plan["wq_bytes"], dtype=torch.int8, device=device)
+    fpool = torch.empty(2 * plan["n_sw"], dtype=torch.float32,
+                        device=device)
+    ctx, stream = _launch_on(device)
+    with ctx:
+        err = _lib().lh_quantize_weights(
+            table.data_ptr(), plan["n_convs"], plan["n_items"],
+            plan["stage"], act_scale(act_clip), pool.data_ptr(),
+            fpool.data_ptr(), plan["n_sw"], stream)
+        quantize_weights_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"weight quantize kernel launch failed: CUDA "
+                           f"error {err}")
+    return pool_views(plan, pool, fpool)
+
+
+def pool_views(plan: dict, pool: torch.Tensor,
+               fpool: torch.Tensor) -> List[tuple]:
+    """(``w_q`` ``[Cout, kh, kw, Cin]``, ``s_w``, ``scale``) of each weight
+    of ``plan``: views of the s8 ``pool`` and the f32 ``fpool`` at its
+    offsets (made in few host calls: a forward makes one a weight)."""
+    n_sw = plan["n_sw"]
+    w_q = [pool.as_strided(*v) for v in plan["wq_views"]]
+    s_w = fpool[:n_sw].split_with_sizes(plan["couts"])
+    scale = fpool[n_sw:].split_with_sizes(plan["couts"])
+    return list(zip(w_q, s_w, scale))
+
+
+quantize_weights_cuda.launches = 0
 
 
 def quantize_weight_cuda(w: torch.Tensor, act_clip: float):
     """(``w_q`` s8 ``[Cout, kh, kw, Cin]`` contiguous, ``s_w`` f32
     ``[Cout]``, ``scale`` f32 ``[Cout]``) from f32 master weights ``w``
-    ``[Cout, Cin, kh, kw]`` in any layout (``channels_last`` reads
-    contiguously).
-
-    On a CUDA tensor this launches the kernel (or raises); on a CPU tensor
-    it computes the plain twin. ``quantize_weight_cuda.launches`` counts
-    the kernel launches."""
-    if w.ndim != 4 or w.dtype != torch.float32:
-        raise ValueError(f"w must be f32 [Cout, Cin, kh, kw], got {w.dtype} "
-                         f"{tuple(w.shape)}")
-    if not act_clip > 0:
-        raise ValueError(f"act_clip must be positive, got {act_clip}")
-    if w.device.type == "cpu":
-        return quantize_weight_plain(w, act_clip)
-    if w.device.type != "cuda":
-        raise ValueError(f"unsupported device {w.device}")
-    cout, cin, kh, kw = w.shape
-    w_q = torch.empty((cout, kh, kw, cin), dtype=torch.int8, device=w.device)
-    s_w, scale = torch.empty((2, cout), dtype=torch.float32, device=w.device)
-    ctx, stream = _launch_on(w.device)
-    with ctx:
-        err = _lib().lh_quantize_weight(
-            w.data_ptr(), *w.stride(), cout, cin, kh, kw,
-            act_scale(act_clip), w_q.data_ptr(), s_w.data_ptr(),
-            scale.data_ptr(), stream)
-        quantize_weight_cuda.launches += 1
-    if err:
-        raise RuntimeError(f"weight quantize kernel launch failed: CUDA "
-                           f"error {err}")
-    return w_q, s_w, scale
-
-
-quantize_weight_cuda.launches = 0
+    ``[Cout, Cin, kh, kw]`` in any layout: ``quantize_weights_cuda`` of a
+    group of one (one launch on the card, counted there; the twin on the
+    CPU)."""
+    return quantize_weights_cuda([w], act_clip)[0]
 
 
 def _check_conv(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,

@@ -55,7 +55,7 @@ from lighthand_tpu_torch.core.mesh import (
     is_host_leader,
     is_sharded,
 )
-from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.core.dtypes import DTypePolicy, numerics
 from lighthand_tpu_torch.data import (
     Loader,
     build_dataset,
@@ -457,40 +457,44 @@ class Trainer:
 
         last = EpochResult(float("nan"), float("nan"), 0.0, 0.0, 0.0)
         self.watchdog.start()
+        # an f32 run is full f32 on the card (core/dtypes.py:numerics)
         try:
-            for epoch in range(self.start_epoch, cfg.train.epochs):
-                t0 = time.time()
-                lr = cosine_lr(cfg.train.lr, epoch, cfg.train.epochs)
-                self.state = set_learning_rate(self.state, lr)
+            with numerics(self.policy):
+                for epoch in range(self.start_epoch, cfg.train.epochs):
+                    t0 = time.time()
+                    lr = cosine_lr(cfg.train.lr, epoch, cfg.train.epochs)
+                    self.state = set_learning_rate(self.state, lr)
 
-                train_loss, ips = self.run_train_epoch(train_loader, epoch)
-                val_loss, pck, epe = self.run_valid_epoch(val_loader, epoch)
-                last = EpochResult(train_loss, val_loss, pck, epe, ips)
-                self.writer.add_scalar("perf/epoch_seconds",
-                                       time.time() - t0, epoch)
+                    train_loss, ips = self.run_train_epoch(train_loader,
+                                                           epoch)
+                    val_loss, pck, epe = self.run_valid_epoch(val_loader,
+                                                              epoch)
+                    last = EpochResult(train_loss, val_loss, pck, epe, ips)
+                    self.writer.add_scalar("perf/epoch_seconds",
+                                           time.time() - t0, epoch)
 
-                is_best = val_loss < self.best_loss
-                self.best_loss = min(val_loss, self.best_loss)
-                if is_best:
-                    self.count = 0
-                    save_checkpoint(self.state, cfg.output_dir, epoch,
-                                    self.best_loss, self.count,
-                                    model_info={
-                                        "name": cfg.model.name,
-                                        "precision": cfg.model.precision,
-                                    })
-                    self.watchdog.heartbeat()  # the save blocks too
-                else:
-                    self.count += 1
-                    if self.count == cfg.train.early_stop_count:
-                        self.logger.info(
-                            f"early stop at epoch {epoch} "
-                            f"(count={self.count})")
-                        break
-                # after the checkpoint decision; flush TensorBoard first,
-                # since the exit path is os._exit
-                self.writer.flush()
-                check_rss_limit(cfg.train.rss_limit_gb, self.logger)
+                    is_best = val_loss < self.best_loss
+                    self.best_loss = min(val_loss, self.best_loss)
+                    if is_best:
+                        self.count = 0
+                        save_checkpoint(self.state, cfg.output_dir, epoch,
+                                        self.best_loss, self.count,
+                                        model_info={
+                                            "name": cfg.model.name,
+                                            "precision": cfg.model.precision,
+                                        })
+                        self.watchdog.heartbeat()  # the save blocks too
+                    else:
+                        self.count += 1
+                        if self.count == cfg.train.early_stop_count:
+                            self.logger.info(
+                                f"early stop at epoch {epoch} "
+                                f"(count={self.count})")
+                            break
+                    # after the checkpoint decision; flush TensorBoard first,
+                    # since the exit path is os._exit
+                    self.writer.flush()
+                    check_rss_limit(cfg.train.rss_limit_gb, self.logger)
         finally:
             self.watchdog.stop()
             self.writer.close()

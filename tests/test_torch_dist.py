@@ -49,6 +49,12 @@ This mesh equals the one-process port; the one-process port equals the JAX
 step (``tests/test_torch_step.py``), which equals JAX's pjit step
 (``tests/test_sharding.py``).
 
+Under the int8_fwd policy on the FSDP2 meshes (model axis 2), the root's
+forward quantizes the weights in one grouped call, and FSDP2's pre-forward
+hook hands that call the unsharded parameters (plain tensors of the full
+shapes): two K1 steps' losses within 5e-3 of one process's (measured 0.0
+on (1, 2), whose processes each hold the whole batch).
+
 The larger meshes are rehearsed only here: the card's machine has one GPU.
 """
 
@@ -194,6 +200,52 @@ def _wrap(state, mesh, m: int, rank: int) -> dict:
         dist.all_gather(every, flat)
         out["replicas_equal"] = all(torch.equal(x, every[0]) for x in every)
     return out
+
+
+def _int8_gaps(mesh, batch, local) -> dict:
+    """Two int8_fwd K1 steps of ``hrnet_tiny`` on the mesh and in one
+    process: the relative loss gaps, and what each grouped quantize call of
+    the mesh's forwards was given (parameter types and shapes)."""
+    from lighthand_tpu_torch.core.dtypes import DTypePolicy
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.ops import quant
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_fused_train_step,
+    )
+
+    def state(mesh_):
+        return create_train_state(
+            get_model("hrnet_tiny", policy=DTypePolicy.int8_fwd()),
+            torch.Generator().manual_seed(0), lr=LR, device="cpu",
+            mesh=mesh_)
+
+    kw = dict(heatmap_size=HM, device="cpu")
+    ref, sharded = state(None), state(mesh)
+    full = [tuple(m.weight.shape) for m in ref.model.quant_convs]
+    calls = []
+    grouped = quant.quantize_weights_cuda
+
+    def spy(ws, act_clip):
+        calls.append(([type(w).__name__ for w in ws],
+                      [tuple(w.shape) for w in ws]))
+        return grouped(ws, act_clip)
+
+    gaps = []
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    for _ in range(2):
+        _, want = make_fused_train_step(**kw)(ref, gens[0], batch)
+        quant.quantize_weights_cuda = spy
+        try:
+            _, got = make_fused_train_step(**kw, mesh=mesh)(
+                sharded, gens[1], local)
+        finally:
+            quant.quantize_weights_cuda = grouped
+        want, got = float(want["loss"]), float(got["loss"])
+        gaps.append(abs(got - want) / abs(want))
+    return {"loss_gaps": gaps, "calls": len(calls),
+            "types": sorted({t for types, _ in calls for t in types}),
+            "full_shapes": all(shapes == full for _, shapes in calls)}
 
 
 def _child(d: int, m: int, out_dir: str) -> None:
@@ -387,6 +439,8 @@ def _child(d: int, m: int, out_dir: str) -> None:
               "loss_gap": abs(float(got["loss"]) - float(want["loss"]))
               / abs(float(want["loss"])),
               "update_err": _update_err(fmesh, fref, fstart)}
+    # int8_fwd under FSDP2: the grouped quantize sees whole weights
+    int8 = _int8_gaps(mesh, batch, local) if (d, m) == (1, 2) else None
     if rank == 0:
         torch.save({"model": gathered, "optimizer": optim},
                    os.path.join(out_dir, "gathered.pt"))
@@ -395,7 +449,7 @@ def _child(d: int, m: int, out_dir: str) -> None:
                        "adam_err": adam_err,
                        "update_err": update_err,
                        "stat_err": stat_err, "eval_err": eval_err,
-                       "frozen": frozen}, f)
+                       "frozen": frozen, "int8": int8}, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -599,6 +653,18 @@ def test_mesh_eval_sums_loader_rows_and_gathers(runs, mesh):
     child)."""
     res, _ = _result(runs, mesh)
     assert max(res["eval_err"].values()) <= EVAL_RTOL
+
+
+def test_fsdp_int8_step_matches_one_process(runs):
+    """int8_fwd on the (1, 2) FSDP2 mesh: each forward makes one grouped
+    quantize call, given the unsharded weights (no DTensor, the full
+    shapes, as FSDP2's pre-forward hook gives the root's forward), and two
+    steps' losses equal one process's within 5e-3."""
+    res, _ = _result(runs, (1, 2))
+    int8 = res["int8"]
+    assert int8["calls"] == 2 and int8["full_shapes"], int8
+    assert "DTensor" not in int8["types"], int8
+    assert max(int8["loss_gaps"]) <= LOSS_RTOL, int8
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)

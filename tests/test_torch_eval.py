@@ -344,6 +344,31 @@ def test_eval_cli_matches_jax(trees, armo_root, monkeypatch, case):
         assert all(len(r.split(";")) == 4 + 100 + 1 for r in rows)
 
 
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_eval_cli_f32_runs_without_tf32(trees, armo_root, monkeypatch, prec):
+    """An f32 checkpoint predicts with both TF32 switches False (full f32
+    on the card); afterwards both are as they were; a bf16 one leaves
+    them alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = []
+    store = cli.pred_store
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return store(*args, **kw)
+
+    monkeypatch.setattr(cli, "pred_store", spy)
+    _, pdir = trees[prec]
+    assert _run(cli.main, pdir, _argv(armo_root, "--platform", "cpu"),
+                monkeypatch) == 0
+    inside = (False, False) if prec == "f32" else (True, True)
+    assert seen == [inside]
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == (True, True)
+
+
 def test_eval_cli_plt_raises(trees, armo_root, monkeypatch):
     """Once ``--plt`` raised (the overlays were not ported); now the CLI's
     ``--plt --plt_max 3`` writes the JAX CLI's three overlay files, byte

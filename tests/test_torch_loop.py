@@ -421,6 +421,34 @@ def test_trainer_runs_the_all_bf16_and_int8_policies(tmp_path, precision):
                            ) == {"name": "resnet18", "precision": precision}
 
 
+def _tf32():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_f32_trainer_runs_without_tf32(tmp_path, monkeypatch, precision):
+    """Inside an f32 Trainer's run both TF32 switches read False (f32 is
+    full f32 on the card, as the JAX package computes on the CPU);
+    afterwards both are as they were. The bf16 policy leaves them alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = []
+    train_epoch = loop.Trainer.run_train_epoch
+
+    def spy(self, *args):
+        seen.append(_tf32())
+        return train_epoch(self, *args)
+
+    monkeypatch.setattr(loop.Trainer, "run_train_epoch", spy)
+    cfg = _cfg(Config, tmp_path, precision, epochs=1,
+               model__precision=precision)
+    loop.Trainer(cfg).fit()
+    inside = (False, False) if precision == "f32" else (True, True)
+    assert seen == [inside]
+    assert _tf32() == (True, True)
+
+
 def test_transfer_loads_weights_only(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     donor = loop.Trainer(_cfg(Config, tmp_path, "donor", epochs=1))

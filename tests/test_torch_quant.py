@@ -37,16 +37,25 @@ from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
 from lighthand_tpu.ops.quant import int8_conv as jax_int8_conv
 from lighthand_tpu_torch.cli.eval import serving_policy
 from lighthand_tpu_torch.config import parse_args
-from lighthand_tpu_torch.core.dtypes import DTypePolicy
+from lighthand_tpu_torch.core.dtypes import DTypePolicy, numerics
 from lighthand_tpu_torch.models.layers import Conv2d
 from lighthand_tpu_torch.ops.kernels import _build
 from lighthand_tpu_torch.ops.kernels.int8_conv import (
+    Q_BULK,
+    Q_GLOBAL,
+    Q_LOAD,
+    Q_MAX_STAGE,
+    QCONV,
     int8_conv2d_cuda,
     int8_conv2d_plain,
+    pool_views,
     quantize_activation,
+    quantize_plan,
     quantize_weight,
     quantize_weight_cuda,
     quantize_weight_plain,
+    quantize_weights_cuda,
+    quantize_weights_plain,
 )
 from lighthand_tpu_torch.ops.quant import int8_conv
 from lighthand_tpu_torch.train.loop import _policy
@@ -205,9 +214,9 @@ def test_weight_wrapper_on_cpu_is_the_plain_twin(layout):
     w = _torch_w(wt)
     if layout == "channels_last":
         w = w.contiguous(memory_format=torch.channels_last)
-    before = quantize_weight_cuda.launches
+    before = quantize_weights_cuda.launches
     w_q, s_w, scale = quantize_weight_cuda(w, 8.0)
-    assert quantize_weight_cuda.launches == before
+    assert quantize_weights_cuda.launches == before
     want = quantize_weight_plain(_torch_w(wt), 8.0)
     for got, ref in zip((w_q, s_w, scale), want):
         assert got.dtype == ref.dtype and torch.equal(got, ref)
@@ -247,6 +256,160 @@ def test_weight_wrapper_rejects_bad_input(what):
         act_clip = -1.0
     with pytest.raises(ValueError):
         quantize_weight_cuda(w, act_clip)
+
+
+# ------------------------------------------- the grouped weight kernel
+
+# [Cout, Cin, kh, kw] of a group: K = 27 (a 3x3 stem), 147 (the 7x7 stem),
+# 288, 2304 and 4608 (ResNet-50's largest), Cout 40 and 33, a 1x1, and rows
+# of 45 and 20 values (not multiples of 16 bytes, or of 16 values)
+GROUP = [(64, 3, 3, 3), (64, 3, 7, 7), (32, 32, 3, 3), (40, 256, 3, 3),
+         (33, 512, 3, 3), (48, 64, 1, 1), (7, 5, 3, 3), (9, 20, 1, 1)]
+
+
+def _group(layout, seed=12):
+    rng = np.random.default_rng(seed)
+    ws = []
+    for i, shape in enumerate(GROUP):
+        w = torch.from_numpy((rng.normal(size=shape) * 0.05)
+                             .astype(np.float32))
+        w[i % shape[0]] = 0.0  # an all-zero channel: the 1e-8 floor
+        if layout == "channels_last":
+            w = w.contiguous(memory_format=torch.channels_last)
+        ws.append(w)
+    return ws
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_grouped_wrapper_on_cpu_is_the_plain_twin(layout):
+    """On the CPU the grouped wrapper is ``quantize_weight_plain`` of each
+    weight, bit for bit, and launches nothing."""
+    ws = _group(layout)
+    before = quantize_weights_cuda.launches
+    got = quantize_weights_cuda(ws, 8.0)
+    assert quantize_weights_cuda.launches == before
+    assert len(got) == len(ws)
+    for w, mine, plain in zip(ws, got, quantize_weights_plain(ws, 8.0)):
+        want = quantize_weight_plain(w.contiguous(), 8.0)
+        for a, b, c in zip(mine, plain, want):
+            assert a.dtype == c.dtype and torch.equal(a, c)
+            assert torch.equal(b, c)
+        assert not mine[0][GROUP.index(tuple(w.shape)) % w.shape[0]].any()
+
+
+def _run_table(plan, ws, act_clip):
+    """What the kernel does with ``plan``'s table, item by item, in numpy:
+    each item's channels read through the row's pointer and strides (into
+    ``ws``, found by pointer), quantized as the twin does, written at the
+    row's offsets. Returns the s8 and f32 pools."""
+    head = plan["n_convs"] * QCONV.size
+    rows = [QCONV.unpack_from(plan["table"], i * QCONV.size)
+            for i in range(plan["n_convs"])]
+    start = -(-head // 16) * 16
+    items = np.frombuffer(plan["table"][start:], dtype="<i4").reshape(-1, 2)
+    assert len(items) == plan["n_items"]
+    by_ptr = {w.data_ptr(): w for w in ws}
+    pool = np.full(plan["wq_bytes"], 99, np.int8)
+    fpool = np.full(2 * plan["n_sw"], np.nan, np.float32)
+    sx = np.float32(8.0 / 127.0) if act_clip == 8.0 else None
+    seen = set()
+    for conv, ch0 in items:
+        ptr, s0, s1, s2, s3, wq, cout, cin, kh, kw, sw, cpi, mode, flat = \
+            rows[conv]
+        w = by_ptr[ptr]
+        assert (s0, s1, s2, s3) == w.stride()
+        k = cin * kh * kw
+        for ch in range(ch0, min(ch0 + cpi, cout)):
+            assert (conv, ch) not in seen
+            seen.add((conv, ch))
+            w_q, s_w, scale = quantize_weight_plain(w[ch:ch + 1], act_clip)
+            pool[wq + ch * k:wq + (ch + 1) * k] = w_q.reshape(-1).numpy()
+            fpool[sw + ch] = s_w.numpy()[0]
+            fpool[plan["n_sw"] + sw + ch] = scale.numpy()[0]
+            assert fpool[plan["n_sw"] + sw + ch] == s_w.numpy()[0] * sx
+    assert seen == {(i, c) for i, r in enumerate(rows)
+                    for c in range(r[6])}
+    return torch.from_numpy(pool), torch.from_numpy(fpool)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_quantize_plan_views(layout):
+    """The table covers every channel of every weight once, and the views
+    of the pools at the plan's offsets are each weight's (w_q, s_w, scale):
+    w_q ``[Cout, kh, kw, Cin]`` contiguous at a 128-byte offset."""
+    ws = _group(layout)
+    plan = quantize_plan([(w.data_ptr(), tuple(w.shape), w.stride())
+                          for w in ws])
+    pool, fpool = _run_table(plan, ws, 8.0)
+    views = pool_views(plan, pool, fpool)
+    for w, (w_q, s_w, scale) in zip(ws, views):
+        cout, cin, kh, kw = w.shape
+        assert w_q.shape == (cout, kh, kw, cin) and w_q.is_contiguous()
+        assert (w_q.data_ptr() - pool.data_ptr()) % 128 == 0
+        assert s_w.shape == scale.shape == (cout,)
+        for a, b in zip((w_q, s_w, scale), quantize_weight_plain(w, 8.0)):
+            assert torch.equal(a, b)
+    assert 0 < plan["stage"] <= Q_MAX_STAGE and plan["stage"] % 16 == 0
+
+
+def test_quantize_plan_modes():
+    """How each weight's rows reach a block: TMA bulk copies for dense,
+    16-byte aligned rows of a multiple of 16 bytes; the block's own loads
+    for the rest of the dense adjacent rows (the stems, a source off 16
+    bytes); in place for other strides and rows beyond a stage buffer."""
+    def mode(shape, stride=None, ptr=1 << 20):
+        if stride is None:
+            stride = torch.empty(shape).stride()
+        table = quantize_plan([(ptr, shape, stride)])["table"]
+        return QCONV.unpack_from(table)[12]
+
+    cl = torch.empty(32, 32, 3, 3).contiguous(
+        memory_format=torch.channels_last).stride()
+    assert mode((32, 32, 3, 3)) == Q_BULK
+    assert mode((32, 32, 3, 3), cl) == Q_BULK
+    assert mode((64, 3, 3, 3)) == Q_LOAD          # K = 27
+    assert mode((64, 3, 7, 7)) == Q_LOAD          # K = 147
+    assert mode((32, 32, 3, 3), ptr=(1 << 20) + 4) == Q_LOAD
+    assert mode((8, 32, 3, 3), (576, 9, 3, 1)) == Q_BULK  # every other row
+    assert mode((8, 32, 3, 3), (577, 9, 3, 1)) == Q_GLOBAL
+    assert mode((32, 32, 3, 3), (288, 1, 3, 96)) == Q_GLOBAL  # not dense
+    assert mode((4, 8192, 3, 3)) == Q_GLOBAL      # 288 KB rows
+    plan = quantize_plan([(1 << 20, (256, 256, 3, 3), (2304, 9, 3, 1)),
+                          (1 << 24, (64, 3, 3, 3), (27, 9, 3, 1))])
+    assert [v[2] for v in plan["wq_views"]] == [0, 256 * 2304]
+    assert plan["n_sw"] == 256 + 64 and plan["couts"] == [256, 64]
+
+
+def test_pool_offsets_are_aligned():
+    plan = quantize_plan([(0, (33, 3, 3, 3), (27, 9, 3, 1)),
+                          (0, (5, 7, 1, 1), (7, 1, 1, 1)),
+                          (0, (40, 64, 3, 3), (576, 9, 3, 1))])
+    assert [v[2] for v in plan["wq_views"]] == [0, 896, 1024]
+    assert [QCONV.unpack_from(plan["table"], i * QCONV.size)[10]
+            for i in range(3)] == [0, 33, 38]
+    assert plan["n_sw"] == 78 and plan["wq_bytes"] == 1024 + 40 * 576
+
+
+@pytest.mark.parametrize("what", ["empty", "dtype", "ndim", "devices",
+                                  "device", "act_clip", "no_input"])
+def test_grouped_wrapper_rejects_bad_groups(what):
+    ws, act_clip = [torch.ones((4, 3, 3, 3)), torch.ones((8, 4, 1, 1))], 8.0
+    if what == "empty":
+        ws = []
+    elif what == "dtype":
+        ws[1] = ws[1].double()
+    elif what == "ndim":
+        ws[1] = ws[1][0]
+    elif what == "devices":
+        ws[1] = ws[1].to("meta")
+    elif what == "device":
+        ws = [w.to("meta") for w in ws]
+    elif what == "act_clip":
+        act_clip = 0.0
+    elif what == "no_input":
+        ws[0] = torch.ones((4, 0, 3, 3))
+    with pytest.raises(ValueError):
+        quantize_weights_cuda(ws, act_clip)
 
 
 # --------------------------------------- the fused quantize against JAX
@@ -361,6 +524,32 @@ def test_policy_constructors_match_jax():
                     == jnp.dtype(getattr(theirs, field)).name), field
 
 
+@pytest.mark.parametrize("policy", ["full_precision", "default",
+                                    "all_bf16", "int8_fwd"])
+def test_numerics_turns_tf32_off_for_f32_only(policy, monkeypatch):
+    """``numerics`` sets both TF32 switches False for an f32 policy and
+    restores them on exit, an exception included; other policies leave
+    them alone."""
+    pol = (DTypePolicy() if policy == "default"
+           else getattr(DTypePolicy, policy)())
+    f32 = pol.compute_dtype == torch.float32
+
+    def switches():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    for before in ((True, True), (True, False), (False, True)):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", before[0])
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                            before[1])
+        with numerics(pol):
+            assert switches() == ((False, False) if f32 else before)
+        assert switches() == before
+        with pytest.raises(KeyError), numerics(pol):
+            raise KeyError
+        assert switches() == before
+
+
 @pytest.mark.parametrize("precision", ["bf16", "f32", "all_bf16",
                                        "int8_fwd"])
 def test_training_accepts_every_precision(precision):
@@ -402,7 +591,7 @@ def test_kernel_source_holds_the_jax_formulas():
     the epilogue's int32 -> f32 conversion."""
     src = (_build.CSRC / "int8_conv.cu").read_text()
     for formula in ("fmaxf(amax, 1e-8f)", "m / 127.0f",
-                    "rintf(at(k) / sw)", "-127.0f), 127.0f)", "sw * sx",
+                    "rintf(v / sw)", "-127.0f), 127.0f)", "sw * sx",
                     "__float2int_rn(__fmul_rn(x, inv))", "-127), 127)",
                     "__int2float_rn(acc"):
         assert formula in src, formula

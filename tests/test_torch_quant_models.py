@@ -11,6 +11,9 @@ Measured here (and held as stated):
   the test uses. Held at atol 1e-5 (the f32 head and final convs may sum
   in another order on another build).
 - all_bf16: bit-identical to bf16 in both packages, in train and eval mode.
+- A model's forward under int8_fwd quantizes every ``QuantConv2d`` weight
+  in one grouped call (one kernel launch on the card), in ``modules()``
+  order, and no conv quantizes its own weight; no ``w_q`` outlives it.
 """
 
 import functools
@@ -27,6 +30,7 @@ from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.models import get_model
 from lighthand_tpu_torch.models.hrnet import HRNetCfg
 from lighthand_tpu_torch.models.layers import Conv2d, QuantConv2d
+from lighthand_tpu_torch.ops import quant
 from lighthand_tpu_torch.train import create_train_state, make_fused_train_step
 from lighthand_tpu_torch.utils.weights import hrnet_from_flax, resnet_from_flax
 
@@ -122,6 +126,43 @@ def test_int8_forward_matches_jax(name, dtype):
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
     np.testing.assert_allclose(got.transpose(0, 2, 3, 1), want, rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("name", ["resnet18", "hrnet_tiny"])
+def test_int8_forward_quantizes_once(name, train, monkeypatch):
+    """One grouped call a forward, over every QuantConv2d weight in
+    ``modules()`` order, outside autograd; no single-weight call; no
+    ``w_q`` left on a module afterwards; the training forward's gradient
+    still reaches every weight (the straight-through backward)."""
+    groups, singles = [], []
+    grouped, single = quant.quantize_weights_cuda, quant.quantize_weight_cuda
+
+    def spy_group(ws, act_clip):
+        groups.append((list(ws), torch.is_grad_enabled()))
+        return grouped(ws, act_clip)
+
+    def spy_single(w, act_clip):
+        singles.append(w)
+        return single(w, act_clip)
+
+    monkeypatch.setattr(quant, "quantize_weights_cuda", spy_group)
+    monkeypatch.setattr(quant, "quantize_weight_cuda", spy_single)
+    model = get_model(name, policy=DTypePolicy.int8_fwd()).train(train)
+    convs = [m for m in model.modules() if isinstance(m, QuantConv2d)]
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 3, 32, 32)).astype(np.float32))
+    with torch.set_grad_enabled(train):
+        y = model(x)
+    assert len(groups) == 1 and not singles
+    ws, grad_on = groups[0]
+    assert len(ws) == len(convs) > 0 and not grad_on
+    assert all(w is m.weight for w, m in zip(ws, convs))
+    assert all(m.quantized is None for m in convs)
+    if train:
+        y.float().square().mean().backward()
+        assert all(m.weight.grad is not None and m.weight.grad.abs().sum() > 0
+                   for m in convs)
 
 
 def test_int8_policy_trains():
