@@ -39,9 +39,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    on bf16 and f32 activations (with x * inv = k + 0.5 ties, values beyond
    the clip and zeros) into bf16 and f32 output: every distinct quantized
    conv shape of ResNet-50 (53 convs) and HRNet-W32 (292), read by hooks,
-   at batch 32, 256x256, and ragged cases (N=3 at 97x131 with the 7x7 and
-   3x3 stems, Cout 40, 33, 48 and 100, Cin 8, 48 and 96); the twin runs on
-   the card with cuDNN off (im2col + DGEMM, exact on integers); then the
+   at batch 32, 256x256, and the ragged cases of ``INT8_RAGGED`` (the
+   stem path at N=1 and 3, odd sizes, Cout 40, 100 and 200 at Cin 3 and 5,
+   Cin 8 and 48, pad 0 and 3, an x 2 or 4 bytes off 16-byte alignment; the
+   simple path at K = 432 and for a main-path shape whose x is off; the
+   main path at Cout 40 and 100 and 32-channel chunks), each on the path
+   it must take, both models' stems on the stem path and the simple path
+   reached; the twin runs on the card with cuDNN off (im2col + DGEMM,
+   exact on integers); then the
    grouped weight quantize (``quantize_weights_cuda``, one launch for a
    list of weights) against ``quantize_weights_plain``, bit for bit, over
    all 292 HRNet-W32 and all 53 ResNet-50 weights in one group each, in
@@ -145,7 +150,11 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    Matplotlib figure functions are tested on the CPU only;
 9h. the mesh renderer: the rasterizer kernel (``csrc/rasterize.cu``)
    against its plain twin on the card, bit for bit, at 800x600 and
-   224x224 on a MANO-sized procedural mesh with coplanar duplicate faces;
+   224x224 on a MANO-sized procedural mesh with coplanar duplicate faces,
+   and on ``raster_edge_cases`` at both of the wrapper's geometries (a tile
+   meeting more faces than its list holds, a face larger than a tile,
+   faces off the image, 1x1 and 17x13 images); at most 2 kernels a call
+   and no allocation a pixel but the image;
    ``Renderer.render`` and ``render_vertex_color`` end to end on the card
    (one rasterizer launch each) against the CPU; the kernel's times beside
    the twin's and its bound (the ``rasterize`` row of the kernels line);
@@ -188,12 +197,15 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    before it and read just after); the rasterizer's row is phase 9h's, its
    launches those of 9h's renders;
 8b. both int8 kernels at the heaviest conv shape (by operations a
-   forward) of ResNet-50 and of HRNet-W32, batch 32, bf16 activations:
+   forward) of ResNet-50 and of HRNet-W32, and at each model's Cin-3 stem
+   (the stem path; the ``stems`` of the ``int8_conv`` row), batch 32, bf16
+   activations:
    eager and device time, the twin's time and the bound (int8 tensor-core
    operations or bytes, bf16 in and out, for the conv; 5 bytes a weight
    for the weight quantize, here a group of one); for the conv, the GEMM
-   of ``torch._int_mm`` on the pre-quantized im2col of the same operands
-   (checked equal to the kernel) and cuDNN's bf16 conv of the shape; the
+   of ``torch._int_mm`` on the pre-quantized im2col of the same operands,
+   K zero-padded to a multiple of 8 (checked equal to the kernel), and
+   cuDNN's bf16 conv of the shape; the
    shape with more operations a call makes the kernels line's
    ``int8_conv`` row;
 8c. the eval forward of ResNet-50 and HRNet-W32 at bs32 under bf16 and
@@ -1049,13 +1061,52 @@ def int8_twin(x, w_q, scale, stride, pad, out_dtype):
                                  out_dtype)
 
 
+def misaligned(x):
+    """``x`` [N, C, H, W] (channels_last) copied into a channels_last view
+    one element (2 bytes in bf16, 4 in f32) into a larger buffer: off every
+    16-byte boundary, as a slice of a caller's buffer may be."""
+    import torch
+
+    n, c, h, w = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(n, h, w, c)
+    view.copy_(x.permute(0, 2, 3, 1))
+    return view.permute(0, 3, 1, 2)
+
+
+# Phase 2b's ragged conv cases: (N, (Cin, H, W, Cout, k, stride), padding
+# (None: k // 2), x off 16-byte alignment, the path the plan must take)
+INT8_RAGGED = [
+    (3, (3, 97, 131, 64, 7, 2), None, False, "stem"),   # the 7x7 stem, N=3
+    (3, (3, 97, 131, 64, 3, 2), None, False, "stem"),   # the 3x3 stem, odd
+    (1, (3, 33, 47, 64, 7, 2), None, False, "stem"),    # N=1, odd H and W
+    (2, (3, 31, 29, 40, 7, 2), None, False, "stem"),    # Cout 40 at Cin 3
+    (2, (3, 31, 29, 100, 3, 2), None, False, "stem"),   # Cout 100: BN 128
+    (2, (3, 40, 40, 64, 7, 2), 0, False, "stem"),       # pad 0
+    (2, (3, 19, 21, 64, 3, 1), 3, False, "stem"),       # pad 3
+    (2, (3, 31, 29, 64, 7, 2), None, True, "stem"),     # x off 16 bytes
+    (2, (5, 12, 10, 200, 3, 1), None, False, "stem"),   # two channel groups
+    (2, (48, 33, 17, 33, 1, 2), None, False, "stem"),   # odd Cout, K = 48
+    (1, (8, 9, 11, 24, 3, 2), None, False, "stem"),     # Cin 8, K = 72
+    (2, (48, 20, 20, 40, 3, 1), None, False, "simple"),  # K = 432 > 256
+    (2, (64, 20, 20, 64, 3, 1), None, True, "simple"),  # main shape, x off
+    (3, (64, 97, 131, 40, 3, 2), None, False, "wgmma"),  # Cout 40
+    (5, (32, 15, 15, 100, 3, 1), None, False, "wgmma"),  # Cin 32, Cout 100
+    (2, (96, 20, 20, 48, 3, 1), None, False, "wgmma"),  # 32-channel chunks
+    (3, (64, 97, 131, 64, 3, 1), None, False, "wgmma"),  # ragged tiles
+]
+
+
 def int8_check_phase(shapes: dict) -> tuple:
     """Phase 2b: both int8 kernels against their twins, bit for bit (0
     differing values): the weight kernel's w_q, s_w and scale, then the
     conv (from the kernel's w_q and scale) on bf16 and f32 activations, in
     bf16 and f32 output; every distinct quantized conv shape of ResNet-50
-    and HRNet-W32 at batch 32, and ragged cases. Returns the largest
-    |kernel - twin| of each kernel (0 where it passes)."""
+    and HRNet-W32 at batch 32, and the ragged cases of ``INT8_RAGGED``.
+    Every model stem (Cin not a multiple of 32) must take the stem path,
+    each ragged case its path, and the simple path must be reached.
+    Returns the largest |kernel - twin| of each kernel (0 where it
+    passes)."""
     import torch
 
     from lighthand_tpu_torch.ops.kernels.int8_conv import (
@@ -1066,23 +1117,18 @@ def int8_check_phase(shapes: dict) -> tuple:
     )
 
     distinct = sorted({key for model in shapes.values() for key in model})
-    ragged = [  # (N, (Cin, H, W, Cout, k, stride))
-        (3, (3, 97, 131, 64, 7, 2)),     # N=3, 97x131, the 7x7 stem, Cin 3
-        (3, (3, 97, 131, 64, 3, 2)),     # the 3x3 stem on an odd size
-        (3, (64, 97, 131, 40, 3, 2)),    # Cout 40: a part-filled tile
-        (2, (48, 33, 17, 33, 1, 2)),     # odd Cout, Cin 48: the simple path
-        (5, (32, 15, 15, 100, 3, 1)),    # Cin 32, Cout 100
-        (1, (8, 9, 11, 24, 3, 2)),       # Cin 8: byte gathers
-        (2, (96, 20, 20, 48, 3, 1)),     # 32-channel chunks, Cout 48
-        (3, (64, 97, 131, 64, 3, 1)),    # ragged tiles of 128 columns
-    ]
-    cases = [(B_TRAIN, key) for key in distinct] + ragged
+    cases = ([(B_TRAIN, key, None, False,
+               "stem" if key[0] % 32 else "wgmma") for key in distinct]
+             + INT8_RAGGED)
     err_w = err_c = 0.0
     paths = {}
-    for i, (n, key) in enumerate(cases):
+    for i, (n, key, pad, off, want_path) in enumerate(cases):
         k, stride = key[4], key[5]
+        pad = k // 2 if pad is None else pad
         for dtype in (torch.bfloat16, torch.float32):
             x, w = int8_inputs(n, key, 100 + i, dtype)
+            if off:
+                x = misaligned(x)
             got_w = quantize_weight_cuda(w, ACT_CLIP)
             want_w = quantize_weight_plain(w, ACT_CLIP)
             torch.cuda.synchronize()
@@ -1093,25 +1139,36 @@ def int8_check_phase(shapes: dict) -> tuple:
                 err_w = max(err_w, float((a.float() - b.float()).abs().max()))
             w_q, _, scale = got_w
             for out_dtype in (torch.bfloat16, torch.float32):
-                got = int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, stride,
-                                       k // 2, out_dtype)
-                want = int8_twin(x, w_q, scale, stride, k // 2, out_dtype)
+                got = int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, stride, pad,
+                                       out_dtype)
+                want = int8_twin(x, w_q, scale, stride, pad, out_dtype)
                 torch.cuda.synchronize()
                 bad = int((got != want).sum())
                 if got.shape != want.shape or bad:
                     fail(f"int8 conv differs from its twin at N={n} {key} "
-                         f"{dtype} -> {out_dtype}: {bad} values")
+                         f"pad {pad}{' x off 16 B' if off else ''} {dtype}"
+                         f" -> {out_dtype}: {bad} values")
                 err_c = max(err_c, float((got.float() - want.float()).abs()
                                          .max()))
-            path = conv_plan(x, w_q, stride, k // 2)["path"]
-            paths[path] = paths.get(path, 0) + 1
+                plan = conv_plan(x, w_q, stride, pad, out_dtype)
+                if plan["path"] != want_path:
+                    fail(f"int8 conv at N={n} {key} pad {pad} {dtype} -> "
+                         f"{out_dtype} took {plan}, not the {want_path} "
+                         "path")
+                paths[plan["path"]] = paths.get(plan["path"], 0) + 1
             del x, w, got_w, want_w, got, want
+    if not paths.get("simple"):
+        fail(f"no case reached the simple path: {paths}")
+    stems = [key for key in distinct if key[0] % 32]
+    if len(stems) != 2:
+        fail(f"expected one Cin-3 stem a model, found {stems}")
     print(f"[int8] both kernels equal their twins bit for bit on "
           f"{len(cases)} shapes x (bf16, f32 activations) x (bf16, f32 "
           f"output): {len(distinct)} distinct conv shapes of ResNet-50 and "
-          f"HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE}, and {len(ragged)} "
-          f"ragged ones; conv paths {paths}; max |kernel - twin| weights "
-          f"{err_w}, conv {err_c}")
+          f"HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE} (the stems {stems} "
+          f"on the stem path), and {len(INT8_RAGGED)} "
+          f"ragged ones; conv paths (cases x dtypes) {paths}; max |kernel -"
+          f" twin| weights {err_w}, conv {err_c}")
     return err_w, err_c
 
 
@@ -2120,6 +2177,80 @@ def procedural_hand_mesh(n: int = 28, seed: int = 0, dup: int = 60):
     return v, np.concatenate([faces, copies]), colors
 
 
+def raster_edge_cases(tile=(16, 16), cap: int = 256, seed: int = 5) -> dict:
+    """{label: (verts_px [V, 2], verts_z [V], faces [F, 3], vertex colours
+    [V, 3], background [H, W, 3], far)}, numpy f64 and int64, drawn from
+    ``seed``: the rasterizer's edge cases for a kernel of ``tile`` (W, H)
+    pixels a block and a list of ``cap`` faces (a geometry of
+    ``ops/kernels/rasterize.py``), near 1.0:
+
+    - "crowded": 3 cap + 7 faces that each have a corner in the first tile,
+      then 40 of them again over copies of their vertices (coplanar ties,
+      other colours), on an image of 3 x 2 tiles and a bit: one tile meets
+      more faces than its list holds;
+    - "large": a face larger than a tile and than the image, between small
+      faces before and after it in index order;
+    - "off-screen": faces partly off every edge, some wholly off, under a
+      finite far (per-pixel far test and far cull);
+    - "1x1": a 1x1 image under faces that cover its pixel and one that
+      does not;
+    - "17x13": an image of less than a tile under a small seeded hand mesh.
+
+    Colours span [-0.5, 1.5] and backgrounds [-0.2, 1.2]: the clip acts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tw, th = tile
+    cases = {}
+
+    def finish(label, px, z, faces, w, h, far=float("inf")):
+        colors = rng.uniform(-0.5, 1.5, size=(len(px), 3))
+        bg = rng.uniform(-0.2, 1.2, size=(h, w, 3))
+        cases[label] = (np.asarray(px, np.float64), np.asarray(z, np.float64),
+                        np.asarray(faces, np.int64), colors, bg, far)
+
+    w, h = 3 * tw + 5, 2 * th + 3
+    nf = 3 * cap + 7
+    px = rng.uniform([-5, -5], [w + 5, h + 5], size=(nf, 3, 2))
+    px[:, 0] = rng.uniform([0, 0], [tw, th], size=(nf, 2))
+    z = rng.choice(np.linspace(1.5, 6.0, 10), size=(nf, 3))
+    faces = np.arange(3 * nf).reshape(nf, 3)
+    picked = faces[rng.choice(nf, 40, replace=False)]
+    faces = np.concatenate([faces, 3 * nf + np.arange(120).reshape(40, 3)])
+    px = np.concatenate([px.reshape(-1, 2), px.reshape(-1, 2)[picked.ravel()]])
+    z = np.concatenate([z.ravel(), z.ravel()[picked.ravel()]])
+    finish("crowded", px, z, faces, w, h)
+
+    w, h = 2 * tw + 9, th + 7
+    small = rng.uniform([0, 0], [w, h], size=(30, 1, 2)) + rng.uniform(
+        -4, 4, size=(30, 3, 2))
+    big = np.array([[[-50.0, -40.0], [w + 60.0, -30.0], [w / 2, h + 80.0]]])
+    px = np.concatenate([small[:15], big, small[15:]]).reshape(-1, 2)
+    z = np.concatenate([rng.uniform(2.0, 6.0, (15, 3)), [[3.9, 4.1, 4.0]],
+                        rng.uniform(2.0, 6.0, (15, 3))]).ravel()
+    finish("large", px, z, np.arange(93).reshape(31, 3), w, h)
+
+    w, h = 37, 29
+    px = rng.uniform([-30, -30], [w + 30, h + 30], size=(60, 3, 2))
+    px[:6, :, 0] -= w + 40  # wholly left of the image
+    z = rng.uniform(1.2, 5.0, size=(60, 3))
+    z[6:10] = 4.8  # beyond far: culled
+    finish("off-screen", px.reshape(-1, 2), z.ravel(),
+           np.arange(180).reshape(60, 3), w, h, far=4.5)
+
+    px = np.array([[-1.0, -1.0], [3.0, -1.0], [-1.0, 3.0],
+                   [-2.0, -2.0], [4.0, 0.2], [0.3, 4.0],
+                   [0.7, 0.7], [2.0, 0.7], [0.7, 2.0]])
+    finish("1x1", px, [3.0, 3.0, 3.0, 2.5, 3.5, 2.0, 1.5, 1.5, 1.5],
+           [[0, 1, 2], [3, 4, 5], [0, 1, 2], [6, 7, 8]], 1, 1)
+
+    v, f, _ = procedural_hand_mesh(n=10, seed=seed, dup=8)
+    depth = v[:, 2] + 2.0
+    px = 60.0 * v[:, :2] / depth[:, None] + np.array([17 / 2, 13 / 2])
+    finish("17x13", px, depth, f, 17, 13)
+    return cases
+
+
 # f64 operations of the rasterizer: at each pixel of a drawn face's box,
 # two barycentrics (12), w0 (2), the inside test (3), 1/z (5), the depth
 # (2) and its two compares (2); at each covered pixel, three channels of
@@ -2137,9 +2268,10 @@ def _bits_equal(a, b) -> bool:
         a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
 
 
-def _kernel_device_ms(fn, prefixes, calls: int = 20) -> float:
-    """The profiler's device time per call of the kernels whose names start
-    with ``prefixes`` (the wrapper's checks and copies left out)."""
+def _kernel_device_ms(fn, prefixes, calls: int = 20) -> tuple:
+    """(the profiler's device ms per call, kernels launched per call) of the
+    kernels whose names hold one of ``prefixes`` (the wrapper's checks and
+    copies left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2149,29 +2281,39 @@ def _kernel_device_ms(fn, prefixes, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if any(p in e.key for p in prefixes))
-    return us / 1e3 / calls
+    events = [e for e in prof.key_averages()
+              if any(p in e.key for p in prefixes)]
+    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    return us / 1e3 / calls, sum(e.count for e in events) / calls
 
 
 def render_phase(kind: str) -> tuple:
     """Phase 9h: the mesh renderer on the card. The rasterizer kernel
     (``csrc/rasterize.cu``) against its plain twin run on the card on the
-    same inputs (``procedural_hand_mesh`` projected at 800x600 and 224x224,
-    its shading and its vertex colours, over an image and over NaN): equal
-    bit for bit. Then ``Renderer.render`` and ``render_vertex_color`` end to
-    end on the card at both sizes, every count zeroed just before and read
-    just after (one rasterizer launch a render), each image against the
-    same render on the CPU. Then, at each size, the kernel's eager and
-    device ms beside the twin's and the bound (bytes, or the f64 operations
-    of the drawn faces' box pixels). Returns (the kernels-line row at
-    800x600, the render path's launches)."""
+    same inputs, equal bit for bit: ``procedural_hand_mesh`` (with its 60
+    coplanar copies) projected at 800x600 and 224x224, its shading and its
+    vertex colours, over an image and over NaN; and ``raster_edge_cases``
+    at the kernel's geometry (more faces on one tile than its list holds, a
+    face larger than a tile, faces off the image, 1x1 and 17x13 images).
+    Then ``Renderer.render`` and ``render_vertex_color`` end to end on the
+    card at both sizes, every count zeroed just before and read just after
+    (one rasterizer launch a render), each image against the same render on
+    the CPU. Then, at each size, the kernel's eager and device ms and its
+    device kernels a call (at most 2) beside the twin's ms and the bound
+    (bytes, or the f64 operations of the drawn faces' box pixels), and the
+    bytes a call allocates (nothing a pixel but the image). Returns (the
+    kernels-line row at 800x600, the render path's launches)."""
     import numpy as np
     import torch
 
     from lighthand_tpu_torch.ops.kernels.rasterize import (
+        FACE_BYTES,
+        GROUP_BYTES,
+        LARGE,
+        SMALL,
         _face_setup,
+        _sm_count,
+        choose_geometry,
         rasterize_mesh_cuda,
         rasterize_mesh_plain,
     )
@@ -2212,6 +2354,22 @@ def render_phase(kind: str) -> tuple:
               "equal to its twin bit for bit, shaded over an image and "
               "vertex colours over NaN")
         inputs[w, h] = (px, z, faces, shaded, image, far, box_px, covered)
+    for geometry in (LARGE, SMALL):
+        tile, sub, cap = geometry
+        for label, case in raster_edge_cases(tile, cap).items():
+            px, z, faces, cl, bg = (torch.from_numpy(np.ascontiguousarray(
+                a)).to(dev) for a in case[:5])
+            got = rasterize_mesh_cuda(px, z, faces, cl, bg, 1.0, case[5],
+                                      geometry)
+            want = rasterize_mesh_plain(px, z, faces, cl, bg, 1.0, case[5])
+            torch.cuda.synchronize()
+            if not _bits_equal(got, want):
+                fail(f"the rasterizer at {geometry} differs from its twin "
+                     f"on the {label} mesh: "
+                     f"{int((got != want).any(-1).sum())} pixels")
+        print(f"[rasterize] edge cases {sorted(raster_edge_cases(tile, cap))}"
+              f" at tile {tile}, {sub} threads a pixel, a list of {cap}: "
+              "kernel equal to its twin bit for bit")
 
     counters = {"rasterize": rasterize_mesh_cuda}
     zero(counters)
@@ -2240,9 +2398,29 @@ def render_phase(kind: str) -> tuple:
         px, z, faces, shaded, image, far, box_px, covered = inputs[w, h]
         args = (px, z, faces, shaded, image, 1.0, far)
         ms = eager_ms(lambda: rasterize_mesh_cuda(*args))
-        dev_ms = _kernel_device_ms(lambda: rasterize_mesh_cuda(*args),
-                                   ("init_kernel", "depth_pass",
-                                    "shade_kernel"))
+        dev_ms, per_call = _kernel_device_ms(
+            lambda: rasterize_mesh_cuda(*args), ("raster_",))
+        if per_call > 2:
+            fail(f"the rasterizer launches {per_call} kernels a call")
+        # the bytes the call asks the allocator for (its cached blocks may
+        # be larger): the image, the scratch of the faces, their int32 copy
+        # and 64 KiB for the workspaces of the wrapper's index check (its
+        # min and max), far below a byte a pixel (the first version asked
+        # for 12 more)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        rasterize_mesh_cuda(*args)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.memory_stats()["requested_bytes.all.peak"]
+                 - before)
+        n_f = faces.shape[0]
+        allowed = (image.numel() * 8 + n_f * FACE_BYTES
+                   + -(-n_f // 32) * GROUP_BYTES + n_f * 12 + 65536)
+        if extra > allowed:
+            fail(f"a rasterizer call at {w}x{h} asks for {extra} bytes, "
+                 f"more than the image, the face scratch, the faces' copy "
+                 f"and 64 KiB ({allowed})")
         plain_ms = eager_ms(lambda: rasterize_mesh_plain(*args), calls=3,
                             warmup=1)
         n_v = px.shape[0]
@@ -2251,8 +2429,11 @@ def render_phase(kind: str) -> tuple:
         ops = (box_px * RASTER_OPS_PER_BOX_PIXEL
                + covered * RASTER_OPS_PER_COVERED_PIXEL)
         bound, by = bound_ms(nbytes, ops, kind, f64=True)
-        print(f"[rasterize] {w}x{h}: eager {ms:.4f} ms/call, device "
-              f"{dev_ms:.4f} ms (profiler, its 4 kernels), plain twin "
+        geometry = choose_geometry(h, w, _sm_count(dev.index or 0))
+        print(f"[rasterize] {w}x{h}, geometry {geometry}: eager {ms:.4f} "
+              f"ms/call, device {dev_ms:.4f} ms (profiler, {per_call:g} "
+              "kernels a call), "
+              f"{extra} bytes requested a call, plain twin "
               f"{plain_ms:.2f} ms, bound {bound * 1e3:.2f} us by {by} "
               f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mop f64), "
               f"{100 * bound / dev_ms:.1f} % of bound on device time")
@@ -2263,8 +2444,13 @@ def render_phase(kind: str) -> tuple:
                    "launches": launches["rasterize"],
                    "launches_by_path": {"render": launches["rasterize"]},
                    "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                   "kernels_a_call": per_call, "geometry": geometry,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "library_ms": None, "shape": f"{w}x{h}, {len(f)} faces"}
+        else:
+            row["at_224"] = {"ms": ms, "device_ms": dev_ms,
+                             "kernels_a_call": per_call, "geometry": geometry,
+                             "plain_ms": plain_ms, "bound_ms": bound}
     return row, launches
 
 
@@ -2340,9 +2526,10 @@ def int8_times(kind: str, shape, seed: int) -> tuple:
     policy's): for the conv and for the weight kernel, the eager and device
     time (CUDA graph replay), the twin's time and the bound; for the conv
     also the time of ``torch._int_mm`` on the pre-quantized im2col of the
-    same operands (the GEMM alone; checked equal to the kernel) and of
-    cuDNN's bf16 conv of the shape, which the bf16 policy runs. Returns
-    (conv figures, weight kernel figures)."""
+    same operands, K zero-padded to a multiple of 8 in both (the GEMM
+    alone, the same sums; checked equal to the kernel), and of cuDNN's bf16
+    conv of the shape, which the bf16 policy runs. Returns (conv figures,
+    weight kernel figures)."""
     import torch
     import torch.nn.functional as F
 
@@ -2375,17 +2562,22 @@ def int8_times(kind: str, shape, seed: int) -> tuple:
     bound, by = bound_ms(nbytes, ops, kind, int8=True)
 
     kk = cin * k * k
+    kp = -(-kk // 8) * 8  # K padded with zeros: _int_mm takes K % 8 == 0
     library_ms = lib_dev = None
-    if kk % 8 == 0 and cout % 8 == 0 and m > 16:
+    if cout % 8 == 0 and m > 16:
         x_q = quantize_activation(x, ACT_CLIP)
         cols = F.unfold(x_q.float(), k, padding=pad, stride=stride)
-        a = cols.transpose(1, 2).reshape(m, kk).to(torch.int8).contiguous()
+        a = torch.zeros((m, kp), dtype=torch.int8, device=x.device)
+        a[:, :kk] = cols.transpose(1, 2).reshape(m, kk).to(torch.int8)
         del cols, x_q
-        b = w_q.permute(0, 3, 1, 2).reshape(cout, kk).contiguous().t()
+        b = torch.zeros((cout, kp), dtype=torch.int8, device=x.device)
+        b[:, :kk] = w_q.permute(0, 3, 1, 2).reshape(cout, kk)
+        b = b.t()
         try:
             acc = torch._int_mm(a, b)
         except RuntimeError as exc:  # a yardstick only; the port never calls it
-            print(f"note: torch._int_mm refused {shape}: {exc}")
+            print(f"note: torch._int_mm refused {shape} (K {kk} -> {kp}): "
+                  f"{exc}")
         else:
             ref = (acc.float() * scale).to(torch.bfloat16)
             got = fn().permute(0, 2, 3, 1).reshape(m, cout)
@@ -2409,14 +2601,15 @@ def int8_times(kind: str, shape, seed: int) -> tuple:
           f"({how}), plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by "
           f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
           f"{100 * bound / dev_ms:.1f} % of bound; torch._int_mm "
-          + (f"{library_ms:.4f} ms eager, {lib_dev:.4f} ms device"
-             if library_ms is not None else "not timed")
+          + (f"(K {kk} -> {kp}) {library_ms:.4f} ms eager, {lib_dev:.4f} "
+             "ms device" if library_ms is not None else "not timed")
           + f"; cuDNN bf16 conv {cudnn_ms:.4f} ms eager, {cudnn_dev:.4f} ms "
           "device")
     conv_fig = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_dev,
                 "library_eager_ms": library_ms, "cudnn_bf16_ms": cudnn_dev,
-                "shape": list(shape), "plan": plan}
+                "cudnn_bf16_eager_ms": cudnn_ms, "shape": list(shape),
+                "plan": plan}
 
     wf = lambda: quantize_weight_cuda(wt, ACT_CLIP)  # noqa: E731
     w_ms = eager_ms(wf)
@@ -3303,6 +3496,13 @@ def main() -> int:
               f"{conv_ops(B_TRAIN, heavy) * uses[heavy] / 1e9:.1f} Gop a "
               "forward at bs32")
         timed[name] = int8_times(kind, heavy, 900 + i)
+    stem_figs = {}
+    for i, (name, uses) in enumerate(sorted(shapes.items())):
+        stem = next(key for key in uses if key[0] % 32)
+        print(f"[int8_conv] {name}'s stem (Cin, H, W, Cout, k, s) {stem}: "
+              f"{uses[stem]} use, {conv_ops(B_TRAIN, stem) / 1e9:.2f} Gop a "
+              "forward at bs32")
+        stem_figs[name], _ = int8_times(kind, stem, 910 + i)
     forward_times()
     grouped = grouped_times(kind)
     breakdown = quant_conv_breakdown(shapes, grouped)
@@ -3324,6 +3524,7 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err, **fig})
     rows[-2]["forward_ms_by_model"] = breakdown
+    rows[-2]["stems"] = stem_figs
     rows.append(raster_row)
     print(f"[figures] {card}: rasterize at {raster_row['shape']}: eager "
           f"{raster_row['ms']:.4f} ms, device {raster_row['device_ms']:.4f} "

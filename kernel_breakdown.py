@@ -20,8 +20,14 @@ HRNet-W32 at bs32, 256x256, under bf16 and int8_fwd (the same random
 weights): CUDA events around 5 blocks of 4 forwards after 3 warm-ups, the
 host ms a forward of 4 unsynchronised calls, and the profiler's device
 ms and kernel count a forward over 3, with the int8 weight quantize's
-share (every kernel whose name holds ``quantize_weight``). With ``--root``
-run parent, change, change, parent in one call to compare two commits.
+share (every kernel whose name holds ``quantize_weight``). Then the int8
+conv at both models' Cin-3 stems (bs32, 256x256, bf16 in and out; device
+ms in a replayed CUDA graph, with the plan's path) and the mesh
+rasterizer on ``chip_smoke.procedural_hand_mesh`` at 800x600 and 224x224
+(the profiler's device ms and kernels a call, whichever kernels the
+checkout has; where its wrapper chooses a geometry, the device ms at each).
+With ``--root`` run parent, change, change, parent in one
+call to compare two commits.
 The last line is one JSON object with every number. Without a card it
 exits nonzero and prints no result.
 """
@@ -121,6 +127,68 @@ def forwards() -> dict:
     return out
 
 
+STEMS = {"resnet50": (3, 256, 256, 64, 7, 2),
+         "hrnet_w32": (3, 256, 256, 64, 3, 2)}
+# the rasterizer's kernels, before and since its redesign
+RASTER_KERNELS = ("init_kernel", "depth_pass", "shade_kernel", "raster_")
+
+
+def stems_and_raster() -> dict:
+    """{"stems": {model: figures}, "raster": {size: figures}} of whichever
+    ``lighthand_tpu_torch`` is on the path (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels.int8_conv import (
+        conv_plan,
+        int8_conv2d_cuda,
+        quantize_weight_cuda,
+    )
+    from lighthand_tpu_torch.ops.kernels import rasterize
+    from lighthand_tpu_torch.ops.kernels.rasterize import rasterize_mesh_cuda
+    from lighthand_tpu_torch.utils import mesh_render
+
+    out = {"stems": {}, "raster": {}}
+    for name, shape in STEMS.items():
+        x, wt = cs.int8_inputs(cs.B_TRAIN, shape, 3)
+        w_q, _, scale = quantize_weight_cuda(wt, cs.ACT_CLIP)
+        k, stride = shape[4], shape[5]
+
+        def conv():
+            return int8_conv2d_cuda(x, w_q, scale, cs.ACT_CLIP, stride, k // 2)
+        dev_ms, _ = cs.device_ms(conv, cs.capture(conv))
+        path = conv_plan(x, w_q, stride, k // 2)["path"]
+        out["stems"][name] = {"device_ms": dev_ms, "path": path}
+        print(f"[stem] {name} {shape} bs{cs.B_TRAIN}: device {dev_ms:.4f} ms "
+              f"({path} path)")
+    v, f, colors = cs.procedural_hand_mesh()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    for w, h, focal in cs.RENDER_SIZES:
+        px, z = mesh_render.project_points(
+            v, np.zeros(3), np.array([0.01, -0.02, 2.0]), [focal, focal],
+            [w / 2, h / 2], dev)
+        args = (px, z, torch.from_numpy(f).to(dev),
+                torch.from_numpy(colors).to(dev),
+                torch.from_numpy(rng.uniform(0, 1, (h, w, 3))).to(dev), 1.0,
+                abs(2.0 - float(np.mean(v, axis=0)[2])) + 20.0)
+        dev_ms, per_call = cs._kernel_device_ms(
+            lambda: rasterize_mesh_cuda(*args), RASTER_KERNELS)
+        fig = {"device_ms": dev_ms, "kernels_a_call": per_call}
+        # each geometry of a checkout whose wrapper chooses one
+        for name in ("LARGE", "SMALL"):
+            geometry = getattr(rasterize, name, None)
+            if geometry is not None:
+                fig[name], _ = cs._kernel_device_ms(
+                    lambda: rasterize_mesh_cuda(*args, geometry=geometry),
+                    RASTER_KERNELS)
+        out["raster"][f"{w}x{h}"] = fig
+        print(f"[raster] {w}x{h}, {len(f)} faces: device {dev_ms:.4f} ms, "
+              f"{per_call:g} kernels a call; by geometry "
+              f"{ {k: v for k, v in fig.items() if k.isupper()} }")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
@@ -190,6 +258,7 @@ def main() -> int:
             result["mixes"]["smoke mix"] = \
                 result["times"][f"fused_aug_targets B={b}"]["device_ms"]
     result["forwards"] = forwards()
+    result.update(stems_and_raster())
     print(json.dumps(result))
     return 0
 

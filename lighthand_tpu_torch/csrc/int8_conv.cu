@@ -80,11 +80,51 @@
 //     of NHWC. Versus im2col rows (an earlier version of this kernel), the
 //     halo cuts the bytes a 3x3 conv pulls through L2 by about 9x and
 //     quantizes each activation once a block instead of once a tap.
+//   - Stem path (int8_conv_stem), for Cin not a multiple of 32 with K = kh *
+//     kw * Cin <= 256, at any alignment: both models' stems (Cin 3: 7x7, K
+//     = 147, and 3x3, K = 27), whose 6-byte bf16 pixels and 147-byte weight
+//     rows neither TMA nor 16-byte cp.async can describe. Bound: bytes, and
+//     most of them are the output (ResNet-50's stem at bs32: 12.6 MB in,
+//     67.1 MB out, 23.8 us at 3.35 TB/s against 5.0 us of operations). The
+//     design keeps every other cost under the stores:
+//       * the block's tile is the main path's (128 output pixels of one
+//         image, TW x 128 / TW, the same width rule) by BN = 32, 64 or 128
+//         channels (Cout rounded up; wider Cout in channel groups);
+//       * B, w_q seen as [Cout, K], is read once a block (once a channel
+//         group) by the block's own byte loads into shared memory, zero-
+//         padded to K_pad = K rounded up to 32 (147 -> 160, 27 -> 32) and
+//         laid out as TMA's 32-byte swizzle would lay out K_pad / 32 tiles
+//         of BN rows, so b_desc<32> reads it as it reads the main path's
+//         32-channel chunks; no new weight layout;
+//       * A: the tile's halo (the main path's window, contiguous along
+//         each row in NHWC) is read a 4-byte word of s8 at a time (rows
+//         padded to whole words): the word's 4 elements are loaded
+//         together, zero outside the image, quantized and stored as one
+//         word, with one index step a word (faster on the card than a
+//         byte at a time, which spent more instructions on indices than
+//         on loads). No staging buffer: nothing here is 16-byte aligned. Each thread gathers its wgmma A fragment bytes
+//         from the halo through a table of the K offsets (koff: the halo
+//         byte of tap (r, s), channel ci, from a pixel's; -1 past K), so
+//         the im2col rows are never built: each A byte is read once;
+//       * wgmma.mma_async m64nBNk32 s8.s8.s32, two warpgroups of 64 rows,
+//         K_pad / 32 steps (5 or 1), A from registers in two alternating
+//         sets as on the main path;
+//       * the main path's epilogue: staged in shared memory, out as 16-byte
+//         rows of NHWC (a pixel's 64 bf16 channels are 128 contiguous
+//         bytes);
+//       * a persistent grid of as many blocks as fit on the SMs (three of
+//         256 threads at BN 64), each walking tiles with the grid's
+//         stride. Co-resident blocks overlap one tile's loads with
+//         another's wgmma and stores. Two alternatives were slower on the
+//         card: a ring that loads the next tile's first three halo words a
+//         thread into registers during this tile's wgmma and stores, and
+//         four blocks an SM at 64 registers.
 //   - Simple path (int8_conv_simple), for the rest: Cin not a multiple of 32
-//     (the stems' Cin 3 at 7x7 and 3x3; Cin 8 or 48), or an operand not
-//     16-byte aligned, which TMA and cp.async refuse. mma.sync m16n8k32 on
-//     64 x 64 tiles; each thread gathers and quantizes 16 activations and 16
-//     weight bytes a K step.
+//     with K above 256 (or a stem halo beyond shared memory), or a main-path
+//     conv whose operand is not 16-byte aligned, which TMA and cp.async
+//     refuse. mma.sync m16n8k32 on 64 x 64 tiles; each thread gathers and
+//     quantizes 16 activations and 16 weight bytes a K step. No conv of
+//     either model reaches it.
 // What still bounds the main path: a chunk's steps run one after another in
 // one block (wait for the halo, quantize it, then the taps), so the tensor
 // cores idle while a block converts; where the grid has more than one block
@@ -532,6 +572,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Makes this thread's shared-memory writes visible to wgmma, which reads
+// its shared-memory operands through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -589,6 +635,65 @@ int halo_smem_bytes(const Geom& g, const Tile& t, int bn, int ck) {
                    npx * (ck + 16) + 16;
   const int tile = kWM * (bn + 8) * (int)sizeof(OutT);
   return 1024 + (main > tile ? main : tile);
+}
+
+// The epilogue of both wgmma paths, two steps with a barrier between them.
+// stage_tile: each thread's dequantized pairs (acc[4j], acc[4j+1] at row
+// ra, cols 8j + 2tq, +1; acc[4j+2], acc[4j+3] at row rb) into a [128][BN]
+// tile in shared memory whose rows are padded so that the 8 rows of a
+// store start on distinct banks.
+template <typename OutT, int BN>
+__device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
+                                           uint8_t* tile,
+                                           const float* __restrict__ scale,
+                                           int n0, int cout, int ra, int rb,
+                                           int tq) {
+  constexpr int kOutRow = (BN + 8) * (int)sizeof(OutT);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * tq;
+    const float s0 = col < cout ? scale[col] : 0.f;
+    const float s1 = col + 1 < cout ? scale[col + 1] : 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      OutT* d = reinterpret_cast<OutT*>(tile + (hf ? rb : ra) * kOutRow) +
+                8 * j + 2 * tq;
+      store_pair(d, __int2float_rn(acc[4 * j + 2 * hf]) * s0,
+                 __int2float_rn(acc[4 * j + 2 * hf + 1]) * s1, true, true);
+    }
+  }
+}
+
+// store_tile: the staged tile of image n at (oh0, ow0), channels from n0,
+// out as whole rows of 16-byte vectors (one pixel's channels are
+// contiguous in NHWC), or value by value where a row's end or its
+// alignment does not allow it; pixels outside the image are dropped.
+template <typename OutT, int BN>
+__device__ __forceinline__ void store_tile(const uint8_t* tile,
+                                           OutT* __restrict__ out,
+                                           const Geom& g, int tw_log2, int n,
+                                           int oh0, int ow0, int n0) {
+  constexpr int kOutRow = (BN + 8) * (int)sizeof(OutT);
+  constexpr int kVecOut = 16 / (int)sizeof(OutT);  // values a 16-byte store
+  constexpr int kRowVecs = BN / kVecOut;
+  const int TW = 1 << tw_log2;
+  const int ncols = min(BN, g.cout - n0);
+  const bool vec_ok = g.cout % kVecOut == 0 && ((uintptr_t)out & 15) == 0;
+  for (int i = threadIdx.x; i < kWM * kRowVecs; i += kWThreads) {
+    const int row = i / kRowVecs, v = i - row * kRowVecs;
+    const int oh = oh0 + (row >> tw_log2), ow = ow0 + (row & (TW - 1));
+    if (oh >= g.ho || ow >= g.wo || v * kVecOut >= ncols) continue;
+    OutT* dst = out + (((long long)n * g.ho + oh) * g.wo + ow) * g.cout +
+                n0 + v * kVecOut;
+    const uint8_t* src = tile + row * kOutRow + v * 16;
+    if (vec_ok) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const OutT* sv = reinterpret_cast<const OutT*>(src);
+      for (int e = 0; e < kVecOut && v * kVecOut + e < ncols; ++e)
+        dst[e] = sv[e];
+    }
+  }
 }
 
 template <typename InT, typename OutT, int BN, int CK>
@@ -731,52 +836,207 @@ int8_conv_wgmma(const __grid_constant__ CUtensorMap wmap,
   }
 
   // Epilogue through shared memory (free now: every wgmma has completed and
-  // every thread is past its last fragment read): each thread writes its
-  // dequantized pairs (acc[4j], acc[4j+1] at row ra, cols 8j + 2tq, +1;
-  // acc[4j+2], acc[4j+3] at row rb) into a [128][BN] tile whose rows are
-  // padded so that the 8 rows of a store start on distinct banks; then the
-  // block stores whole rows as 16-byte vectors (one pixel's channels are
-  // contiguous in NHWC), or value by value where a row's end or its
-  // alignment does not allow it.
+  // every thread is past its last fragment read).
   if (tid == 0) {
     mbar_inval(smem_addr(&full[0]));
     mbar_inval(smem_addr(&full[1]));
   }
   __syncthreads();
-  constexpr int kOutRow = BN * (int)sizeof(OutT) + 8 * (int)sizeof(OutT);
-  uint8_t* tile = b_tiles;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * tq;
-    const float s0 = col < g.cout ? scale[col] : 0.f;
-    const float s1 = col + 1 < g.cout ? scale[col + 1] : 0.f;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      OutT* d = reinterpret_cast<OutT*>(tile + (hf ? rb : ra) * kOutRow) +
-                8 * j + 2 * tq;
-      store_pair(d, __int2float_rn(acc[4 * j + 2 * hf]) * s0,
-                 __int2float_rn(acc[4 * j + 2 * hf + 1]) * s1, true, true);
-    }
-  }
+  stage_tile<OutT, BN>(acc, b_tiles, scale, n0, g.cout, ra, rb, tq);
   __syncthreads();
-  constexpr int kVecOut = 16 / (int)sizeof(OutT);  // values a 16-byte store
-  constexpr int kRowVecs = BN / kVecOut;
-  const int ncols = min(BN, g.cout - n0);
-  const bool vec_ok = g.cout % kVecOut == 0 && ((uintptr_t)out & 15) == 0;
-  for (int i = tid; i < kWM * kRowVecs; i += kWThreads) {
-    const int row = i / kRowVecs, v = i - row * kRowVecs;
-    const int oh = oh0 + (row >> tl.tw_log2), ow = ow0 + (row & (TW - 1));
-    if (oh >= g.ho || ow >= g.wo || v * kVecOut >= ncols) continue;
-    OutT* dst = out + (((long long)n * g.ho + oh) * g.wo + ow) * g.cout +
-                n0 + v * kVecOut;
-    const uint8_t* src = tile + row * kOutRow + v * 16;
-    if (vec_ok) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      const OutT* sv = reinterpret_cast<const OutT*>(src);
-      for (int e = 0; e < kVecOut && v * kVecOut + e < ncols; ++e)
-        dst[e] = sv[e];
+  store_tile<OutT, BN>(b_tiles, out, g, tl.tw_log2, n, oh0, ow0, n0);
+}
+
+// ------------------------------------------------------------ stem path
+
+constexpr int kStemMaxK = 256;  // K = kh * kw * Cin the stem path takes
+
+// Shared memory of the stem path: B (K_pad / 32 tiles of BN rows of 32
+// bytes, at a 1024-byte boundary as the swizzle wants), the output tile,
+// the K offset table and the s8 halo (rows padded to whole 4-byte words).
+template <typename OutT>
+int stem_smem_bytes(const Geom& g, const Tile& t, int bn, int k_pad) {
+  return 1024 + bn * k_pad + kWM * (bn + 8) * (int)sizeof(OutT) +
+         4 * k_pad + t.ih * ((t.iw * g.cin + 3) & ~3);
+}
+
+// The halo bytes at p + o.x, ..., p + o.w (an offset below 0 is past K: a
+// zero) packed as one A fragment register.
+__device__ __forceinline__ uint32_t gather4(const uint8_t* p, int4 o) {
+  return (o.x < 0 ? 0u : (uint32_t)p[o.x]) |
+         (o.y < 0 ? 0u : (uint32_t)p[o.y]) << 8 |
+         (o.z < 0 ? 0u : (uint32_t)p[o.z]) << 16 |
+         (o.w < 0 ? 0u : (uint32_t)p[o.w]) << 24;
+}
+
+// A block of two warpgroups walks items (channel group, image, tile) with
+// the grid's stride: B once a channel group, then per tile the halo, the
+// K_pad / 32 wgmma steps and the epilogue, with two barriers.
+template <typename InT, typename OutT, int BN>
+__global__ void __launch_bounds__(kWThreads, BN > 64 ? 2 : 3)
+int8_conv_stem(const InT* __restrict__ x, float inv,
+               const int8_t* __restrict__ w,
+               const float* __restrict__ scale, OutT* __restrict__ out,
+               Geom g, Tile tl, int n_img, int k_pad) {
+  const int nks = k_pad / 32;
+  const int row_bytes = tl.iw * g.cin;  // a halo row: iw pixels of Cin
+  const int row_words = (row_bytes + 3) / 4;  // the row in shared memory
+  const int row_stride = 4 * row_words;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* b_tiles = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  uint8_t* tile = b_tiles + BN * k_pad;
+  int* koff =
+      reinterpret_cast<int*>(tile + kWM * (BN + 8) * (int)sizeof(OutT));
+  uint8_t* halo = reinterpret_cast<uint8_t*>(koff + k_pad);
+
+  const int tid = threadIdx.x;
+  const int TW = 1 << tl.tw_log2, TH = kWM >> tl.tw_log2;
+  // K offset k = ((r * kw) + s) * Cin + ci: halo byte r * row_stride +
+  // s * Cin + ci from the pixel's
+  for (int k = tid; k < k_pad; k += kWThreads) {
+    int o = -1;
+    if (k < g.K) {
+      const int rs = k / g.cin, r = rs / g.kw;
+      o = r * row_stride + (rs - r * g.kw) * g.cin + k - rs * g.cin;
     }
+    koff[k] = o;
+  }
+
+  // B of channels [n0, n0 + BN): 4-byte words of w_q rows, zero past Cout
+  // and past K; word (row r, K bytes [k, k + 4)) goes to tile k / 32, row
+  // r, its 16-byte chunk (k / 16) % 2 swapped where bit 2 of r is set (the
+  // layout TMA's 32-byte swizzle gives the main path's chunks).
+  auto load_b = [&](int n0) {
+    const int words = k_pad / 4;
+    for (int i = tid; i < BN * words; i += kWThreads) {
+      const int r = i / words, k = 4 * (i - r * words);
+      uint32_t word = 0u;
+      if (n0 + r < g.cout) {
+        const int8_t* src = w + (long long)(n0 + r) * g.K;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < g.K) word |= (uint32_t)(uint8_t)src[k + j] << (8 * j);
+      }
+      const int chunk = ((k >> 4) ^ (r >> 2)) & 1;
+      *reinterpret_cast<uint32_t*>(b_tiles + (k >> 5) * (BN * 32) + r * 32 +
+                                   chunk * 16 + (k & 15)) = word;
+    }
+    fence_proxy_async();
+  };
+
+  // The halo of the tile whose window starts at input (ih0, iw0), a
+  // 4-byte word at a time: word q is row q / row_words, bytes 4 (q %
+  // row_words) .. + 4 of it (past row_bytes: padding, zero). This thread's
+  // words are tid, tid + kWThreads, ..., their rows and places stepped
+  // without division; a word's 4 loads are in flight together and it is
+  // stored as one. Where step is 1 a halo row is the input row's elements
+  // [iw0 * Cin, + row_bytes), those between lo and hi inside the image.
+  const int q_row0 = tid / row_words, q_col0 = tid - q_row0 * row_words;
+  const int d_row = kWThreads / row_words;
+  const int d_col = kWThreads - d_row * row_words;
+  auto load_halo = [&](const InT* xn, int ih0, int iw0) {
+    const int lo = max(0, -iw0) * g.cin;
+    const int hi = min(row_bytes, (min(g.w, iw0 + tl.iw) - iw0) * g.cin);
+    for (int hy = q_row0, col = q_col0; hy < tl.ih;) {
+      const int gy = ih0 + hy * tl.step;
+      float v[4];  // zero outside the image: quantize(0) is 0
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int off = 4 * col + j;
+        long long src = -1;
+        if (gy >= 0 && gy < g.h) {
+          if (tl.step == 1) {
+            if (off >= lo && off < hi)
+              src = ((long long)gy * g.w + iw0) * g.cin + off;
+          } else if (off < row_bytes) {
+            // a strided 1x1 conv: halo pixels step input pixels apart
+            const int hx = off / g.cin, gx = iw0 + hx * tl.step;
+            if (gx >= 0 && gx < g.w)
+              src = ((long long)gy * g.w + gx) * g.cin + off - hx * g.cin;
+          }
+        }
+        v[j] = src >= 0 ? to_float(xn[src]) : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(halo + hy * row_stride + 4 * col) =
+          pack4(quantize(v[0], inv), quantize(v[1], inv),
+                quantize(v[2], inv), quantize(v[3], inv));
+      col += d_col;
+      hy += d_row;
+      if (col >= row_words) {
+        col -= row_words;
+        ++hy;
+      }
+    }
+  };
+
+  // A fragments: rows ra and rb of the tile, K bytes 4 tq.. and 16 + 4 tq..
+  // of step ks, gathered from the halo at the rows' pixels
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ra = 64 * wg + 16 * warp + gq, rb = ra + 8;
+  auto halo_at = [&](int row) {
+    return halo + (row >> tl.tw_log2) * tl.hstride * row_stride +
+           (row & (TW - 1)) * tl.hstride * g.cin;
+  };
+  const uint8_t* ha = halo_at(ra);
+  const uint8_t* hb = halo_at(rb);
+  auto load_a = [&](int ks, uint32_t (&a)[4]) {
+    const int4 lo = *reinterpret_cast<const int4*>(koff + 32 * ks + 4 * tq);
+    const int4 hi =
+        *reinterpret_cast<const int4*>(koff + 32 * ks + 16 + 4 * tq);
+    a[0] = gather4(ha, lo);
+    a[1] = gather4(hb, lo);
+    a[2] = gather4(ha, hi);
+    a[3] = gather4(hb, hi);
+  };
+
+  const int per_img = tl.tiles_h * tl.tiles_w;
+  const long long tiles = (long long)n_img * per_img;
+  const long long items = tiles * ((g.cout + BN - 1) / BN);
+  int loaded = -1;  // the channel group whose B is in shared memory
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int grp = (int)(it / tiles);
+    const long long t = it - grp * tiles;
+    const int n = (int)(t / per_img);
+    const int r = (int)(t - (long long)n * per_img);
+    const int th_i = r / tl.tiles_w;
+    const int oh0 = th_i * TH, ow0 = (r - th_i * tl.tiles_w) * TW;
+    const int n0 = grp * BN;
+    if (grp != loaded) {  // every wgmma reading B has completed
+      load_b(n0);
+      loaded = grp;
+    }
+    load_halo(x + (long long)n * g.h * g.w * g.cin,
+              oh0 * g.stride - g.pad, ow0 * g.stride - g.pad);
+    __syncthreads();  // B, the table and the halo in place; the tile free
+
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    auto issue = [&](int ks, const uint32_t (&a)[4]) {
+      const uint64_t desc = b_desc<32>(smem_addr(b_tiles + ks * (BN * 32)));
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      Wgmma<BN>::mma(acc, a, desc);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    };
+    // two register sets in turn, as on the main path
+    uint32_t a0[4], a1[4];
+    load_a(0, a0);
+    for (int ks = 0; ks < nks; ks += 2) {
+      issue(ks, a0);
+      wgmma_wait<1>();
+      if (ks + 1 < nks) {
+        load_a(ks + 1, a1);
+        issue(ks + 1, a1);
+      }
+      wgmma_wait<1>();
+      if (ks + 2 < nks) load_a(ks + 2, a0);
+    }
+    wgmma_wait<0>();
+    stage_tile<OutT, BN>(acc, tile, scale, n0, g.cout, ra, rb, tq);
+    __syncthreads();  // the tile staged; the halo and B free
+    store_tile<OutT, BN>(tile, out, g, tl.tw_log2, n, oh0, ow0, n0);
   }
 }
 
@@ -1096,33 +1356,22 @@ bool weight_map(CUtensorMap* map, const int8_t* w, const Geom& g, int bn,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// How the main path runs a conv: channels a block (bn), channels a chunk
-// (ck), the tile; bn == 0 where it does not take the conv.
+// How a conv runs: the path; channels a block (bn); the main path's
+// channels a chunk, or the stem path's K_pad (ck); the tile.
+enum Path { kSimplePath = 0, kWgmmaPath = 1, kStemPath = 2 };
 struct Plan {
-  int bn, ck;
+  int path, bn, ck;
   Tile tile;
   int smem;
 };
 
-// The main path takes Cin a multiple of 32 (whole k32 steps of one tap)
-// with both operands 16-byte aligned (cp.async, TMA). Channels a block: the
-// power of two from 32 to 256 that covers Cout, halved (not below 64) while
-// the grid would leave more than a quarter of the SMs without a block. Then
-// the first (bn, ck), bn from there down to 32 and the chunk 64 (where Cin
-// allows) before 32, that fits; where the grid has more than one block an
-// SM, first the first whose shared memory lets two blocks share an SM (one
-// block's loads and conversion then overlap the other's wgmma).
-template <typename InT, typename OutT>
-Plan plan(const Geom& g, int n, const void* x, const void* w) {
-  Plan p{};
-  if (g.cin % 32 != 0 || (uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0)
-    return p;
-  Tile& t = p.tile;
+// The tile of the wgmma paths: the width, a power of two up to the one
+// that covers Wo, whose tiles load the fewest input pixels over the image
+// (the halo of a 3x3 tile 16 wide is 180 pixels, of one 64 wide 264); the
+// wider on a tie. False where the grid would be too large.
+bool make_tile(const Geom& g, int n, Tile& t) {
   t.step = g.kh == 1 && g.kw == 1 ? g.stride : 1;
   t.hstride = g.stride / t.step;
-  // The tile width, a power of two up to the one that covers Wo, whose
-  // tiles load the fewest input pixels over the image (the halo of a 3x3
-  // tile 16 wide is 180 pixels, of one 64 wide 264); the wider on a tie.
   long long least = -1;
   for (int l = 0; l <= 7 && (l == 0 || (1 << (l - 1)) < g.wo); ++l) {
     const int w_ = 1 << l, h_ = kWM / w_;
@@ -1140,8 +1389,37 @@ Plan plan(const Geom& g, int n, const void* x, const void* w) {
   t.tiles_h = (g.ho + th - 1) / th;
   t.ih = (th - 1) * t.hstride + g.kh;
   t.iw = (tw - 1) * t.hstride + g.kw;
+  return (long long)n * t.tiles_h * t.tiles_w <= 0x7fffffffLL;
+}
+
+// The stem path takes Cin not a multiple of 32 with K <= 256, at any
+// alignment, where its shared memory fits: channels a block, the power of
+// two from 32 to 128 that covers Cout (wider Cout in groups of 128).
+// The main path takes Cin a multiple of 32 (whole k32 steps of one tap)
+// with both operands 16-byte aligned (cp.async, TMA). Channels a block: the
+// power of two from 32 to 256 that covers Cout, halved (not below 64) while
+// the grid would leave more than a quarter of the SMs without a block. Then
+// the first (bn, ck), bn from there down to 32 and the chunk 64 (where Cin
+// allows) before 32, that fits; where the grid has more than one block an
+// SM, first the first whose shared memory lets two blocks share an SM (one
+// block's loads and conversion then overlap the other's wgmma). The rest
+// takes the simple path.
+template <typename InT, typename OutT>
+Plan plan(const Geom& g, int n, const void* x, const void* w) {
+  Plan p{};
+  Tile t;
+  if (g.cin % 32 != 0) {
+    if (g.K > kStemMaxK || !make_tile(g, n, t)) return p;
+    int bn = 32;
+    while (bn < 128 && bn < g.cout) bn *= 2;
+    const int k_pad = (g.K + 31) / 32 * 32;
+    const int smem = stem_smem_bytes<OutT>(g, t, bn, k_pad);
+    if (smem <= kMaxSmem) p = Plan{kStemPath, bn, k_pad, t, smem};
+    return p;
+  }
+  if ((uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0 || !make_tile(g, n, t))
+    return p;
   const long long blocks = (long long)n * t.tiles_h * t.tiles_w;
-  if (blocks > 0x7fffffffLL) return p;
   int bn0 = 32;
   while (bn0 < 256 && bn0 < g.cout) bn0 *= 2;
   while (bn0 > 64 &&
@@ -1153,12 +1431,7 @@ Plan plan(const Geom& g, int n, const void* x, const void* w) {
     for (int bn = bn0; bn >= 32; bn /= 2) {
       for (int ck = g.cin % 64 == 0 ? 64 : 32; ck >= 32; ck /= 2) {
         const int smem = halo_smem_bytes<InT, OutT>(g, t, bn, ck);
-        if (smem <= limit) {
-          p.bn = bn;
-          p.ck = ck;
-          p.smem = smem;
-          return p;
-        }
+        if (smem <= limit) return Plan{kWgmmaPath, bn, ck, t, smem};
       }
     }
   }
@@ -1196,22 +1469,65 @@ int launch_bn(const InT* x, float inv, const int8_t* w, const float* scale,
                                                       g, n, p, stream);
 }
 
+// The stem path's persistent grid: as many blocks as fit on the SMs at
+// once, at most one an item.
+template <typename InT, typename OutT, int BN>
+int launch_stem(const InT* x, float inv, const int8_t* w, const float* scale,
+                OutT* out, const Geom& g, int n, const Plan& p,
+                cudaStream_t stream) {
+  auto kernel = int8_conv_stem<InT, OutT, BN>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kWThreads, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = (long long)n * p.tile.tiles_h * p.tile.tiles_w *
+                          ((g.cout + BN - 1) / BN);
+  const long long fill = (long long)(per_sm < 1 ? 1 : per_sm) * sm_count();
+  kernel<<<(unsigned)(items < fill ? items : fill), kWThreads, p.smem,
+           stream>>>(x, inv, w, scale, out, g, p.tile, n, p.ck);
+  return (int)cudaGetLastError();
+}
+
 template <typename InT, typename OutT>
 int launch(const InT* x, float inv, const int8_t* w, const float* scale,
            void* out_, const Geom& g, int n, cudaStream_t stream) {
   OutT* out = static_cast<OutT*>(out_);
   const Plan p = plan<InT, OutT>(g, n, x, w);
-  switch (p.bn) {
-    case 32:
-      return launch_bn<InT, OutT, 32>(x, inv, w, scale, out, g, n, p, stream);
-    case 64:
-      return launch_bn<InT, OutT, 64>(x, inv, w, scale, out, g, n, p, stream);
-    case 128:
-      return launch_bn<InT, OutT, 128>(x, inv, w, scale, out, g, n, p,
-                                       stream);
-    case 256:
-      return launch_bn<InT, OutT, 256>(x, inv, w, scale, out, g, n, p,
-                                       stream);
+  if (p.path == kStemPath) {
+    switch (p.bn) {
+      case 32:
+        return launch_stem<InT, OutT, 32>(x, inv, w, scale, out, g, n, p,
+                                          stream);
+      case 64:
+        return launch_stem<InT, OutT, 64>(x, inv, w, scale, out, g, n, p,
+                                          stream);
+      default:
+        return launch_stem<InT, OutT, 128>(x, inv, w, scale, out, g, n, p,
+                                           stream);
+    }
+  }
+  if (p.path == kWgmmaPath) {
+    switch (p.bn) {
+      case 32:
+        return launch_bn<InT, OutT, 32>(x, inv, w, scale, out, g, n, p,
+                                        stream);
+      case 64:
+        return launch_bn<InT, OutT, 64>(x, inv, w, scale, out, g, n, p,
+                                        stream);
+      case 128:
+        return launch_bn<InT, OutT, 128>(x, inv, w, scale, out, g, n, p,
+                                         stream);
+      default:
+        return launch_bn<InT, OutT, 256>(x, inv, w, scale, out, g, n, p,
+                                         stream);
+    }
   }
   if ((g.cout + kBN - 1) / kBN > 65535 || (g.M + kBM - 1) / kBM > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -1254,8 +1570,9 @@ extern "C" int lh_int8_conv(const void* x, int x_f32, float inv,
 }
 
 // The plan lh_int8_conv follows for these operands: into plan_out, the
-// channels a block, the channels a chunk, the tile's width and the shared
-// memory of the main path (all 0 for the simple path). Returns 0.
+// channels a block, the main path's channels a chunk or the stem path's
+// K_pad, the tile's width, the shared memory a block (all 0 for the simple
+// path) and the path (Path). Returns 0.
 extern "C" int lh_int8_conv_plan(const void* x, int x_f32, const void* w,
                                  int out_f32, int n, int h, int wd, int cin,
                                  int cout, int kh, int kw, int stride,
@@ -1269,8 +1586,9 @@ extern "C" int lh_int8_conv_plan(const void* x, int x_f32, const void* w,
                                         g, n, x, w));
   plan_out[0] = p.bn;
   plan_out[1] = p.ck;
-  plan_out[2] = p.bn ? 1 << p.tile.tw_log2 : 0;
+  plan_out[2] = p.path != kSimplePath ? 1 << p.tile.tw_log2 : 0;
   plan_out[3] = p.smem;
+  plan_out[4] = p.path;
   return 0;
 }
 

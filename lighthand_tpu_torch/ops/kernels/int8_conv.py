@@ -417,23 +417,31 @@ def int8_conv2d_cuda(x: torch.Tensor, w_q: torch.Tensor,
 int8_conv2d_cuda.launches = 0
 
 
+PATHS = ("simple", "wgmma", "stem")  # csrc/int8_conv.cu's Path, in order
+
+
 def conv_plan(x: torch.Tensor, w_q: torch.Tensor, stride: int,
               padding: int, out_dtype: torch.dtype = torch.bfloat16) -> dict:
     """How ``int8_conv2d_cuda(x, w_q, ...)`` runs on the card: the path
-    ("wgmma", the halo tiles and TMA-fed wgmma, or "simple", mma.sync with
-    gathered loads) and, for the wgmma path, the channels a block (``bn``),
-    the channels a chunk (``ck``), the tile's width in pixels (``tw``) and
-    the shared memory a block (``smem``)."""
+    ("wgmma", the halo tiles and TMA-fed wgmma for Cin a multiple of 32;
+    "stem", halo tiles quantized as they are read, for Cin not a multiple
+    of 32 with kh * kw * Cin <= 256; or "simple", mma.sync with gathered
+    loads, for the rest) and, for the first two, the channels a block
+    (``bn``), the tile's width in pixels (``tw``) and the shared memory a
+    block (``smem``), with the wgmma path's channels a chunk (``ck``) or
+    the stem path's K rounded up to 32 (``k_pad``)."""
     n, cin, h, w = x.shape
     cout, kh, kw, _ = w_q.shape
     ho, wo = out_size(h, kh, stride, padding), out_size(w, kw, stride,
                                                          padding)
-    got = (ctypes.c_int * 4)()
+    got = (ctypes.c_int * 5)()
     _lib().lh_int8_conv_plan(
         x.data_ptr(), int(x.dtype == torch.float32), w_q.data_ptr(),
         int(out_dtype == torch.float32), n, h, w, cin, cout, kh, kw, stride,
         padding, ho, wo, got)
-    bn, ck, tw, smem = list(got)
-    if not bn:
+    bn, ck, tw, smem, path = list(got)
+    if PATHS[path] == "simple":
         return {"path": "simple"}
-    return {"path": "wgmma", "bn": bn, "ck": ck, "tw": tw, "smem": smem}
+    return {"path": PATHS[path], "bn": bn,
+            ("ck" if PATHS[path] == "wgmma" else "k_pad"): ck, "tw": tw,
+            "smem": smem}

@@ -24,6 +24,7 @@ import functools
 import torch
 
 from lighthand_tpu_torch.ops.kernels._build import library
+from lighthand_tpu_torch.ops.kernels.int8_conv import _sm_count
 
 
 def _face_setup(verts_px, verts_z, faces, h: int, w: int, near, far):
@@ -92,11 +93,35 @@ def rasterize_mesh_plain(verts_px: torch.Tensor, verts_z: torch.Tensor,
     return torch.clamp(color, 0.0, 1.0)
 
 
+# The kernel's geometry, (tile, threads a pixel, list capacity): a block a
+# screen tile of (width, height) pixels, each pixel's threads walking
+# every n-th face of the tile's list, a list in shared memory of at least a
+# block's thread count (a pass of faces always fits an empty list). An
+# image of at least PIXELS_PER_SM pixels an SM takes LARGE: small tiles, a
+# thread a pixel. A smaller one takes SMALL, which spreads the crowded
+# tiles (the mesh's poles) over more threads and the card; each is the
+# faster of the two on its side of the rule for a hand mesh at 800x600 and
+# 224x224 (kernel_breakdown.py times both). tests/test_torch_mesh_render.py
+# replays the block's walk in numpy with them.
+LARGE = ((8, 8), 1, 64)
+SMALL = ((4, 4), 4, 64)
+PIXELS_PER_SM = 1024
+# the card's scratch: a face's box (4 int32) and record (10 f64), and a
+# box for each group of 32 faces
+FACE_BYTES, GROUP_BYTES = 96, 16
+
+
+def choose_geometry(h: int, w: int, sms: int) -> tuple:
+    """The kernel's geometry for an h x w image on a card of ``sms`` SMs."""
+    return LARGE if h * w >= PIXELS_PER_SM * sms else SMALL
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("rasterize")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.lh_rasterize.argtypes = [p, p, p, p, p, i, i, i, d, d, p, p, p, p]
+    lib.lh_rasterize.argtypes = [p, p, p, p, p, i, i, i, d, d, p, p, i, i,
+                                 i, i, p]
     lib.lh_rasterize.restype = ctypes.c_int
     return lib
 
@@ -128,12 +153,17 @@ def _check(verts_px, verts_z, faces, vert_colors, background) -> None:
 def rasterize_mesh_cuda(verts_px: torch.Tensor, verts_z: torch.Tensor,
                         faces: torch.Tensor, vert_colors: torch.Tensor,
                         background: torch.Tensor, near: float = 1.0,
-                        far: float = float("inf")) -> torch.Tensor:
+                        far: float = float("inf"),
+                        geometry: tuple = None) -> torch.Tensor:
     """The z-buffered, perspective-correct rasterization of
     ``rasterize_mesh_plain``. On CUDA tensors this launches the kernel (or
-    raises); on CPU tensors it computes the plain twin.
+    raises), with ``geometry`` (tile, threads a pixel, list capacity), by
+    default ``choose_geometry`` of the image; on CPU tensors it computes the
+    plain twin.
     ``rasterize_mesh_cuda.launches`` counts the kernel launches (one call,
-    one count, for its passes)."""
+    one count, for its setup and tile kernels). The card's scratch is
+    ``FACE_BYTES`` a face and ``GROUP_BYTES`` a group of 32; nothing a
+    pixel but the image."""
     _check(verts_px, verts_z, faces, vert_colors, background)
     if background.device.type == "cpu":
         return rasterize_mesh_plain(verts_px, verts_z, faces, vert_colors,
@@ -153,14 +183,16 @@ def rasterize_mesh_cuda(verts_px: torch.Tensor, verts_z: torch.Tensor,
     background = background.contiguous()
     faces32 = faces.to(torch.int32).contiguous()
     out = torch.empty_like(background)
-    zbits = torch.empty((h, w), dtype=torch.int64, device=dev)
-    winner = torch.empty((h, w), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(n_faces * FACE_BYTES
+                              + -(-n_faces // 32) * GROUP_BYTES, 1),
+                          dtype=torch.uint8, device=dev)
+    tile, sub, cap = geometry or choose_geometry(h, w, _sm_count(dev.index))
     with torch.cuda.device(dev):
         err = _lib().lh_rasterize(
             verts_px.data_ptr(), verts_z.data_ptr(), faces32.data_ptr(),
             vert_colors.data_ptr(), background.data_ptr(), n_faces, h, w,
-            float(near), float(far), out.data_ptr(), zbits.data_ptr(),
-            winner.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            float(near), float(far), out.data_ptr(), scratch.data_ptr(),
+            *tile, sub, cap, torch.cuda.current_stream().cuda_stream)
         rasterize_mesh_cuda.launches += 1
     if err:
         raise RuntimeError(f"rasterize kernel launch failed: CUDA error {err}")

@@ -9,19 +9,31 @@ exact), and the rendered image is equal, with equal coverage (rendered
 over a NaN background, which the clip keeps: covered pixels are the finite
 ones), on the cases of ``tests/test_vis_extra.py`` and on a seeded
 ellipsoid of about 1.5k faces (MANO's size) with a patch of coplanar
-duplicate faces whose vertices carry other colours. The rasterizer keeps,
-at each pixel, the first face of the nearest depth, as the loop does. The
-kernel (``csrc/rasterize.cu``) is held bit for bit to the twin on the card
-by ``chip_smoke.py``.
+duplicate faces whose vertices carry other colours, and on
+``chip_smoke.raster_edge_cases`` (more faces on one tile than the kernel's
+list holds, a face larger than a tile, faces off the image, 1x1 and 17x13
+images). The rasterizer keeps, at each pixel, the first face of the
+nearest depth, as the loop does. The kernel (``csrc/rasterize.cu``) is
+held bit for bit to the twin on the card by ``chip_smoke.py``; here its
+walk is replayed in numpy at the wrapper's two geometries (``LARGE`` and
+``SMALL``: tiles, threads a pixel, list capacity) and held to the loop:
+lists filled in passes of a block's thread count and emptied where a pass
+would overflow them, ordered nearest first, each pixel's threads stopping
+at the first face whose depth bound is beyond their best.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import procedural_hand_mesh
+from chip_smoke import procedural_hand_mesh, raster_edge_cases
 from lighthand_tpu.utils import mesh_render as jm
 from lighthand_tpu_torch.ops.kernels.rasterize import (
+    LARGE,
+    SMALL,
+    choose_geometry,
     rasterize_mesh_cuda,
     rasterize_mesh_plain,
 )
@@ -274,3 +286,224 @@ def test_entry_points_need_the_card_unless_told_cpu():
         tm.Renderer()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tm.vertex_normals(*_square(5.0))
+
+
+# ------------------------------------------------ the kernel's tile walk
+
+# (tile (W, H) pixels, threads a pixel, list capacity): the wrapper's two
+GEOMETRIES = {"large": LARGE, "small": SMALL}
+
+
+def _near_key(z):
+    """``csrc/rasterize.cu:near_key`` of faces' depths [F, 3]."""
+    zmin = np.fmin.reduce(z, axis=1)
+    return np.where(np.isnan(zmin), np.inf, zmin)
+
+
+def _beyond(key, best):
+    """``csrc/rasterize.cu:beyond``."""
+    return (key >= 2.0 ** -900) & (best < np.fmin(key * (1 - 2.0 ** -48),
+                                                   1e12))
+
+
+def _replay_tiles(px, z, faces, colors, bg, near, far, tile, sub, cap):
+    """``csrc/rasterize.cu``'s walk in numpy: the setup's culls and boxes
+    (all zero where a face is not drawn) and the boxes of groups of 32
+    faces (the union of the drawn ones'); then for each tile the groups
+    that meet it, in passes of the block's thread count, their faces in
+    passes of a group a warp, those whose box meets the tile appended in
+    index order to a list of ``cap`` that is walked and emptied where a
+    pass would overflow it; each walk orders the list by (nearest depth,
+    face), each of a pixel's ``sub`` threads keeps the least (depth, face)
+    among its entries (every ``sub``-th) whose box holds the pixel,
+    stopping at the first entry beyond its best, and the least of the
+    threads wins; then the shade, with the loop's expressions. Returns
+    (image, the most faces that met one tile, the lists walked)."""
+    h, w = bg.shape[:2]
+    tw, th = tile
+    nt = tw * th * sub
+    p, zf = px[faces], z[faces]
+    keep = ~((zf <= near).any(1) | (zf >= far).all(1))
+    x0 = np.maximum(np.floor(p[:, :, 0].min(1)), 0)
+    x1 = np.minimum(np.ceil(p[:, :, 0].max(1)) + 1, w)
+    y0 = np.maximum(np.floor(p[:, :, 1].min(1)), 0)
+    y1 = np.minimum(np.ceil(p[:, :, 1].max(1)) + 1, h)
+    denom = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+             - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+    keep &= (x0 < x1) & (y0 < y1) & ~(np.abs(denom) < 1e-12)
+    box = np.where(keep[:, None], np.stack([x0, x1, y0, y1], 1),
+                   0).astype(np.int64)
+    keys = _near_key(zf)
+    groups = []
+    for g in range(0, len(faces), 32):
+        b, k = box[g:g + 32], keep[g:g + 32]
+        groups.append([b[k, 0].min(), b[k, 1].max(), b[k, 2].min(),
+                       b[k, 3].max()] if k.any() else [0, 0, 0, 0])
+    color = np.array(bg, dtype=np.float64)
+    most, walks = 0, 0
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            tx1, ty1 = min(tx0 + tw, w), min(ty0 + th, h)
+
+            def meets(b):
+                return (b[0] < b[1] and b[0] < tx1 and b[1] > tx0
+                        and b[2] < ty1 and b[3] > ty0)
+
+            ys, xs = np.mgrid[ty0:ty1, tx0:tx1]
+            best = np.full((sub,) + xs.shape, np.inf)
+            won = np.full((sub,) + xs.shape, -1)
+            bw = np.zeros((sub,) + xs.shape + (3,))
+
+            def walk(lst):
+                live = np.ones((sub,) + xs.shape, bool)
+                for i, f in enumerate(sorted(lst, key=lambda f: (keys[f],
+                                                                 f))):
+                    part = i % sub
+                    live[part] &= ~_beyond(keys[f], best[part])
+                    b = box[f]
+                    inb = (live[part] & (xs >= b[0]) & (xs < b[1])
+                           & (ys >= b[2]) & (ys < b[3]))
+                    pf, xc, yc = p[f], xs + 0.5, ys + 0.5
+                    w1 = ((xc - pf[0, 0]) * (pf[2, 1] - pf[0, 1])
+                          - (pf[2, 0] - pf[0, 0]) * (yc - pf[0, 1])) / denom[f]
+                    w2 = ((pf[1, 0] - pf[0, 0]) * (yc - pf[0, 1])
+                          - (xc - pf[0, 0]) * (pf[1, 1] - pf[0, 1])) / denom[f]
+                    w0 = 1.0 - w1 - w2
+                    inv_z = w0 / zf[f, 0] + w1 / zf[f, 1] + w2 / zf[f, 2]
+                    pix_z = 1.0 / np.maximum(inv_z, 1e-12)
+                    win = (inb & (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+                           & (pix_z < far)
+                           & ((pix_z < best[part])
+                              | ((pix_z == best[part]) & (f < won[part]))))
+                    best[part][win], won[part][win] = pix_z[win], f
+                    bw[part][win] = np.stack([w0, w1, w2], -1)[win]
+
+            lst, met = [], 0
+            for g0 in range(0, len(groups), nt):
+                hits = [g for g in range(g0, min(g0 + nt, len(groups)))
+                        if meets(groups[g])]
+                for k in range(0, len(hits), nt // 32):
+                    chunk = [f for g in hits[k:k + nt // 32]
+                             for f in range(32 * g, min(32 * g + 32,
+                                                        len(faces)))
+                             if meets(box[f])]
+                    met += len(chunk)
+                    if chunk and len(lst) + len(chunk) > cap:
+                        walk(lst)
+                        walks, lst = walks + 1, []
+                    lst += chunk
+            walk(lst)
+            walks += 1
+            most = max(most, met)
+            # the least (depth, face) of the pixel's threads (no face: -1
+            # under +inf, which every face's finite depth beats)
+            key = np.lexsort((np.where(won < 0, np.iinfo(np.int64).max, won),
+                              best), axis=0)[0]
+            best = np.take_along_axis(best, key[None], 0)[0]
+            won = np.take_along_axis(won, key[None], 0)[0]
+            bw = np.take_along_axis(bw, key[None, ..., None], 0)[0]
+            sel = won >= 0
+            tri, zb = faces[won[sel]], zf[won[sel]]
+            a, pz = bw[sel], best[sel]
+            attr = (a[:, :1] * colors[tri[:, 0]] / zb[:, :1]
+                    + a[:, 1:2] * colors[tri[:, 1]] / zb[:, 1:2]
+                    + a[:, 2:] * colors[tri[:, 2]] / zb[:, 2:]) * pz[:, None]
+            patch = color[ty0:ty1, tx0:tx1]
+            patch[sel] = attr
+    return np.clip(color, 0.0, 1.0), most, walks
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("case", ["crowded", "large", "off-screen", "1x1",
+                                  "17x13"])
+def test_tile_walk_matches_jax(case, geometry):
+    """The kernel's walk, replayed at its geometry, is the loop's image bit
+    for bit; the crowded mesh meets one tile with more faces than the list
+    holds, so the list is walked more than once there."""
+    tile, sub, cap = GEOMETRIES[geometry]
+    px, z, faces, colors, bg, far = raster_edge_cases(tile, cap)[case]
+    with np.errstate(all="ignore"):
+        got, most, walks = _replay_tiles(px, z, faces, colors, bg, 1.0, far,
+                                         tile, sub, cap)
+    want = jm.rasterize_mesh(px, z, faces, colors, bg, near=1.0, far=far)
+    np.testing.assert_array_equal(got, want)
+    tiles = -(-bg.shape[0] // tile[1]) * -(-bg.shape[1] // tile[0])
+    if case == "crowded":
+        assert most > cap and walks > tiles
+    assert (got != np.clip(bg, 0, 1)).any()  # some face drew
+
+
+def test_tile_walk_on_the_hand_mesh_matches_jax(mesh):
+    """The kernel's geometry over the MANO-sized mesh at 224x224, its
+    coplanar copies included."""
+    v, f, colors = mesh
+    px, z = jm.project_points(v, np.zeros(3), np.array([0.01, -0.02, 2.0]),
+                              np.array([1500.0, 1500.0]),
+                              np.array([112.0, 112.0]))
+    bg = np.random.default_rng(6).uniform(0, 1, (224, 224, 3))
+    with np.errstate(all="ignore"):
+        got, _, _ = _replay_tiles(px, z, f, colors, bg, 1.0, 10.0,
+                                  *choose_geometry(224, 224, 132))
+    np.testing.assert_array_equal(
+        got, jm.rasterize_mesh(px, z, f, colors, bg, near=1.0, far=10.0))
+
+
+@pytest.mark.parametrize("case", ["crowded", "large", "off-screen", "1x1",
+                                  "17x13"])
+def test_twin_on_edge_cases_matches_jax(case):
+    px, z, faces, colors, bg, far = raster_edge_cases(*SMALL[::2])[case]
+    got = rasterize_mesh_plain(*(torch.from_numpy(a) for a in
+                                 (px, z, faces, colors, bg)),
+                               near=1.0, far=far)
+    want = jm.rasterize_mesh(px, z, faces, colors, bg, near=1.0, far=far)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_depth_bound_holds_inside_triangles():
+    """``beyond`` drops a face once its bound, min(zmin (1 - 2^-48), 1e12),
+    is above a pixel's best: inside a triangle the computed depth (the
+    loop's expressions, with the kernel's NaN-passing fmax) must never be
+    below that bound, over depths from 2^-899 to 1e13, thin and wide
+    triangles, and a NaN depth."""
+    src = (Path(__file__).parents[1] / "lighthand_tpu_torch" / "csrc"
+           / "rasterize.cu").read_text()
+    assert ("return zmin >= 0x1p-900 && best < fmin(zmin * (1.0 - "
+            "0x1p-48), 1e12);") in src
+    rng = np.random.default_rng(9)
+    n = 3000
+    p = rng.uniform(0, 40, size=(n, 3, 2))
+    p[: n // 4, 2] = p[: n // 4, 0] + rng.uniform(-1e-3, 1e-3, (n // 4, 2))
+    z = 10.0 ** rng.uniform(-3, 13, size=(n, 3))
+    z[::7] = rng.uniform(1.9, 2.1, size=(len(z[::7]), 3))
+    z[::11, 1] = 2.0 ** -899
+    z[5::13, 2] = np.nan
+    denom = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+             - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+    xs, ys = np.meshgrid(np.arange(40) + 0.5, np.arange(40) + 0.5)
+    checked = 0
+    with np.errstate(all="ignore"):
+        for t in range(n):
+            pf, zf = p[t], z[t]
+            w1 = ((xs - pf[0, 0]) * (pf[2, 1] - pf[0, 1])
+                  - (pf[2, 0] - pf[0, 0]) * (ys - pf[0, 1])) / denom[t]
+            w2 = ((pf[1, 0] - pf[0, 0]) * (ys - pf[0, 1])
+                  - (xs - pf[0, 0]) * (pf[1, 1] - pf[0, 1])) / denom[t]
+            w0 = 1.0 - w1 - w2
+            inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+            inv_z = w0 / zf[0] + w1 / zf[1] + w2 / zf[2]
+            pix_z = 1.0 / np.fmax(inv_z, 1e-12)
+            key = _near_key(zf[None])[0]
+            if key >= 2.0 ** -900 and inside.any():
+                bound = min(key * (1 - 2.0 ** -48), 1e12)
+                assert (pix_z[inside] >= bound).all(), t
+                checked += int(inside.sum())
+    assert checked > 50_000
+
+
+def test_geometry_follows_the_pixels_an_sm():
+    assert choose_geometry(600, 800, 132) == LARGE
+    assert choose_geometry(224, 224, 132) == SMALL
+    for tile, sub, cap in (LARGE, SMALL):
+        threads = tile[0] * tile[1] * sub
+        assert threads % 32 == 0 and threads <= 512 and cap >= threads
+        assert sub in (1, 2, 4)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from lighthand_tpu.cli.eval import serving_policy as jax_serving_policy
 from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
+from lighthand_tpu.ops.quant import _quant_forward
 from lighthand_tpu.ops.quant import int8_conv as jax_int8_conv
 from lighthand_tpu_torch.cli.eval import serving_policy
 from lighthand_tpu_torch.config import parse_args
@@ -44,6 +45,7 @@ from lighthand_tpu_torch.ops.kernels.int8_conv import (
     Q_BULK,
     Q_GLOBAL,
     Q_LOAD,
+    PATHS,
     Q_MAX_STAGE,
     QCONV,
     int8_conv2d_cuda,
@@ -200,6 +202,38 @@ def test_int8_wrapper_rejects_bad_input(what):
         kw["act_clip"] = 0.0
     with pytest.raises(exc):
         int8_conv2d_cuda(x, w_q, scale, **kw)
+
+
+# The stem path's ragged shapes, (N, H, W, Cin, Cout, k, stride, pad): N=1
+# on odd sizes, Cout 40 and 100 at Cin 3, Cin 8 at 3x3 (K = 72), pad 0 on
+# the 7x7 stem and pad 3 on a 3x3, and a strided 1x1 at Cin 48 (K = 48)
+STEM_SHAPES = [(1, 33, 47, 3, 64, 7, 2, 3), (2, 31, 29, 3, 40, 7, 2, 3),
+               (2, 31, 29, 3, 100, 3, 2, 1), (1, 9, 11, 8, 24, 3, 2, 1),
+               (2, 40, 40, 3, 64, 7, 2, 0), (2, 19, 21, 3, 64, 3, 1, 3),
+               (2, 33, 17, 48, 33, 1, 2, 0)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", STEM_SHAPES,
+                         ids=[str(s) for s in STEM_SHAPES])
+def test_stem_shapes_through_the_wrapper_match_jax(shape, dtype):
+    """The shapes that take the conv kernel's stem path on the card, through
+    the CPU wrapper (the twin), against eager JAX's ``_quant_forward`` with
+    the same padding: bit for bit, ties, clipped values and zeros in x."""
+    jdt, tdt = DTYPES[dtype]
+    x, wt = _conv_inputs(shape[:7], seed=13)
+    special = _ties_and_clips(tdt)
+    flat = x.reshape(-1)
+    flat[:len(special)] = special[:len(flat)]
+    k, s, pad = shape[5:]
+    want = np.asarray(_quant_forward(
+        jnp.asarray(x).astype(jdt), jnp.asarray(wt), (s, s),
+        ((pad, pad), (pad, pad)), 8.0, jdt).astype(jnp.float32))
+    w_q, _, scale = quantize_weight_cuda(_torch_w(wt), 8.0)
+    got = int8_conv2d_cuda(_torch_x(x, tdt), w_q, scale, 8.0, s, pad, tdt)
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    assert int((got != want).sum()) == 0
 
 
 # ------------------------------------------------------ the weight kernel
@@ -595,6 +629,32 @@ def test_kernel_source_holds_the_jax_formulas():
                     "__float2int_rn(__fmul_rn(x, inv))", "-127), 127)",
                     "__int2float_rn(acc"):
         assert formula in src, formula
+    # every path's activations go through quantize(); both wgmma paths (the
+    # main and the stem) end in the one epilogue, which holds the conversion
+    def body(name):
+        start = src.index(f"\n{name}(")
+        return src[start:src.index("\n}\n", start)]
+
+    for kernel in ("int8_conv_simple", "int8_conv_wgmma", "int8_conv_stem"):
+        assert "quantize(" in body(kernel) or "quant8(" in body(kernel)
+    for kernel in ("int8_conv_wgmma", "int8_conv_stem"):
+        assert "stage_tile<OutT, BN>(acc" in body(kernel), kernel
+    epilogue = body("__device__ __forceinline__ void stage_tile")
+    assert "__int2float_rn(acc[4 * j + 2 * hf]) * s0" in epilogue
+    assert "to_float(xn[" in body("int8_conv_stem")  # x as it is read
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "int8_conv" in _build.SOURCES
+
+
+def test_conv_plan_paths_follow_the_kernel_enum():
+    """``conv_plan`` names the path the kernel reports by its ``Path`` value:
+    the tuple must list the enum's names in its order."""
+    import re
+
+    src = (_build.CSRC / "int8_conv.cu").read_text()
+    enum = re.search(r"enum Path \{([^}]*)\}", src).group(1)
+    names = [re.match(r"\s*k(\w+)Path = (\d+)", item).groups()
+             for item in enum.split(",")]
+    assert [int(v) for _, v in names] == list(range(len(names)))
+    assert [n.lower() for n, _ in names] == list(PATHS)
