@@ -32,7 +32,8 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    with 40 joints (one block quantising more maps than it keeps in shared
    memory); and B=2 at 384x384 and at 517x771, above the 131,072 pixels
    the register kernel holds (its threads then walk 2 and 4 groups of 8
-   pixels);
+   pixels); then the bench's shapes (phase 11): B=256 at 256x256 (64x64
+   maps) and B=32 and B=256 at 224x224 (56x56 maps);
 2b. both int8 kernels (``csrc/int8_conv.cu``) against their plain twins,
    bit for bit (0 differing values): the weight quantize (w_q, s_w,
    scale) from f32 master weights with an all-zero channel, then the conv
@@ -45,8 +46,10 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    simple path at K = 432 and for a main-path shape whose x is off; the
    main path at Cout 40 and 100 and 32-channel chunks), each on the path
    it must take, both models' stems on the stem path and the simple path
-   reached; the twin runs on the card with cuDNN off (im2col + DGEMM,
-   exact on integers); then the
+   reached; each model's heaviest shape and its stem again at batch 128
+   (the bench's int8_fwd step and the serving bench, phase 11); the twin
+   runs on the card with cuDNN off (im2col + DGEMM, exact on integers);
+   then the
    grouped weight quantize (``quantize_weights_cuda``, one launch for a
    list of weights) against ``quantize_weights_plain``, bit for bit, over
    all 292 HRNet-W32 and all 53 ResNet-50 weights in one group each, in
@@ -178,6 +181,21 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    injected draws (every op order), f32 out, within 3e-4 in normalised
    units (the chain's bound, phase 4c); no kernel launched; its device ms
    (the profiler's kernel sum) beside K1's at the same batch;
+11. the measurement entry points (``bench_torch.py``, ``tools/
+   *_torch.py``): 11a ``bench_torch.measure`` on the headline (HRNet-W32,
+   256x256, bs128, bf16, 4 microbatches a dispatch) with 2 measured
+   dispatches: finite positive img/s, finite loss, K1 launched (warm-ups +
+   measured + blocked) x 4 times; 11b every ``EXTRA_CONFIGS`` entry at one
+   warm-up, one measured and one blocked dispatch, each with its peak
+   memory and its launches (int8_fwd: 292 int8 convs and one weight
+   quantize a forward); 11c the serving bench (bf16 and int8_fwd predict,
+   bs128) at 1 warm-up, 2 measured and 1 blocked call, with the int8
+   kernels' launches; 11d ``profile_step_torch`` over 2 profiled
+   dispatches of the headline: K1 in the kernel ranking (its count, 8 if
+   no event is dropped, printed, not checked), the families and the
+   dropped-event share; 11e ``prewarm_cache_torch`` in a subprocess over
+   a tree like phase 6b's: the caches full afterwards and CUDA never
+   initialised in the subprocess;
 7. reference: the trained W32 in f32 on the card against the same
    weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances the
    CPU tests hold the port's CPU forward to against JAX), with both TF32
@@ -192,7 +210,8 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
    by a 128 MB write before each call. The B=128 figures make the
    ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e, 6f, 9c, 9d, 10a and 10b (each
+   phases 4-5, 4b, 5b, 4c, 6, 6b, 6c, 6d, 6e, 6f, 9c, 9d, 10a, 10b and 11a-11d
+   (``bench`` 11a-11b, ``serving`` 11c, ``profile`` 11d; each
    also under ``launches_by_path``; each path's counts are zeroed just
    before it and read just after); the rasterizer's row is phase 9h's, its
    launches those of 9h's renders;
@@ -1012,6 +1031,11 @@ def quant_conv_shapes(name: str) -> dict:
     return shapes
 
 
+def heaviest_shape(uses: dict):
+    """The conv shape of a model with the most operations a forward."""
+    return max(uses, key=lambda key: conv_ops(B_TRAIN, key) * uses[key])
+
+
 def conv_ops(n: int, shape) -> int:
     """2 N Ho Wo Cout k^2 Cin: a multiply and an add per weight and pixel."""
     cin, h, w, cout, k, s = shape
@@ -1117,9 +1141,14 @@ def int8_check_phase(shapes: dict) -> tuple:
     )
 
     distinct = sorted({key for model in shapes.values() for key in model})
+    bench = [key for uses in shapes.values()
+             for key in (heaviest_shape(uses), next(k for k in uses
+                                                     if k[0] % 32))]
     cases = ([(B_TRAIN, key, None, False,
                "stem" if key[0] % 32 else "wgmma") for key in distinct]
-             + INT8_RAGGED)
+             + INT8_RAGGED
+             + [(B_KERNEL, key, None, False,
+                 "stem" if key[0] % 32 else "wgmma") for key in bench])
     err_w = err_c = 0.0
     paths = {}
     for i, (n, key, pad, off, want_path) in enumerate(cases):
@@ -1166,8 +1195,8 @@ def int8_check_phase(shapes: dict) -> tuple:
           f"{len(cases)} shapes x (bf16, f32 activations) x (bf16, f32 "
           f"output): {len(distinct)} distinct conv shapes of ResNet-50 and "
           f"HRNet-W32 at batch {B_TRAIN}, {SIZE}x{SIZE} (the stems {stems} "
-          f"on the stem path), and {len(INT8_RAGGED)} "
-          f"ragged ones; conv paths (cases x dtypes) {paths}; max |kernel -"
+          f"on the stem path), {len(INT8_RAGGED)} ragged ones, and at batch "
+          f"{B_KERNEL} {bench}; conv paths (cases x dtypes) {paths}; max |kernel -"
           f" twin| weights {err_w}, conv {err_c}")
     return err_w, err_c
 
@@ -3096,6 +3125,180 @@ def preprocessor_phase(counters, card: str, dev=None) -> dict:
     return figures
 
 
+# ------------------------------------------------ the measurement entry points
+
+
+def _tools():
+    """The port's measurement tools (``tools/*_torch.py``) as modules."""
+    import importlib
+
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return (importlib.import_module("int8_serving_bench_torch"),
+            importlib.import_module("profile_step_torch"))
+
+
+def _gib(nbytes) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def bench_phase(counters, n_quant: int) -> tuple:
+    """Phases 11a-11b: ``bench_torch.measure`` on the headline with 2
+    measured dispatches, then every ``EXTRA_CONFIGS`` entry at one warm-up,
+    one measured and one blocked dispatch. img/s finite and positive, every
+    loss finite, K1 once a microbatch, under int8_fwd the int8 conv once a
+    quantized conv and the grouped weight quantize once a forward. Returns
+    the launches of both and the figures."""
+    import gc
+
+    import torch
+
+    import bench_torch as bt
+
+    def run(name, batch, size, precision, style, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero(counters)
+        t0 = time.perf_counter()
+        m = bt.measure(name, batch, size, precision, target_style=style, **kw)
+        wall = time.perf_counter() - t0
+        counts = read(counters)
+        dispatches = (kw.get("warmup", bt.WARMUP) + kw.get("measure")
+                      + kw.get("blocked", bt.BLOCKED))
+        forwards = dispatches * bt.SCAN_STEPS
+        int8 = precision == "int8_fwd"
+        want = {"fused_aug_targets": forwards, "heatmap_targets": 0,
+                "int8_conv": forwards * n_quant if int8 else 0,
+                "quantize_weight": forwards if int8 else 0}
+        tag = f"{name}@{size} bs{batch} {precision} {style}"
+        print(f"[bench] {tag}: {m.img_per_sec:.2f} img/s (pipelined "
+              f"{m.pipelined_img_per_sec:.2f}, blocked "
+              f"{m.blocked_img_per_sec:.2f}); {m.device_ms:.2f} device ms a "
+              f"dispatch of {bt.SCAN_STEPS} steps (events), events span "
+              f"{100 * m.events_over_wall:.1f} % of the wall; peak "
+              f"{_gib(m.peak_bytes)}; loss {m.loss:.6f}; {wall:.1f} s in "
+              f"all; launches {counts}")
+        if not (math.isfinite(m.img_per_sec) and m.img_per_sec > 0
+                and math.isfinite(m.loss)):
+            fail(f"bench {tag}: img/s {m.img_per_sec}, loss {m.loss}")
+        if counts != want:
+            fail(f"bench {tag}: launches {counts}, expected {want}")
+        return m, counts
+
+    head, launches = run("hrnet_w32", bt.BATCH, bt.SIZE, "bf16", "msra",
+                         measure=2)
+    figures = {"headline": head, "configs": {}}
+    for cfg in bt.EXTRA_CONFIGS:
+        m, counts = run(*cfg, measure=1, warmup=1, blocked=1)
+        figures["configs"][cfg] = m
+        launches = {k: launches[k] + counts[k] for k in launches}
+    return launches, figures
+
+
+def serving_phase(counters, n_quant: int) -> tuple:
+    """Phase 11c: the serving bench's predict (HRNet-W32, 256x256, bs128)
+    under bf16 and int8_fwd at 1 warm-up, 2 measured and 1 blocked call:
+    finite predictions; under int8_fwd 4 x the quantized convs and 4
+    weight-quantize launches, under bf16 none. Returns the launches and
+    the figures."""
+    import torch
+
+    serving, _ = _tools()
+    figures, launches = {}, {name: 0 for name in counters}
+    for precision in ("bf16", "int8_fwd"):
+        zero(counters)
+        m = serving.measure_predict(precision, warmup=1, measure=2,
+                                    blocked=1)
+        counts = read(counters)
+        int8 = precision == "int8_fwd"
+        want = {"fused_aug_targets": 0, "heatmap_targets": 0,
+                "int8_conv": 4 * n_quant if int8 else 0,
+                "quantize_weight": 4 if int8 else 0}
+        print(f"[serving] predict hrnet_w32@256 bs128 {precision}: "
+              f"{m.img_per_sec:.2f} img/s, {m.device_ms:.3f} device ms a call"
+              f" (events); launches {counts}")
+        if not (bool(torch.isfinite(m.joints).all()) and m.img_per_sec > 0):
+            fail(f"serving {precision}: bad predictions or rate")
+        if counts != want:
+            fail(f"serving {precision}: launches {counts}, expected {want}")
+        figures[precision] = m
+        launches = {k: launches[k] + counts[k] for k in launches}
+    return launches, figures
+
+
+def profile_phase(counters) -> tuple:
+    """Phase 11d: ``profile_step_torch`` on the headline, 1 warm-up and 2
+    profiled dispatches: K1 in the kernel ranking (its count printed: 8
+    unless the profiler dropped events), the families, the busy share and
+    the dropped-event share. Returns the launches and the summary."""
+    _, profile = _tools()
+    zero(counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        window = profile.run_workload("hrnet_w32", B_KERNEL, SIZE, tmp,
+                                      steps=2, warmup=1)
+        summary = profile.summarize(tmp, top_k=12)
+    counts = read(counters)
+    k1 = [(i, r) for i, r in enumerate(summary.get("rows", []))
+          if "fused_aug" in r["op"]]
+    print(f"[profile] window {window}; launches {counts}")
+    if not k1:
+        fail("K1 is not in the profiler's kernel ranking")
+    rank, row = k1[0]
+    print(f"[profile] K1 is #{rank + 1} of {len(summary['rows'])} kernel "
+          f"names: {row['count']} kernels over 2 dispatches (8 expected), "
+          f"{row['ms']:.4f} ms a dispatch; kernel launch calls answered "
+          f"{summary['matched']} of {summary['launches']} ("
+          f"{summary['dropped']} dropped); kernel sum over events "
+          f"{summary['busy']:.4f}")
+    if counts["fused_aug_targets"] != 3 * 4:
+        fail(f"profile workload launched K1 {counts['fused_aug_targets']} "
+             "times, expected 12")
+    return counts, summary
+
+
+def prewarm_phase() -> None:
+    """Phase 11e: ``tools/prewarm_cache_torch.py`` in a subprocess over a
+    LightHand tree like phase 6b's (128 train, 32 eval records): exit 0,
+    both caches full afterwards (read here), CUDA never initialised in the
+    subprocess."""
+    from lighthand_tpu_torch.config import parse_args
+    from lighthand_tpu_torch.data.cache import cached_sources
+    from lighthand_tpu_torch.data.registry import build_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prewarm_") as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_lighthand_tree(root, 128, 32)
+        argv = ["--root", "simplebaseline/ours", "--name", "prewarm",
+                "--dataset-root", root, "--num_our", "128"]
+        code = ("import runpy, sys, torch\n"
+                "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+                "try:\n"
+                "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    assert not e.code, e.code\n"
+                "print('cuda initialised', torch.cuda.is_initialized())\n")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", code,
+             os.path.join(REPO, "tools", "prewarm_cache_torch.py"), *argv,
+             "--batch", "64"], capture_output=True, text=True, timeout=300,
+            cwd=tmp)
+        wall = time.perf_counter() - t0
+        print("\n".join(f"[prewarm] {line}"
+                        for line in out.stdout.splitlines()))
+        if out.returncode != 0:
+            fail(f"prewarm_cache_torch failed: {out.stderr[-2000:]}")
+        if "cuda initialised False" not in out.stdout:
+            fail("prewarm_cache_torch initialised CUDA")
+        fractions = [c.hit_fraction() for src in build_dataset(
+            parse_args(argv)) for c in cached_sources(src)]
+    print(f"[prewarm] {wall:.1f} s in the subprocess; hit fractions "
+          f"afterwards {fractions}")
+    if fractions != [1.0, 1.0]:
+        fail(f"prewarm left the caches at {fractions}")
+
+
 def main() -> int:
     import torch
 
@@ -3104,6 +3307,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from bench_torch import card_line
     from lighthand_tpu_torch.core.dtypes import DTypePolicy, numerics
     from lighthand_tpu_torch.models import get_model
     from lighthand_tpu_torch.ops.color import normalize_imagenet
@@ -3133,12 +3337,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # 1. device and build -------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t0 = time.perf_counter()
@@ -3191,6 +3390,10 @@ def main() -> int:
         # above 16 x 1024 x 8 pixels: threads walk 2 and 4 pixel groups
         (2, 8, 384, 384, 2, None, HM, 4.0, JOINTS),
         (2, 9, 517, 771, 2, ragged_order[:2], HM, 4.0, JOINTS),
+        # the bench's shapes (phase 11): B=256, and 224x224 with 56x56 maps
+        (256, 10, SIZE, SIZE, 2, None, HM, 4.0, JOINTS),
+        (B_TRAIN, 11, 224, 224, 2, None, 56, 4.0, JOINTS),
+        (256, 12, 224, 224, 2, None, 56, 4.0, JOINTS),
     )
     for b, seed, h, w, cols, order, hm, stride, nj in k1_cases:
         images, joints, params = k1_inputs(b, seed, h, w, cols, order, nj)
@@ -3359,6 +3562,14 @@ def main() -> int:
     del w32_weights
     target_launches, target_err = single_target_phase(counters)
     pre_fig = preprocessor_phase(counters, card)
+    # 11a-11e. the measurement entry points: the bench (headline, then
+    # every EXTRA_CONFIGS entry), the serving bench, the step profiler and
+    # the cache pre-warmer
+    bench_launches, bench_fig = bench_phase(counters, n_quant["hrnet_w32"])
+    serving_launches, serving_fig = serving_phase(counters,
+                                                  n_quant["hrnet_w32"])
+    profile_launches, profile_sum = profile_phase(counters)
+    prewarm_phase()
     print(f"[figures] {card}: make_synth_data {tree_fig['img_s']:.1f} img/s "
           f"(host); JPEG ms {jpeg_ms}; overlay CLI (ResNet-50 bs{B_TRAIN}, "
           f"64 train images, 1 epoch) epoch {overlay_fig['epoch_s']:.2f} s, "
@@ -3390,6 +3601,25 @@ def main() -> int:
           f"of fixture JPEGs {real_fig['epoch_s']} / {real_fig['img_s']}; "
           f"host codec ms {codec_ms}; eval CLI img/s (ResNet-50, 64 Armo "
           f"images) {eval_ips}")
+
+    head = bench_fig["headline"]
+    print(f"[figures] {card}: bench_torch headline (HRNet-W32 256x256 bs"
+          f"{B_KERNEL} bf16, 4 steps a dispatch, 2 measured) "
+          f"{head.img_per_sec:.2f} img/s, {head.device_ms:.2f} device ms a "
+          f"dispatch, peak {_gib(head.peak_bytes)}; one measured dispatch "
+          "each: " + "; ".join(
+              f"{name}@{size} bs{batch} {prec} {style} "
+              f"{m.img_per_sec:.2f} img/s, peak {_gib(m.peak_bytes)}"
+              for (name, batch, size, prec, style), m
+              in bench_fig["configs"].items()))
+    print(f"[figures] {card}: serving predict bs{B_KERNEL} img/s bf16 "
+          f"{serving_fig['bf16'].img_per_sec:.2f}, int8_fwd "
+          f"{serving_fig['int8_fwd'].img_per_sec:.2f}; profiler (2 "
+          f"dispatches of the headline): kernel sum "
+          f"{profile_sum['kernel_ms']:.2f} ms a dispatch, over events "
+          f"{profile_sum['busy']:.4f}, families "
+          + ", ".join(f"{f} {v['ms']:.2f} ms" for f, v in
+                      profile_sum["families"].items()))
 
     # 7. reference: the trained weights in f32, card vs CPU, with both TF32
     # switches on outside the f32 policy's own context ---------------------
@@ -3451,7 +3681,9 @@ def main() -> int:
              "dist_cli_world1": dist_launches,
              "overlay_cli": overlay_launches, "plt_eval_cli": plt_launches,
              "finetune_steps": ft_launches,
-             "single_sample_targets": target_launches}
+             "single_sample_targets": target_launches,
+             "bench": bench_launches, "serving": serving_launches,
+             "profile": profile_launches}
     errs = {"fused_aug_targets": k1_err,
             "heatmap_targets": max(k2_err, aug_k2_err, target_err)}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -3490,7 +3722,7 @@ def main() -> int:
     # and the nets' forward under bf16 and int8_fwd
     timed = {}
     for i, (name, uses) in enumerate(sorted(shapes.items())):
-        heavy = max(uses, key=lambda key: conv_ops(B_TRAIN, key) * uses[key])
+        heavy = heaviest_shape(uses)
         print(f"[int8_conv] {name}'s heaviest shape (Cin, H, W, Cout, k, s)"
               f" {heavy}: {uses[heavy]} uses, "
               f"{conv_ops(B_TRAIN, heavy) * uses[heavy] / 1e9:.1f} Gop a "
