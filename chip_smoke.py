@@ -161,6 +161,13 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    ``Renderer.render`` and ``render_vertex_color`` end to end on the card
    (one rasterizer launch each) against the CPU; the kernel's times beside
    the twin's and its bound (the ``rasterize`` row of the kernels line);
+9i. the captions on the host: ``utils/vis3d.py:draw_text`` and
+   ``utils/visualize.py:put_text`` (cv2 5.0's FontFace text: Rubik read by
+   ``utils/font.py``, rasterized and blended by ``csrc/text.cpp``) on
+   ``text_drawings``' seeded cases, every caption equal to the stored
+   digests of the JAX package's and cv2 5.0.0's
+   (``tests/fixtures/text_digests.json``); the host ms of one
+   ``draw_text`` call (no kernel: the kernels line is unchanged);
 10a. fine-tuning and scoring: phase 4's trained HRNet-W32 (256x256, bs32,
    bf16) in a state whose stem and ``layer1`` are frozen
    (``freeze_mask``, ``create_train_state(trainable=...)``), 3 fused
@@ -660,6 +667,54 @@ def overlay_digests(drawings: dict) -> dict:
 
     return {k: (hashlib.sha256(v).hexdigest() if isinstance(v, bytes)
                 else array_digest(v)) for k, v in sorted(drawings.items())}
+
+
+# phase 9i's captions: the digests of what the JAX package's draw_text and
+# cv2 5.0.0's FontFace putText draw (tests/fixtures/make_text_digests.py)
+TEXT_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "text_digests.json")
+
+
+def text_drawings(draw_text, put_text) -> dict:
+    """{name: array} of phase 9i's captions, made with ``draw_text(image,
+    content)`` and ``put_text(img, text, org, color, size, weight)`` (which
+    returns the pen's end) from seeded inputs: ``draw_text`` on four float
+    images with black letterbox margins and values out of [0, 1], with
+    float, numpy float, int, str and bool values and enough rows to run off
+    the bottom; ``put_text`` at sizes 8-24 and weights 300-900 over random
+    backgrounds and colours, with origins that cut the text at each edge,
+    on a 1x1 and a 17x13 image too; the pens' ends as one array."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    out = {}
+    for i, (h, w) in enumerate(((96, 128), (64, 200), (40, 90), (256, 256))):
+        img = rng.uniform(-0.2, 1.2, (h, w, 3))
+        img[:6 + 4 * i] = 0.0
+        img[:, :5 + i] = 0.0
+        content = {"pck": float(rng.uniform()), "auc": np.float64(0.5),
+                   "loss": np.float32(rng.uniform()), "epoch": i,
+                   "name": "hand", "ok": bool(i % 2)}
+        for k in range(3 * i):
+            content[f"row{k}"] = float(rng.uniform(-10, 10))
+        out[f"draw_text_{i}"] = draw_text(img, content)
+    letters = ("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+               "0123456789 !\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
+               "\u00c0\u00c5\u00c9\u00d1\u00d6\u00df\u00e5\u00e7"
+               "\u00ea\u00f1\u00f6\u00ff")
+    pens = []
+    cases = [((40, 140), 8, 300, (4, 30)), ((40, 140), 11, 400, (-6, 12)),
+             ((40, 140), 16, 550, (90, 45)), ((48, 160), 24, 700, (10, 8)),
+             ((40, 140), 13, 900, (30, 38)), ((40, 140), 20, 400, (120, 20)),
+             ((1, 1), 11, 400, (0, 5)), ((13, 17), 11, 400, (-2, 10))]
+    for k, (shape, size, weight, org) in enumerate(cases):
+        canvas = rng.integers(0, 256, shape + (3,)).astype(np.uint8)
+        text = "".join(rng.choice(list(letters), 14))
+        color = tuple(int(c) for c in rng.integers(0, 256, 3))
+        pens.append(put_text(canvas, text, org, color, size, weight))
+        out[f"put_text_{k}_{size}_{weight}"] = canvas
+    out["put_text_pens"] = np.array(pens, dtype=np.int64)
+    return out
 
 
 def write_armhand_tree(root: str, n: int = 8, seed: int = 3) -> str:
@@ -2316,6 +2371,51 @@ def _kernel_device_ms(fn, prefixes, calls: int = 20) -> tuple:
     return us / 1e3 / calls, sum(e.count for e in events) / calls
 
 
+def text_phase() -> float:
+    """Phase 9i: the captions on the host that runs the script
+    (``utils/vis3d.py:draw_text`` and ``utils/visualize.py:put_text`` over
+    ``utils/font.py`` and ``csrc/text.cpp``, built there by g++): every
+    drawing of
+    ``text_drawings`` equal to the stored digests of what the JAX package
+    and cv2 5.0.0 draw, which shows that the host's compiler and CPU give
+    cv2's bytes; returns the host ms of one ``draw_text`` call (a
+    256x256 image, three rows), median of 20."""
+    import numpy as np
+
+    from lighthand_tpu_torch.utils import vis3d
+    from lighthand_tpu_torch.utils import visualize as v
+
+    drawings = text_drawings(vis3d.draw_text, v.put_text)
+    with open(TEXT_DIGESTS) as f:
+        want = json.load(f)["files"]
+    got = overlay_digests(drawings)
+    wrong = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    print(f"[text] {len(got)} captions, {len(got) - len(wrong)} equal to the "
+          f"digests of the JAX package's and cv2 5.0.0's")
+    if wrong:
+        fail(f"the port's captions differ from cv2 5.0.0's: {wrong}")
+    img = np.random.default_rng(7).uniform(0, 1, (256, 256, 3))
+    content = {"pck": 0.8812, "auc": 0.5, "epoch": 3}
+    vis3d.draw_text(img, content)
+    # what the host was doing, beside the time: its CPU, the cores this
+    # process may use and the load averages
+    model = "unknown"
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        model = next((line.split(":", 1)[1].strip() for line in f
+                      if line.startswith("model name")), model)
+    print(f"[text] host: {model}, {len(os.sched_getaffinity(0))} cores, "
+          f"load {' '.join(f'{x:.2f}' for x in os.getloadavg())}")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        vis3d.draw_text(img, content)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    print(f"[text] draw_text host ms (256x256, 3 rows, one thread): median "
+          f"{ms:.3f} of 20 (min {min(times):.3f}, max {max(times):.3f})")
+    return ms
+
+
 def render_phase(kind: str) -> tuple:
     """Phase 9h: the mesh renderer on the card. The rasterizer kernel
     (``csrc/rasterize.cu``) against its plain twin run on the card on the
@@ -3554,6 +3654,8 @@ def main() -> int:
     # 9g-9h. the landmark and skeleton overlays; the mesh renderer
     with tempfile.TemporaryDirectory(prefix="chip_smoke_draw_") as tmp:
         drawing_phase(tmp)
+    # 9i. the captions (draw_text, put_text) on the host
+    text_ms = text_phase()
     raster_row, render_launches = render_phase(kind)
     # 10a-10c. fine-tuning with a frozen stem and the metric set; single
     # sample targets through K2; the jittering preprocessor
@@ -3574,6 +3676,8 @@ def main() -> int:
           f"(host); JPEG ms {jpeg_ms}; overlay CLI (ResNet-50 bs{B_TRAIN}, "
           f"64 train images, 1 epoch) epoch {overlay_fig['epoch_s']:.2f} s, "
           f"host ms per overlay {overlay_fig['overlay_ms']}")
+    print(f"[figures] {card}: draw_text (phase 9i) host ms, 256x256, 3 "
+          f"rows: {text_ms:.3f}")
     print(f"[figures] {card}: flip + rotation 15 (phase 4c): HRNet-W32 "
           f"bs{B_TRAIN} step {aug_fig['step_ms']:.2f} ms against K1's "
           f"{aug_fig['k1_step_ms']:.2f} ms; at B={B_KERNEL} the chain "

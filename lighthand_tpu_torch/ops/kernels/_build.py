@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lighthand_tpu_torch"
 SOURCES = ("fused_aug", "heatmap", "int8_conv", "rasterize")  # csrc/<name>.cu
-HOST_SOURCES = ("imageio", "tsv_engine")   # host C++, csrc/<name>.cpp
+HOST_SOURCES = ("imageio", "tsv_engine", "text")  # host C++, csrc/<name>.cpp
 
 # No --use_fast_math: it changes division and expf. --fmad=false keeps
 # a*b + c as two roundings, as the plain twins and the JAX kernels compute

@@ -12,10 +12,14 @@ per-finger colour grading, as the JAX package has them.
   pick another encoder by the extension, the port raises ``ValueError``.
 - ``vis_3d_keypoints`` returns a Matplotlib figure and imports matplotlib
   only when called, as the JAX package does.
-- ``draw_text`` is not ported: the JAX function strokes ``cv2.putText``'s
-  font, which cv2 5.0 draws from an outline font built into its binary and
-  cv2 4.13 from Hershey strokes, and neither font's data is in the
-  repository. It raises ``NotImplementedError`` (ROADMAP Queue 1).
+- ``draw_text`` draws the JAX function's captions as cv2 5.0 does: its
+  ``cv2.putText(..., FONT_HERSHEY_SIMPLEX, 0.4, (0, 204, 0), 1)`` is cv2
+  5.0's Rubik at size 11, weight 400, which ``utils/visualize.py:put_text``
+  draws bit for bit (``utils/font.py`` reads the font committed under
+  ``fonts/``; ``csrc/text.cpp`` rasterizes and blends). cv2 4.13 strokes
+  Hershey glyphs instead; the port follows cv2 5.0. A caption with a code
+  point Rubik lacks (cv2 draws it from another built-in font) raises
+  ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from lighthand_tpu_torch.data.imageio import encode_png_rgb, imwrite_rgb
-from lighthand_tpu_torch.utils.visualize import draw_line, fill_circle
+from lighthand_tpu_torch.utils.visualize import draw_line, fill_circle, put_text
 
 __all__ = [
     "hand_skeleton_21",
@@ -191,11 +195,21 @@ def vis_3d_keypoints(
 
 
 def draw_text(input_image: np.ndarray, content: dict) -> np.ndarray:
-    """Not ported: the JAX function's captions are ``cv2.putText`` of
-    ``FONT_HERSHEY_SIMPLEX``, whose glyphs cv2 5.0 and cv2 4.13 draw from
-    different fonts (see the module docstring). Raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(
-        "draw_text is not ported: cv2.putText's font differs between cv2 "
-        "5.0 and 4.13 and neither font's data is in the repository "
-        "(ROADMAP Queue 1)")
+    """Key/value caption lines in the top-left over a white margin
+    (renderer.py:235-257 role), as the JAX function draws them: black
+    pixels whitened, the image cut to uint8, one line a key at y = 15, 30,
+    ... (floats as ``:.2f``), in cv2 5.0's Rubik at size 11, weight 400,
+    colour (0, 204, 0). Input/output are float images in [0, 1] (float64
+    out)."""
+    image = np.asarray(input_image, dtype=np.float64).copy()
+    black = image.sum(axis=2) == 0
+    image[black] = 1.0  # the reference whitens the letterbox margin
+    canvas = np.ascontiguousarray(
+        np.clip(image * 255.0, 0, 255).astype(np.uint8))
+    y = 15
+    for key, value in content.items():
+        if isinstance(value, float):
+            value = f"{value:.2f}"
+        put_text(canvas, f"{key}: {value}", (5, y), (0, 204, 0), 11, 400)
+        y += 15
+    return canvas.astype(np.float64) / 255.0

@@ -41,8 +41,11 @@ OpenCV's ``drawing.cpp`` in 16-bit sub-pixel units (``XY_SHIFT``):
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 import os
+import unicodedata
 from typing import Optional
 
 import numpy as np
@@ -50,6 +53,8 @@ import torch
 
 from lighthand_tpu_torch.data.imageio import imwrite_rgb
 from lighthand_tpu_torch.ops.color import denormalize_imagenet
+from lighthand_tpu_torch.ops.kernels import _build
+from lighthand_tpu_torch.utils import font
 
 # parents array (visualize.py:15)
 PARENTS = np.array(
@@ -385,6 +390,107 @@ def draw_arrowed_line(img: np.ndarray, p1, p2, color, thickness: int = 1,
         p = (_cv_round(p2[0] + tip * math.cos(a)),
              _cv_round(p2[1] + tip * math.sin(a)))
         draw_line(img, p, p2, color, thickness)
+
+
+@functools.lru_cache(maxsize=None)
+def _text_lib() -> ctypes.CDLL:
+    lib = _build.library("text")
+    lib.lh_text_box.argtypes = [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                     ctypes.c_void_p]
+    lib.lh_text_box.restype = None
+    lib.lh_text_rasterize.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.lh_text_rasterize.restype = ctypes.c_int
+    lib.lh_text_blend.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.lh_text_blend.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def _glyph_mask(glyph: int, weight: int, size: int):
+    """(coverage, dx, dy, advance in pixels) of one glyph: the coverage's
+    top-left pixel lies at (pen + dx, baseline + dy)."""
+    face = font.rubik()
+    outline = face.outline(glyph, weight)
+    scale = np.float32(size) / np.float32(face.ascent)
+    advance = int(np.rint(np.float32(64.0) * (np.float32(outline.advance)
+                                              * scale))) >> 6
+    if len(outline.vertices) == 0:
+        return None, 0, 0, advance
+    lib = _text_lib()
+    box = np.zeros(5, dtype=np.int32)
+    lib.lh_text_box(*outline.box, float(scale), box.ctypes.data)
+    ix0, iy0, w, h, margin = box.tolist()
+    mask = np.empty((h + 2 * margin, w + 2 * margin), dtype=np.uint8)
+    verts = np.ascontiguousarray(outline.vertices, dtype=np.int16)
+    if lib.lh_text_rasterize(verts.ctypes.data, len(verts), float(scale),
+                             ix0, iy0, w, h, margin, mask.ctypes.data):
+        raise ValueError(f"glyph {glyph}: its outline does not start with "
+                         "a move")
+    return mask, ix0 - margin, iy0 - margin, advance
+
+
+def _check_codepoint(face, ch: str) -> int:
+    cp = ord(ch)
+    if unicodedata.category(ch)[0] == "C":
+        raise ValueError(f"put_text draws no control or format character "
+                         f"(U+{cp:04X})")
+    if unicodedata.bidirectional(ch) in ("R", "AL"):
+        raise ValueError(f"put_text does not lay out right-to-left text "
+                         f"(U+{cp:04X} {ch!r})")
+    glyph = face.glyph_index(cp)
+    if glyph == 0:
+        raise ValueError(f"U+{cp:04X} {ch!r} is not in Rubik; cv2 draws it "
+                         "from a font the repository does not hold")
+    return glyph
+
+
+def put_text(img_u8: np.ndarray, text: str, org, color, size: int = 11,
+             weight: int = 400):
+    """``cv2.putText(img, text, org, color, cv2.FontFace("sans"), size,
+    weight)`` of cv2 5.0 in place: Rubik at ``size`` pixels (the font's
+    ascent), ``weight`` 100-1000 (clamped to the font's 300-900),
+    anti-aliased. ``org`` is the pen's start on the baseline. Returns the
+    pen's position after the text, as cv2 does; from ``org.x >= W`` cv2
+    draws nothing and returns ``org``.
+
+    ``img_u8`` is uint8 [H, W, 3] with packed pixels; ``color`` three
+    0-255 integers (a fourth is ignored, as cv2 does on three channels). A
+    glyph is placed at whole pixels: the pen moves by its advance rounded to
+    1/64 pixel, then cut to a whole pixel. A code point Rubik lacks, a
+    control character and right-to-left text raise ``ValueError`` (cv2 draws
+    the first from another built-in font and lays out the others)."""
+    img = img_u8
+    if (img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3
+            or img.strides[1:] != (3, 1)):
+        raise ValueError("put_text draws into a packed uint8 [H, W, 3] image")
+    height, width = img.shape[:2]
+    if int(size) < 1:
+        raise ValueError(f"size {size} is not a positive pixel size")
+    col = [int(c) for c in color][:4]
+    if any(c < 0 or c > 255 for c in col):
+        raise ValueError(f"color {color} is not 0-255 a channel")
+    col = np.array((col + [0] * 3)[:3], dtype=np.uint8)
+    face = font.rubik()
+    glyphs = [_check_codepoint(face, ch) for ch in text]
+    weight = int(weight)
+    x, y = int(org[0]), int(org[1])
+    if x >= width:  # cv2 draws nothing from right of the image
+        return x, y
+    for glyph in glyphs:
+        mask, dx, dy, advance = _glyph_mask(glyph, weight, int(size))
+        if mask is not None:
+            _text_lib().lh_text_blend(
+                img.ctypes.data, height, width, img.strides[0],
+                mask.ctypes.data, mask.shape[0], mask.shape[1], x + dx,
+                y + dy, col.ctypes.data)
+        x += advance
+    return x, y
 
 
 def draw_joints(image_u8: np.ndarray, joints: np.ndarray) -> np.ndarray:

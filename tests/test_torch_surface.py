@@ -67,8 +67,6 @@ BY_DESIGN = {
     "models/resnet.py:DeconvBNRelu": "the port keeps the reference's "
                                      "deconv_layers state_dict names",
     "train/loop.py:Trainer._disarm_for_first_compile": "no remote compile",
-    "utils/vis3d.py:draw_text": "raises NotImplementedError; waits on font "
-                                "data (ROADMAP Queue 1)",
 }
 
 

@@ -10,7 +10,8 @@ and whose bytes equal it too where Python's ``zlib`` deflates as cv2
 5.0.0's libpng does (its filter, level, strategy and window). Another extension
 raises ``ValueError`` where cv2 would pick another encoder: a difference
 by design. ``vis_3d_keypoints`` must give a figure with the same lines,
-scatters and colours. ``draw_text`` is not ported and raises.
+scatters and colours. ``draw_text`` must give the JAX array, float64 for
+float64 (``tests/test_torch_text.py`` holds it on many more cases).
 """
 
 import os
@@ -121,9 +122,15 @@ def test_vis_keypoints_other_extension_raises(tmp_path, name):
     assert not out.exists() and not out.parent.exists()
 
 
-def test_draw_text_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tv.draw_text(np.zeros((8, 8, 3)), {"pck": 0.5})
+def test_draw_text_matches_jax_on_a_fixed_image():
+    """The caption strip equals the JAX package's (cv2 5.0.0) as float64;
+    ``tests/test_torch_text.py`` holds it and ``put_text`` further."""
+    img = np.random.default_rng(11).uniform(0, 1, (72, 96, 3))
+    img[:10] = 0.0
+    content = {"pck": 0.8812, "auc": np.float32(0.5), "epoch": 3}
+    got, want = tv.draw_text(img, content), jv.draw_text(img, content)
+    assert got.dtype == want.dtype == np.float64
+    assert np.array_equal(got, want)
 
 
 def _figure_data(fig):
