@@ -11,6 +11,11 @@ constants, batch and timing rule it copies.
     python3 bench_torch.py --all    # and bench.py's EXTRA_CONFIGS, into
                                     # BENCH_TABLE_torch.json
 
+The step runs as CUDA graphs (``lighthand_tpu_torch/train/graph.py``), as
+the JAX bench's step is a jitted program: of the ``WARMUP`` dispatches the
+first runs its first microbatch eagerly and captures the second, so the
+measured dispatches replay (Adam eagerly after each microbatch).
+
 Earlier ``#`` lines give the card's name and power limit (``nvidia-smi``),
 the headline's device ms a dispatch (CUDA events around the measured
 dispatches), the share of the wall window those events span, and the peak

@@ -126,7 +126,7 @@ def _evaluate(cfg) -> int:
 
     size = cfg.data.image_size
     predict_step = make_predict_step(stride=size / cfg.data.heatmap_size,
-                                     device=device)
+                                     device=device, mesh=mesh)
 
     # Inference once per checkpoint; the prediction store is independent of
     # the threshold regime (the reference re-ran pred_store per regime,

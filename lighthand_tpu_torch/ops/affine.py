@@ -12,6 +12,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -197,6 +199,13 @@ def rotate_px_batch(images: torch.Tensor, joints: torch.Tensor,
     return affine_warp_batch(images, m, (h, w)), joints
 
 
+@functools.lru_cache(maxsize=None)
+def _index(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 index vector on ``device``, made once (no host-to-device
+    copy in a step that a CUDA graph captures)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
 def hflip_px(images: torch.Tensor, joints: torch.Tensor,
              flip_mask: torch.Tensor):
     """Per-sample horizontal flip of an NHWC batch and its pixel joints:
@@ -206,7 +215,7 @@ def hflip_px(images: torch.Tensor, joints: torch.Tensor,
     images = torch.where(f[:, None, None, None], torch.flip(images, dims=(2,)),
                          images)
     width = images.shape[2]
-    perm = torch.as_tensor(HAND_FLIP_PERM, device=joints.device)
+    perm = _index(tuple(HAND_FLIP_PERM), joints.device)
     fx = (width - 1.0) - joints[:, perm, 0]
     x = torch.where(f[:, None], fx, joints[..., 0])
     return images, torch.cat([x[..., None], joints[..., 1:]], dim=-1)

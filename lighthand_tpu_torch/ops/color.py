@@ -17,6 +17,8 @@ floor modulo).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -33,11 +35,19 @@ def _per_image(f, img: torch.Tensor, trailing: int = 3):
     return f
 
 
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """An f32 vector of ``values`` on ``device``, made once: a step that a
+    CUDA graph captures can make no host-to-device copy."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` rounded once. On CUDA, PyTorch turns a Python-scalar
     divisor into a multiply by its reciprocal (two roundings); a tensor
-    divisor divides, as the JAX package and the CUDA kernel do."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    divisor divides, as the JAX package and the CUDA kernel do. The
+    divisor is filled on the device (no host-to-device copy)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _gray(img: torch.Tensor) -> torch.Tensor:
@@ -47,17 +57,15 @@ def _gray(img: torch.Tensor) -> torch.Tensor:
 
 def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     """(img - mean) / std per channel; img [..., 3] float in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
-    return (img.float() - mean) / std
+    return ((img.float() - constant(IMAGENET_MEAN, img.device))
+            / constant(IMAGENET_STD, img.device))
 
 
 def denormalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     """img * std + mean per channel, in f32, two roundings (the inverse of
     ``normalize_imagenet`` up to rounding)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
-    return img.float() * std + mean
+    return (img.float() * constant(IMAGENET_STD, img.device)
+            + constant(IMAGENET_MEAN, img.device))
 
 
 def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
@@ -163,8 +171,8 @@ def draw_jitter(generator: torch.Generator, b: int, brightness: float = 0.5,
     lo = [max(0.0, 1.0 - r) for r in (brightness, contrast, saturation)]
     width = [1.0 + r - low for r, low in zip((brightness, contrast,
                                               saturation), lo)]
-    lo = torch.tensor(lo + [-hue], dtype=torch.float32, device=dev)
-    width = torch.tensor(width + [2.0 * hue], dtype=torch.float32, device=dev)
+    lo = constant(tuple(lo) + (-hue,), dev)
+    width = constant(tuple(width) + (2.0 * hue,), dev)
     u = torch.rand((b, 4), generator=generator, device=dev)
     factors = lo + width * u
     order = torch.argsort(torch.rand((b, 4), generator=generator, device=dev),

@@ -36,10 +36,10 @@ from lighthand_tpu_torch.ops.kernels._build import library
 IN_DTYPES = OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
-@functools.lru_cache(maxsize=None)
 def _f32(v: float) -> float:
-    """``v`` rounded to the nearest f32, as a Python float."""
-    return torch.tensor(v, dtype=torch.float32).item()
+    """``v`` rounded to the nearest f32, as a Python float (on the host:
+    no tensor, so a captured step makes no host sync)."""
+    return struct.unpack("<f", struct.pack("<f", v))[0]
 
 
 def act_inv(act_clip: float) -> float:

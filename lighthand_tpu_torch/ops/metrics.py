@@ -80,8 +80,8 @@ def pck_2d_counts(pred_2d: torch.Tensor, gt_2d: torch.Tensor, t: float = 0.1,
     ('proportion') or against T * 3.78 px ('mm') (loss.py:116-148)."""
     correct = _pck_correct(_dist(pred_2d, gt_2d), gt_2d, t, threshold).float()
     if sample_weight is None:
-        return correct.sum(), torch.tensor(float(correct.numel()),
-                                           device=correct.device)
+        return correct.sum(), torch.full((), float(correct.numel()),
+                                         device=correct.device)
     w = sample_weight.float()
     return (correct * w[:, None]).sum(), w.sum() * correct.shape[1]
 
@@ -97,8 +97,8 @@ def epe_train(pred_2d: torch.Tensor, gt_2d: torch.Tensor,
     sl = _epe_slice(pred_2d.shape[1])
     dist = _dist(pred_2d[:, sl], gt_2d[:, sl])
     if sample_weight is None:
-        return dist.sum(), torch.tensor(float(dist.numel()),
-                                        device=dist.device)
+        return dist.sum(), torch.full((), float(dist.numel()),
+                                      device=dist.device)
     w = sample_weight.float()
     return (dist * w[:, None]).sum(), w.sum() * dist.shape[1]
 

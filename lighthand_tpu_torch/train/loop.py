@@ -24,6 +24,14 @@ per-epoch random draws come from one device ``torch.Generator`` seeded with
 which keeps its rows of the global batch's draws), so a resumed run draws
 what an uninterrupted one would.
 
+On the card the steps run as CUDA graphs (``train/graph.py``): each
+step's first call of a shape (the K-microbatch dispatch's, the ragged
+tail's, the eval batch's, the overlays' predict) runs eagerly, its second
+captures, later ones replay; Adam runs eagerly after each microbatch. The
+graphs are keyed by the ``TrainState``, so resuming, ``--transfer`` and
+any rebinding of the state happen in ``__init__``, before the first step.
+Under a mesh the steps stay eager.
+
 Prediction overlays (``TrainConfig.visualize``, on by default) are written
 at train iterations {0, len//2, len-1} (the eval preprocess, then the
 predict step) and at the same val iterations, to
@@ -218,7 +226,8 @@ class Trainer:
                                         target_style=val_style,
                                         device=self.device, mesh=self.mesh)
         self.predict_step = make_predict_step(stride=stride,
-                                              device=self.device)
+                                              device=self.device,
+                                              mesh=self.mesh)
         self.writer = ScalarWriter(cfg.tensorboard_dir,
                                    jsonl_dir=cfg.output_dir)
         self.dispatch_timer = DispatchTimer(self.device)

@@ -11,6 +11,12 @@ model take one Adam arithmetic, with no DTensor dispatch per operation. At
 model axis 1 the model is replicated, not sharded (``core/mesh.py``): its
 parameters are plain, and the steps average its gradients over the data
 axis (``TrainState.grad_group``).
+
+On the card a train step's backward runs in a CUDA graph
+(``train/graph.py``), which writes the gradients into its own static
+tensors; it binds them to the parameters' ``.grad`` again after each
+replay, so ``apply_gradients`` (Adam, eager) always reads the gradients
+of the microbatch just replayed. Frozen parameters get none.
 """
 
 from __future__ import annotations

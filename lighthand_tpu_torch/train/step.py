@@ -24,6 +24,16 @@ Under a device mesh (``core/mesh.py``) each process holds its data index's
 rows of the global batch: the draws are those of the global batch, sliced;
 the reported loss and the eval step's (sum, count) pairs are reduced over
 the data axis.
+
+On the card each step runs as CUDA graphs (``train/graph.py``), as the JAX
+package's steps run as jitted programs: a step's body (for a train step,
+one microbatch's draws, targets, forward, loss and backward) is captured
+per input shape at its second call and replayed from then on; Adam runs
+eagerly after each microbatch's replay (``TrainState.apply_gradients``),
+with the LR that ``set_learning_rate`` sets. Each step keeps its eager
+form as ``step.eager`` (the same function, run op by op) and its graphs
+as ``step.graphs``. Under a mesh, and on the CPU, the step is the eager
+form; under a mesh on the card it logs that once when it is built.
 """
 
 from __future__ import annotations
@@ -59,11 +69,15 @@ from lighthand_tpu_torch.ops.metrics import (
     joints_mse_loss,
     pck_2d_counts,
 )
+from lighthand_tpu_torch.train import graph
 from lighthand_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 
 TARGET_STYLES = ("msra", "max", "per_sample")
+# the eval step's outputs, in the order its body returns them
+EVAL_OUTPUTS = ("loss", "loss_sum", "n_valid", "pck", "pck_sum", "pck_count",
+                "epe_sum", "epe_count", "pred_joints")
 _log = logging.getLogger("lighthand_tpu_torch")
 
 
@@ -121,18 +135,65 @@ def _check_state(state: TrainState, device: torch.device) -> None:
                          f"{device}")
 
 
-def _update(state: TrainState, images_nchw: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
-    """Forward in train mode, 0.5 * MSE, backward, the gradients of a
-    replicated model averaged over the data axis, one Adam step."""
+def _forward_backward(state: TrainState, images_nchw: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """Forward in train mode, 0.5 * MSE, backward into fresh ``.grad``
+    tensors (a captured body's static ones); returns the loss."""
     state.model.train()
     loss = joints_mse_loss(state.model(images_nchw), targets)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    return loss.detach()
+
+
+def _apply(state: TrainState) -> None:
+    """The gradients of a replicated model averaged over the data axis
+    (only under a mesh), then one Adam step."""
     if state.grad_group is not None:
         average_gradients(state.model.parameters(), state.grad_group)
     state.apply_gradients()
-    return loss.detach()
+
+
+def _update(state: TrainState, images_nchw: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Forward in train mode, 0.5 * MSE, backward, the gradients of a
+    replicated model averaged over the data axis, one Adam step: a
+    microbatch of the eager form."""
+    loss = _forward_backward(state, images_nchw, targets)
+    _apply(state)
+    return loss
+
+
+def _graphed(device: torch.device, mesh, name: str) -> bool:
+    """Whether ``name``'s steps run as CUDA graphs: on a device the capture
+    backend supports, without a mesh (logged once where a mesh keeps a
+    step on the card eager)."""
+    if not graph.BACKEND.supports(device):
+        return False
+    if mesh is not None:
+        _log.warning(f"{name}: under a torch.distributed mesh this step "
+                     "runs eagerly (its all-reduces are not captured in a "
+                     "CUDA graph)")
+        return False
+    return True
+
+
+def _set_mode(state: TrainState, training: bool) -> None:
+    """The model's train/eval mode, set where it differs (a replay runs no
+    host code, and ``train()`` walks every module)."""
+    if state.model.training != training:
+        state.model.train(training)
+
+
+def _with_twin(graphed_fn, eager_fn, graphs):
+    """``graphed_fn``, or ``eager_fn`` where there are no graphs, with the
+    eager form as ``.eager`` and the graphs as ``.graphs`` (None on the
+    eager form)."""
+    eager_fn.eager, eager_fn.graphs = eager_fn, None
+    if graphs is None:
+        return eager_fn
+    graphed_fn.eager, graphed_fn.graphs = eager_fn, graphs
+    return graphed_fn
 
 
 def make_train_step(heatmap_size: int = 64, stride: float = 4.0,
@@ -141,15 +202,34 @@ def make_train_step(heatmap_size: int = 64, stride: float = 4.0,
     normalised float images; updates ``state`` in place."""
     device = resolve_device(device)
 
-    def train_step(state: TrainState, batch: Batch):
+    def prepare(images, joints):
+        targets = make_targets(joints, heatmap_size=heatmap_size,
+                               stride=stride, sigma=sigma)
+        return _nchw(images), targets
+
+    def body(state: TrainState, generator, images, joints):
+        del generator
+        return _forward_backward(state, *prepare(images, joints))
+
+    graphs = (graph.StepGraphs("make_train_step", body, trains=True)
+              if _graphed(device, None, "make_train_step") else None)
+
+    def inputs(state, batch):
         _check_state(state, device)
-        targets = make_targets(_to(batch["joints"], device),
-                               heatmap_size=heatmap_size, stride=stride,
-                               sigma=sigma)
-        loss = _update(state, _nchw(_to(batch["image"], device)), targets)
+        return [_to(batch["image"], device), _to(batch["joints"], device)]
+
+    def eager_step(state: TrainState, batch: Batch):
+        loss = _update(state, *prepare(*inputs(state, batch)))
         return state, {"loss": loss}
 
-    return train_step
+    def train_step(state: TrainState, batch: Batch):
+        args = inputs(state, batch)
+        _set_mode(state, True)
+        (loss,) = graphs(state, None, args)
+        _apply(state)
+        return state, {"loss": loss}
+
+    return _with_twin(train_step, eager_step, graphs)
 
 
 def draw_affine_params(generator: torch.Generator, batch: int,
@@ -258,8 +338,10 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
         return [None if x is None else x[rows].to(device)
                 for x in (params, mask, degrees)]
 
-    def one(state, generator, images_u8, joints, aug_enabled, noise_enabled,
-            hm_max):
+    def prepare(generator, images_u8, joints, aug_enabled, noise_enabled,
+                hm_max):
+        """A microbatch's draws, then K1 (or the chain and its targets):
+        (images NCHW, targets)."""
         if not jitter:
             aug_enabled = torch.zeros_like(aug_enabled)
         params, mask, degrees = draws(generator, aug_enabled, noise_enabled)
@@ -275,27 +357,49 @@ def make_fused_train_step(heatmap_size: int = 64, stride: float = 4.0,
                 out_dtype=compute_dtype)
             targets = _max_style(joints, targets, target_style, heatmap_size,
                                  stride, hm_max)
-        return _mean_over(_update(state, _nchw(images), targets), group,
-                          count)
+        return _nchw(images), targets
 
-    def step(state: TrainState, generator: torch.Generator, batch: Batch):
-        _check_state(state, device)
-        fields = [_to(batch[k], device)
-                  for k in ("image_u8", "joints", "aug_enabled")]
-        fields.append(_to(batch.get("noise_enabled"), device))
-        fields.append(_to(batch.get("hm_max"), device)
-                      if target_style == "per_sample" else None)
-        if scan_steps == 1:
-            return state, {"loss": one(state, generator, *fields)}
-        if fields[0].shape[0] != scan_steps:
-            raise ValueError(f"batch leading dim {fields[0].shape[0]} != "
-                             f"scan_steps {scan_steps}")
-        losses = [one(state, generator,
-                      *(None if f is None else f[k] for f in fields))
-                  for k in range(scan_steps)]
-        return state, {"loss": torch.stack(losses).mean()}
+    def body(state, generator, *fields):
+        """One microbatch on the device: ``prepare``, forward, loss and
+        backward; returns the loss."""
+        return _forward_backward(state, *prepare(generator, *fields))
 
-    return step
+    graphs = (graph.StepGraphs(f"make_fused_train_step(scan_steps="
+                               f"{scan_steps})", body, trains=True)
+              if _graphed(device, mesh, "make_fused_train_step") else None)
+
+    def eager_one(state, generator, fields):
+        return _mean_over(_update(state, *prepare(generator, *fields)),
+                          group, count)
+
+    def graphed_one(state, generator, fields):
+        (loss,) = graphs(state, generator, fields)
+        _apply(state)
+        return loss
+
+    def outer(one):
+        def step(state: TrainState, generator: torch.Generator,
+                 batch: Batch):
+            _check_state(state, device)
+            fields = [_to(batch[k], device)
+                      for k in ("image_u8", "joints", "aug_enabled")]
+            fields.append(_to(batch.get("noise_enabled"), device))
+            fields.append(_to(batch.get("hm_max"), device)
+                          if target_style == "per_sample" else None)
+            if one is graphed_one:
+                _set_mode(state, True)
+            if scan_steps == 1:
+                return state, {"loss": one(state, generator, fields)}
+            if fields[0].shape[0] != scan_steps:
+                raise ValueError(f"batch leading dim {fields[0].shape[0]} != "
+                                 f"scan_steps {scan_steps}")
+            losses = [one(state, generator,
+                          [None if f is None else f[k] for f in fields])
+                      for k in range(scan_steps)]
+            return state, {"loss": torch.stack(losses).mean()}
+        return step
+
+    return _with_twin(outer(graphed_one), outer(eager_one), graphs)
 
 
 def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
@@ -312,18 +416,15 @@ def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
     group = data_group(mesh)
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: Batch):
-        _check_state(state, device)
-        joints = _to(batch["joints"], device)
-        valid = _to(batch.get("valid"), device)
+    def body(state: TrainState, generator, image, joints, valid, hm_max):
+        del generator
         w = (torch.ones(joints.shape[0], device=device) if valid is None
              else valid.float())
         targets = make_targets(joints, style=target_style,
                                heatmap_size=heatmap_size, stride=stride,
-                               sigma=sigma,
-                               hm_max=_to(batch.get("hm_max"), device))
+                               sigma=sigma, hm_max=hm_max)
         state.model.eval()
-        pred = state.model(_nchw(_to(batch["image"], device))).float()
+        pred = state.model(_nchw(image)).float()
         per_sample = 0.5 * torch.mean((pred - targets) ** 2, dim=(1, 2, 3))
         n_valid = w.sum()
         loss_sum = (per_sample * w).sum()
@@ -339,32 +440,57 @@ def make_eval_step(heatmap_size: int = 64, stride: float = 4.0,
                                 epe_cnt]).float()
             torch.distributed.all_reduce(sums, group=group)
             loss_sum, n_valid, pck_sum, pck_cnt, epe_sum, epe_cnt = sums
-        return {
-            "loss": loss_sum / torch.clamp_min(n_valid, 1.0),
-            "loss_sum": loss_sum,
-            "n_valid": n_valid,
-            "pck": pck_sum / torch.clamp_min(pck_cnt, 1.0),
-            "pck_sum": pck_sum,
-            "pck_count": pck_cnt,
-            "epe_sum": epe_sum,
-            "epe_count": epe_cnt,
-            "pred_joints": pred_joints,
-        }
+        return (loss_sum / torch.clamp_min(n_valid, 1.0), loss_sum, n_valid,
+                pck_sum / torch.clamp_min(pck_cnt, 1.0), pck_sum, pck_cnt,
+                epe_sum, epe_cnt, pred_joints)
 
-    return eval_step
+    graphs = (graph.StepGraphs("make_eval_step", body)
+              if _graphed(device, mesh, "make_eval_step") else None)
+
+    def inputs(state, batch):
+        _check_state(state, device)
+        return [_to(batch["image"], device), _to(batch["joints"], device),
+                _to(batch.get("valid"), device),
+                _to(batch.get("hm_max"), device)]
+
+    def eager_step(state: TrainState, batch: Batch):
+        return dict(zip(EVAL_OUTPUTS, body(state, None,
+                                           *inputs(state, batch))))
+
+    def eval_step(state: TrainState, batch: Batch):
+        args = inputs(state, batch)
+        _set_mode(state, False)
+        return dict(zip(EVAL_OUTPUTS, graphs(state, None, args)))
+
+    return _with_twin(eval_step, eager_step, graphs)
 
 
-def make_predict_step(stride: float = 4.0, device=None):
+def make_predict_step(stride: float = 4.0, device=None, mesh=None):
     """Inference: normalised NHWC images -> (joints in image pixels
-    [B, J, 2], maxvals [B, J, 1])."""
+    [B, J, 2], maxvals [B, J, 1]). ``mesh``: the training mesh, under which
+    the step stays eager (a sharded model's forward gathers its
+    weights)."""
     device = resolve_device(device)
 
     @torch.no_grad()
-    def predict_step(state: TrainState, images: torch.Tensor):
-        _check_state(state, device)
+    def body(state: TrainState, generator, images):
+        del generator
         state.model.eval()
-        pred = state.model(_nchw(_to(images, device))).float()
+        pred = state.model(_nchw(images)).float()
         pred_joints, maxvals = get_max_preds(pred)
         return pred_joints * stride, maxvals
 
-    return predict_step
+    graphs = (graph.StepGraphs("make_predict_step", body)
+              if _graphed(device, mesh, "make_predict_step") else None)
+
+    def eager_step(state: TrainState, images: torch.Tensor):
+        _check_state(state, device)
+        return body(state, None, _to(images, device))
+
+    def predict_step(state: TrainState, images: torch.Tensor):
+        _check_state(state, device)
+        images = _to(images, device)
+        _set_mode(state, False)
+        return graphs(state, None, [images])
+
+    return _with_twin(predict_step, eager_step, graphs)

@@ -284,3 +284,36 @@ def test_prewarm_fills_the_port_cache_as_the_jax_tool_fills_its(
             np.testing.assert_array_equal(np.asarray(getattr(port, name)),
                                           np.asarray(getattr(ref, name)),
                                           err_msg=name)
+
+
+def test_summarize_answers_graph_launches_by_their_kernels(tmp_path, capsys):
+    """A graph replay is one ``cudaGraphLaunch`` whose kernels all carry its
+    correlation id: each answered launch counts once, its kernels count in
+    the ranking, and a graph launch no kernel answers is a dropped event."""
+    events = []
+    for d in range(2):  # two dispatches, each two replays of a graph
+        for r in range(2):
+            corr = 100 + 10 * d + r
+            events.append(_launch(corr, "cudaGraphLaunch_v10000"))
+            for i in range(3):
+                events.append(_kernel("void fused_aug_kernel<float>"
+                                      if i == 0 else "void bn_fw_kernel",
+                                      1000 * corr + i, 50, corr, 0))
+        events.append(_kernel("void multi_tensor_apply_kernel<Adam>",
+                              5000 + d, 20, 200 + d, 0))
+        events.append(_launch(200 + d, "cudaLaunchKernel"))
+    events.append(_launch(300, "cudaGraphLaunch"))  # nothing answers it
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": events}))
+    (tmp_path / "window.json").write_text(json.dumps({
+        "model": "hrnet_w32", "batch": 32, "size": 256, "precision": "bf16",
+        "scan_steps": 2, "dispatches": 2, "wall_ms": 2.0, "event_ms": 1.0,
+        "loss": 1.0}))
+    got = profile.summarize(str(tmp_path))
+    out = capsys.readouterr().out
+    assert got["graph_launches"] == 5 and got["graph_kernels"] == 12
+    assert got["launches"] == 7 and got["matched"] == 6
+    assert got["dropped"] == 1 and "DROPPED EVENTS: 1" in out
+    k1 = next(r for r in got["rows"] if "fused_aug" in r["op"])
+    assert k1["count"] == 4
+    assert got["kernels"] == 7.0  # a dispatch: 6 replayed, 1 of Adam's
+    assert "graph launches: 5, answered by 4, carrying 12" in out

@@ -8,6 +8,10 @@ floor).
 
     python3 tools/int8_serving_bench_torch.py     # needs one card
 
+The predict step runs as a CUDA graph (``lighthand_tpu_torch/train/
+graph.py``): the first warm-up call runs eagerly, the second captures, the
+measured calls replay.
+
 ``#`` lines give the card's name and power limit, each precision's img/s
 and its device ms a call (CUDA events around the pipelined calls). The last
 line is ``{"bf16": img/s, "int8_fwd": img/s, "speedup": int8 / bf16}``.

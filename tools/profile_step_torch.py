@@ -17,14 +17,21 @@ carries neither. So the kernels are grouped into name families instead
 gemm, the optimizer, reductions, elementwise/cast/copy, the rest), each
 with its ms and count a dispatch.
 
+The bench's step runs as CUDA graphs (``train/graph.py``): after the
+warm-up dispatches (the first eager, the second capturing), each
+microbatch is one ``cudaGraphLaunch``, whose kernels all carry that
+launch's correlation id, and Adam's kernels are launched one by one.
+
 The profiler can drop kernel events. The summary prints the profiled
 kernel sum against the CUDA-event time of the same dispatches (their ratio
 is the device's busy share as the profiler sees it: idle gaps lower it as
-dropped events do), and the share of kernel launch calls in the trace
-(``cuda_runtime`` / ``cuda_driver`` launch events) that a kernel event
-answers by its correlation id. Each launch left unanswered is a dropped
-event, and the summary says how many; a window where fewer than 0.95 of
-the launches are answered has kernel sums that are not device time.
+dropped events do), and the share of launch calls in the trace
+(``cuda_runtime`` / ``cuda_driver`` kernel and graph launch events) that a
+kernel event answers by its correlation id: a kernel launch by its
+kernel, a graph launch by the kernels of its replay (their count a graph
+launch is printed). Each launch left unanswered is a dropped event, and
+the summary says how many; a window where fewer than 0.95 of the launches
+are answered has kernel sums that are not device time.
 
 Usage:
     python3 tools/profile_step_torch.py [--model hrnet_w32] [--batch 128]
@@ -71,20 +78,31 @@ FAMILIES = (
     ("other", r""),
 )
 _LAUNCH = re.compile(r"Launch(Kernel|CooperativeKernel)|cuLaunch")
+_GRAPH_LAUNCH = re.compile(r"GraphLaunch")
 
 
 def run_workload(model_name: str, batch: int, size: int, out_dir: str,
                  steps: int = 6, precision: str = "bf16",
                  scan_steps: int = 4, warmup: int = 3, device=None) -> dict:
     """``warmup`` dispatches of ``bench_torch.setup``'s workload outside the
-    trace, then ``steps`` dispatches inside it, synchronised before the
-    trace closes; writes and returns ``{out_dir}/window.json``."""
+    trace, then ``trace_workload``'s ``steps`` dispatches inside it."""
     wl = bench_torch.setup(model_name, batch, size, precision, scan_steps,
                            device=device)
-    cuda = wl.device.type == "cuda"
     with numerics(wl.policy):
         for _ in range(warmup):
             wl.dispatch()
+    return trace_workload(wl, out_dir, steps, {
+        "model": model_name, "batch": batch, "size": size,
+        "precision": precision, "scan_steps": scan_steps})
+
+
+def trace_workload(wl, out_dir: str, steps: int, info: dict) -> dict:
+    """``steps`` dispatches of the warm workload ``wl`` inside ``trace``,
+    synchronised before the trace closes, with CUDA events around them;
+    writes and returns ``{out_dir}/window.json`` (``info`` and the
+    window's figures)."""
+    cuda = wl.device.type == "cuda"
+    with numerics(wl.policy):
         if cuda:
             torch.cuda.synchronize(wl.device)
         with trace(out_dir):
@@ -99,9 +117,8 @@ def run_workload(model_name: str, batch: int, size: int, out_dir: str,
                 end.record()
                 torch.cuda.synchronize(wl.device)
             wall_ms = (time.perf_counter() - t0) * 1e3
-    window = {"model": model_name, "batch": batch, "size": size,
-              "precision": precision, "scan_steps": scan_steps,
-              "dispatches": steps, "wall_ms": wall_ms,
+    window = {**info, "dispatches": steps, "wall_ms": wall_ms,
+              "graphed": wl.step.graphs is not None,
               "event_ms": start.elapsed_time(end) if cuda else None,
               "loss": float(loss)}
     with open(os.path.join(out_dir, "window.json"), "w") as f:
@@ -130,7 +147,8 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
     Returns the figures a dispatch (``rows``: the whole ranking;
     ``families``, ``kernel_ms``, ``event_ms``, ``busy``, ``launches``,
     ``matched``, ``dropped``: launches no kernel event answers,
-    ``kernels``), or {} without a trace."""
+    ``kernels``; ``graph_launches`` and ``graph_kernels``, the kernel
+    events that answer them, over the window), or {} without a trace."""
     path = os.path.join(out_dir, "trace.json")
     if not os.path.isfile(path):
         print(f"no trace found under {out_dir}", file=sys.stderr)
@@ -146,7 +164,8 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
     totals, counts = defaultdict(float), defaultdict(int)
     fam_us, fam_n = defaultdict(float), defaultdict(int)
     op_us, op_n = defaultdict(float), defaultdict(int)
-    kernel_corr, launch_corr = set(), set()
+    kernel_corr, launch_corr, graph_corr = set(), set(), set()
+    kernels_by_corr = defaultdict(int)
     ops = {e["args"]["External id"]: e["name"] for e in events
            if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
     for e in events:
@@ -154,6 +173,9 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
         if cat in ("cuda_runtime", "cuda_driver") and _LAUNCH.search(
                 e.get("name", "")) and "correlation" in args:
             launch_corr.add(args["correlation"])
+        if cat in ("cuda_runtime", "cuda_driver") and _GRAPH_LAUNCH.search(
+                e.get("name", "")) and "correlation" in args:
+            graph_corr.add(args["correlation"])
         if e.get("ph") != "X" or cat != "kernel" or "dur" not in e:
             continue
         name = collapse(e.get("name", "?"))
@@ -163,6 +185,7 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
         fam_n[family(name)] += 1
         if "correlation" in args:
             kernel_corr.add(args["correlation"])
+            kernels_by_corr[args["correlation"]] += 1
         if per_op:
             op = ops.get(args.get("External id"), "?")
             op_us[op] += e["dur"]
@@ -204,6 +227,13 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
         print(f"profiled kernel sum {kernel_ms:.3f} ms a dispatch against "
               f"{event_ms / n:.3f} ms of CUDA events: ratio {busy:.4f} (the "
               "busy share the profiler sees; idle gaps lower it too)")
+    graph_kernels = sum(kernels_by_corr[c] for c in graph_corr)
+    if graph_corr:
+        print(f"graph launches: {len(graph_corr)}, answered by "
+              f"{len(graph_corr & kernel_corr)}, carrying {graph_kernels} "
+              f"kernel events ({graph_kernels / len(graph_corr):.1f} a "
+              "launch)")
+    launch_corr |= graph_corr
     matched = len(launch_corr & kernel_corr)
     dropped = len(launch_corr) - matched
     if launch_corr:
@@ -214,12 +244,13 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
                     + ("the kernel sums are not device time"
                        if share < DROP_FLAG
                        else "the sums are low by up to that share"))
-        print(f"kernel launch calls answered by a kernel event: {matched} of "
+        print(f"launch calls answered by a kernel event: {matched} of "
               f"{len(launch_corr)} ({share:.4f}){note}")
     return {"rows": rows, "families": families, "kernel_ms": kernel_ms,
             "event_ms": None if event_ms is None else event_ms / n,
             "busy": busy, "launches": len(launch_corr), "matched": matched,
-            "dropped": dropped, "kernels": sum(counts.values()) / n}
+            "dropped": dropped, "kernels": sum(counts.values()) / n,
+            "graph_launches": len(graph_corr), "graph_kernels": graph_kernels}
 
 
 def main(argv=None) -> int:
