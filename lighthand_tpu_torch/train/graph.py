@@ -41,12 +41,22 @@ NCCL calls, which are not captured. On the CPU they are eager as well
 (``CudaGraphs.supports``). A capture that fails raises with the step's
 name and its inputs; nothing falls back to the eager step.
 
+Each call is the span ``graph.call`` (``train/profiler.py:annotate``),
+labelled with the step's name, around ``graph.warmup`` (a key's first
+call) or ``graph.capture``, ``graph.copy_in``, ``graph.replay`` (the
+graph's launch), ``graph.rebind`` (the ``.grad`` loop) and
+``graph.clone``: recorded only while a profiler window is open. The
+counters of ``totals()`` always count, over every ``StepGraphs`` of the
+process: ``captures``, ``capture_s`` (host seconds in ``_capture``) and
+``replays``.
+
 ``BACKEND`` captures and replays. A test replaces it with one that calls
 the body directly; that is how the CPU tests exercise this bookkeeping.
 """
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Callable, Sequence
 
@@ -58,6 +68,7 @@ from lighthand_tpu_torch.ops.kernels.int8_conv import (
     int8_conv2d_cuda,
     quantize_weights_cuda,
 )
+from lighthand_tpu_torch.train.profiler import annotate
 
 # the kernel wrappers of the steps; each counts its launches in .launches
 COUNTED = (fused_aug_targets_cuda, generate_target_batch_cuda,
@@ -71,6 +82,17 @@ def counts() -> list:
 def set_counts(values: Sequence[int]) -> None:
     for f, v in zip(COUNTED, values):
         f.launches = v
+
+
+# what every StepGraphs of the process has done: kept here, not on the
+# instances, so that they outlive the steps that a caller frees
+_TOTALS = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
+
+def totals() -> dict:
+    """The captures made, their host seconds and the replays run so far
+    in this process."""
+    return dict(_TOTALS)
 
 
 class CudaGraphs:
@@ -197,6 +219,10 @@ class StepGraphs:
         """The body's outputs on ``inputs`` (tensors or None), as a tuple:
         the warm-up's own at a key's first call, clones of the static
         outputs after a replay."""
+        with annotate("graph.call", self.name):
+            return self._call(state, generator, inputs)
+
+    def _call(self, state, generator, inputs: Sequence) -> tuple:
         key = (id(state), id(generator), _signature(inputs), _switches())
         entry = self._entries.get(key)
         if entry is not None and not entry.holds(state, generator):
@@ -205,24 +231,33 @@ class StepGraphs:
             self._entries = {k: e for k, e in self._entries.items()
                              if e.alive()}
             self._entries[key] = _Entry(state, generator)
-            return _tuple(self.backend.warmup(
-                lambda: self.body(state, generator, *inputs), state.device))
+            with annotate("graph.warmup"):
+                return _tuple(self.backend.warmup(
+                    lambda: self.body(state, generator, *inputs),
+                    state.device))
         if entry.graph is None:
-            self._capture(entry, state, generator, inputs)
+            with annotate("graph.capture"):
+                self._capture(entry, state, generator, inputs)
         else:
-            for s, x in zip(entry.static, inputs):
-                if s is not None:
-                    s.copy_(x)
-        self.backend.replay(entry.graph, lambda: self.body(
-            state, generator, *entry.static))
+            with annotate("graph.copy_in"):
+                for s, x in zip(entry.static, inputs):
+                    if s is not None:
+                        s.copy_(x)
+        with annotate("graph.replay"):
+            self.backend.replay(entry.graph, lambda: self.body(
+                state, generator, *entry.static))
+        _TOTALS["replays"] += 1
         for f, d in zip(COUNTED, entry.deltas):
             f.launches += d
-        for p, g in entry.grads:
-            if p.grad is not g:
-                p.grad = g
-        return tuple(o.clone() for o in entry.outputs)
+        with annotate("graph.rebind"):
+            for p, g in entry.grads:
+                if p.grad is not g:
+                    p.grad = g
+        with annotate("graph.clone"):
+            return tuple(o.clone() for o in entry.outputs)
 
     def _capture(self, entry: _Entry, state, generator, inputs) -> None:
+        t0 = time.perf_counter()
         entry.static = [None if x is None else x.clone() for x in inputs]
         before = counts()
         try:
@@ -242,3 +277,5 @@ class StepGraphs:
         if self.trains:
             entry.grads = [(p, p.grad) for p in state.model.parameters()
                            if p.grad is not None]
+        _TOTALS["captures"] += 1
+        _TOTALS["capture_s"] += time.perf_counter() - t0

@@ -32,6 +32,14 @@ graphs are keyed by the ``TrainState``, so resuming, ``--transfer`` and
 any rebinding of the state happen in ``__init__``, before the first step.
 Under a mesh the steps stay eager.
 
+Under ``--trace`` (dispatches 2-5 of the first epoch, ``train/profiler.py:
+trace``) each wait for the loader's next batch is the span
+``loop.data_wait`` and each loss read ``loop.loss_read``, beside the
+steps' own; each epoch's debug log line gives the CUDA graph captures
+made in it, their host seconds and the replays, so a capture in
+mid-training shows, as does a step call that ran eagerly (a key's
+warm-up) instead of as a replay.
+
 Prediction overlays (``TrainConfig.visualize``, on by default) are written
 at train iterations {0, len//2, len-1} (the eval preprocess, then the
 predict step) and at the same val iterations, to
@@ -79,7 +87,13 @@ from lighthand_tpu_torch.train.checkpoint import (
     resume_checkpoint,
     save_checkpoint,
 )
-from lighthand_tpu_torch.train.profiler import DispatchTimer, StepTimer, trace
+from lighthand_tpu_torch.train import graph
+from lighthand_tpu_torch.train.profiler import (
+    DispatchTimer,
+    StepTimer,
+    annotate,
+    trace,
+)
 from lighthand_tpu_torch.train.state import (
     TrainState,
     cosine_lr,
@@ -129,6 +143,18 @@ def _policy(cfg: Config) -> DTypePolicy:
     if cfg.model.precision == "int8_fwd":
         return DTypePolicy.int8_fwd()  # int8 forward convs, STE backward
     return DTypePolicy()
+
+
+def _waited(loader):
+    """The loader's batches, each wait for the next one inside the span
+    ``loop.data_wait``."""
+    batches = iter(loader)
+    while True:
+        with annotate("loop.data_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _overlay_iters(n: int) -> set:
@@ -313,13 +339,16 @@ class Trainer:
         vis_iters = (_overlay_iters(len(loader)) if cfg.train.visualize
                      else set())
         trace_ctx = contextlib.ExitStack()
+        before = graph.totals()
 
         def drain(limit: int) -> None:
             while len(pending) > limit:
                 loss, n = pending.pop(0)
-                losses.update(float(loss), n)
+                with annotate("loop.loss_read"):
+                    loss = float(loss)
+                losses.update(loss, n)
 
-        for it, batch in enumerate(loader):
+        for it, batch in enumerate(_waited(loader)):
             if it in vis_iters:
                 # overlays at {0, mid, last}, as the reference train
                 # runner draws them (method.py:185-202)
@@ -377,9 +406,13 @@ class Trainer:
         if full:
             self.writer.add_scalar("perf/dispatch_ms",
                                    statistics.median(full), epoch)
+        after = graph.totals()
         self.logger.debug(
             f"epoch {epoch}: {ips:.1f} img/s, dispatch ms (steps, ms) "
-            f"{[(s, round(ms, 3)) for s, ms in times]}, host rss "
+            f"{[(s, round(ms, 3)) for s, ms in times]}, CUDA graph captures "
+            f"{after['captures'] - before['captures']} "
+            f"({after['capture_s'] - before['capture_s']:.3f} s) and replays "
+            f"{after['replays'] - before['replays']}, host rss "
             f"{host_rss_gb():.1f} GB")
         return losses.avg, ips
 

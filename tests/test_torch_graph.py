@@ -35,7 +35,7 @@ from lighthand_tpu_torch.ops.kernels.int8_conv import (
     int8_conv2d_cuda,
     quantize_weights_cuda,
 )
-from lighthand_tpu_torch.train import graph
+from lighthand_tpu_torch.train import graph, profiler
 from lighthand_tpu_torch.train import step as port_step
 from lighthand_tpu_torch.train import (
     create_train_state,
@@ -415,6 +415,85 @@ def test_guard_refuses_each_host_read():
     assert x.sum().item() == 3.0 and torch.as_tensor(x) is x
 
 
+def _train_calls(direct, n):
+    """``n`` calls of a fused train step on one state and shape (a
+    warm-up, a capture, then replays); returns the step."""
+    step = make_fused_train_step(heatmap_size=HM,
+                                 compute_dtype=torch.float32, device="cpu")
+    state, gen = _state(), torch.Generator().manual_seed(0)
+    for i in range(n):
+        step(state, gen, _batch(i))
+    return step
+
+
+def test_no_profiler_no_spans_and_the_counters_count(direct):
+    """With no profiler open nothing is recorded, and the process's
+    counters count the capture, its host seconds and every replay."""
+    profiler.spans(clear=True)
+    before = graph.totals()
+    _train_calls(direct, 4)
+    after = graph.totals()
+    assert direct.calls == {"warmup": 1, "capture": 1, "replay": 3}
+    assert after["captures"] - before["captures"] == 1
+    assert after["replays"] - before["replays"] == 3
+    assert after["capture_s"] > before["capture_s"]
+    assert profiler.spans() == profiler.SpanLog((), 0)
+
+
+def test_spans_of_each_call_under_a_cpu_profiler(direct):
+    """Under a CPU profiler each call is a ``graph.call`` span labelled
+    with the step's name around its children: the warm-up; the capture,
+    replay, rebind and clone; then copy-in, replay, rebind and clone. The
+    record's times lie within 1 ms of the mirrored ranges'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiler.spans(clear=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step = _train_calls(direct, 3)
+    log = profiler.spans()
+    assert log.dropped == 0
+    calls = [i for i, s in enumerate(log.spans)
+             if s.name == "lighthand.graph.call"]
+    assert len(calls) == 3
+    children = [[s.name.removeprefix("lighthand.graph.")
+                 for s in log.spans if s.parent == i] for i in calls]
+    assert children == [["warmup"],
+                        ["capture", "replay", "rebind", "clone"],
+                        ["copy_in", "replay", "rebind", "clone"]]
+    for i in calls:
+        span = log.spans[i]
+        assert span.parent == -1 and span.label == step.graphs.name
+        assert span.start_ns <= span.end_ns
+    for s in log.spans:
+        assert s.name.startswith("lighthand.graph.")
+        assert not s.name.startswith("lhbench.")
+        assert s.parent < log.spans.index(s)
+    mirrored = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                      for e in prof.profiler.kineto_results.events()
+                      if e.name() == "lighthand.graph.call")
+    assert len(mirrored) == 3
+    for i, (lo, hi) in zip(calls, mirrored):
+        assert abs(log.spans[i].start_ns - lo) < 1_000_000
+        assert abs(log.spans[i].end_ns - hi) < 1_000_000
+
+
+def test_the_span_record_is_bounded():
+    """The record keeps ``SPAN_LIMIT`` (65,536) spans; the next is counted
+    in ``dropped`` and not stored."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiler.spans(clear=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(profiler.SPAN_LIMIT + 1):
+            with profiler.annotate("bounded"):
+                pass
+    log = profiler.spans(clear=True)
+    assert profiler.SPAN_LIMIT == 65_536
+    assert len(log.spans) == profiler.SPAN_LIMIT and log.dropped == 1
+    assert {s.name for s in log.spans} == {"lighthand.bounded"}
+    assert profiler.spans() == profiler.SpanLog((), 0)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -496,6 +575,7 @@ def test_trainer_graphed_equals_eager(tmp_path, monkeypatch):
     are equal, and so are the trained weights."""
     import json
     import os
+    import re
 
     from lighthand_tpu_torch.train import loop
 
@@ -518,8 +598,18 @@ def test_trainer_graphed_equals_eager(tmp_path, monkeypatch):
                     with open(os.path.join(d, name), "rb") as f:
                         images[os.path.relpath(os.path.join(d, name),
                                                cfg.output_dir)] = f.read()
-        runs[tag] = (losses, images, trainer.state)
+        with open(os.path.join(cfg.output_dir, "log.txt")) as f:
+            captured = [tuple(int(n) for n in m) for m in re.findall(
+                r"CUDA graph captures (\d+) \(.*\) and replays (\d+)",
+                f.read())]
+        runs[tag] = (losses, images, trainer.state, captured)
     assert runs["graphed"][0] == runs["eager"][0] and len(runs["eager"][0]) == 4
+    # each epoch's log line counts its captures (in the first the K=3 and
+    # K=1 train steps and the overlays' predict) and its replays: each
+    # epoch makes 8 step calls, of which the first epoch's 3 warm-ups run
+    # eagerly
+    assert runs["eager"][3] == [(0, 0), (0, 0)]
+    assert runs["graphed"][3] == [(3, 5), (0, 8)]
     assert runs["graphed"][1] == runs["eager"][1] and runs["eager"][1]
     _assert_states_equal(runs["graphed"][2], runs["eager"][2])
     # train K=3, train K=1, eval and predict each captured once

@@ -34,13 +34,13 @@ from lighthand_tpu.train.step import make_eval_step as jax_eval_step
 from lighthand_tpu_torch.cli import train as cli_train
 from lighthand_tpu_torch.config import Config, parse_args
 from lighthand_tpu_torch.data import preprocess_u8
-from lighthand_tpu_torch.train import loop, step as port_step
+from lighthand_tpu_torch.train import loop, profiler, step as port_step
 from lighthand_tpu_torch.train.checkpoint import (
     checkpoint_exists,
     read_model_info,
     save_checkpoint,
 )
-from lighthand_tpu_torch.train.profiler import trace
+from lighthand_tpu_torch.train.profiler import annotate, trace
 from lighthand_tpu_torch.train.watchdog import StallWatchdog, check_rss_limit
 from lighthand_tpu_torch.utils.weights import resnet_from_flax
 
@@ -550,7 +550,26 @@ def test_check_rss_limit_calls_on_exceed():
 
 
 def test_trace_window_writes_a_chrome_trace(tmp_path):
+    """The window's Chrome trace holds the program's spans as
+    ``lighthand.*`` ranges."""
     with trace(str(tmp_path / "trace")):
-        torch.ones(4, 4).sum()
+        with annotate("loop.data_wait"):
+            torch.ones(4, 4).sum()
     with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    assert "lighthand.loop.data_wait" in {e.get("name") for e in events}
+
+
+def test_each_wait_for_a_batch_is_a_span():
+    """The train epoch draws its batches through ``_waited``: the batches
+    as they come, each wait (and the last, which ends the epoch) a
+    ``loop.data_wait`` span under a profiler, none without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiler.spans(clear=True)
+    assert list(loop._waited([{"a": 1}, {"a": 2}])) == [{"a": 1}, {"a": 2}]
+    assert profiler.spans().spans == ()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert len(list(loop._waited([{}, {}, {}]))) == 3
+    names = [s.name for s in profiler.spans(clear=True).spans]
+    assert names == ["lighthand.loop.data_wait"] * 4

@@ -331,7 +331,7 @@ def test_annotate_is_a_range_in_a_cpu_trace():
         with profiler.annotate("lighthand_eval_region"):
             torch.ones(8).add_(1)
     keys = [e.key for e in prof.key_averages()]
-    assert "lighthand_eval_region" in keys
+    assert "lighthand.lighthand_eval_region" in keys
 
 
 def test_local_device_count():

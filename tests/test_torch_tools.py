@@ -317,3 +317,49 @@ def test_summarize_answers_graph_launches_by_their_kernels(tmp_path, capsys):
     assert k1["count"] == 4
     assert got["kernels"] == 7.0  # a dispatch: 6 replayed, 1 of Adam's
     assert "graph launches: 5, answered by 4, carrying 12" in out
+
+
+def test_summarize_labels_idle_gaps_by_the_launch_that_ends_them(
+        tmp_path, capsys):
+    """Each gap between device operations goes to ``queued`` where the
+    call that launched the next operation had returned before the gap
+    began, else to the innermost ``lighthand.*`` or ``Optimizer.step#``
+    range holding that call, else to other host work; a host range
+    mirrored onto the device is no device work."""
+    def x(cat, name, ts, dur, corr=None):
+        args = {} if corr is None else {"correlation": corr}
+        return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 1,
+                "ts": ts, "dur": dur, "args": args}
+
+    events = [
+        x("cpu_op", "lighthand.graph.call", 0, 55),
+        x("cpu_op", "lighthand.graph.replay", 10, 20),
+        x("cuda_runtime", "cudaGraphLaunch", 10, 18, 1),
+        x("kernel", "void bn_fw_kernel", 20, 20, 1),
+        x("kernel", "void bn_fw_kernel", 45, 5, 1),  # queued: 5 us
+        x("gpu_user_annotation", "Optimizer.step#ShardAdam.step", 20, 60),
+        x("user_annotation", "Optimizer.step#ShardAdam.step", 60, 30),
+        x("cuda_runtime", "cudaLaunchKernel", 70, 5, 2),
+        x("kernel", "multi_tensor_apply_kernel<Adam>", 72, 8, 2),  # 22 us
+        x("cuda_runtime", "cudaMemcpyAsync", 92, 4, 3),
+        x("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 95, 2, 3),  # 15
+        x("kernel", "void elementwise_kernel", 100, 1, 9),  # 3, no call
+        x("cpu_op", "lighthand.graph.call", 120, 30),
+        x("cpu_op", "lighthand.graph.replay", 125, 20),
+        x("cuda_runtime", "cudaGraphLaunch", 130, 10, 4),
+        x("kernel", "void bn_fw_kernel", 138, 12, 4),  # 37 us
+    ]
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": events}))
+    (tmp_path / "window.json").write_text(json.dumps({
+        "model": "hrnet_w32", "batch": 32, "size": 256, "precision": "bf16",
+        "scan_steps": 4, "dispatches": 1, "wall_ms": 1.0, "event_ms": 1.0,
+        "loss": 1.0}))
+    got = profile.summarize(str(tmp_path))
+    assert got["idle"] == pytest.approx({
+        "lighthand.graph.replay": 0.037, "Optimizer.step#ShardAdam.step":
+        0.022, "other host work": 0.015, "queued": 0.005,
+        "no launch event": 0.003})
+    assert list(got["idle"])[0] == "lighthand.graph.replay"
+    assert "lighthand" not in " ".join(r["op"] for r in got["rows"])
+    out = capsys.readouterr().out
+    assert "0.082 ms a dispatch, by the launch that ends each gap" in out

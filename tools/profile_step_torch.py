@@ -33,6 +33,14 @@ launch is printed). Each launch left unanswered is a dropped event, and
 the summary says how many; a window where fewer than 0.95 of the launches
 are answered has kernel sums that are not device time.
 
+Each idle gap between device operations (kernels, copies, fills) is
+labelled by the host call that launched the operation ending it:
+``queued`` where that call had returned before the gap began (a bubble in
+work already on the stream, such as between the kernels of a replayed
+graph), otherwise the innermost program span (``lighthand.*``,
+``train/profiler.py:annotate``) or optimizer range (``Optimizer.step#``)
+that holds the call, or ``other host work``.
+
 Usage:
     python3 tools/profile_step_torch.py [--model hrnet_w32] [--batch 128]
         [--size 256] [--steps 6] [--scan 4] [--precision bf16]
@@ -79,6 +87,11 @@ FAMILIES = (
 )
 _LAUNCH = re.compile(r"Launch(Kernel|CooperativeKernel)|cuLaunch")
 _GRAPH_LAUNCH = re.compile(r"GraphLaunch")
+# the trace's work on the device, and the host ranges that label its gaps
+# (the program's spans are cpu_op events, torch's optimizer ranges
+# user annotations)
+DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+_RANGE = re.compile(r"^(lighthand\.|Optimizer\.step#)")
 
 
 def run_workload(model_name: str, batch: int, size: int, out_dir: str,
@@ -140,6 +153,43 @@ def _short(name: str, width: int = 110) -> str:
     return name if len(name) <= width else name[:width - 3] + "..."
 
 
+def _cause(gap_start: float, call, ranges) -> str:
+    """The label of a gap that began at ``gap_start`` and ends at an
+    operation launched by the host call ``call`` (start, end; None if the
+    trace lacks it)."""
+    if call is None:
+        return "no launch event"
+    if call[1] <= gap_start:
+        return "queued"
+    holding = [(hi - lo, name) for lo, hi, name in ranges
+               if lo <= call[0] and call[1] <= hi]
+    return min(holding)[1] if holding else "other host work"
+
+
+def idle_gaps(events) -> dict:
+    """{label: idle us} of a trace's gaps between device operations, each
+    labelled by the launch of the operation that ends it (``_cause``)."""
+    ops, calls, ranges = [], {}, []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, args = e.get("cat"), e.get("args", {})
+        span = (e["ts"], e["ts"] + e["dur"])
+        if cat in DEVICE_OPS:
+            ops.append(span + (args.get("correlation"),))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            calls[args["correlation"]] = span
+        elif (cat in ("user_annotation", "cpu_op")
+              and _RANGE.search(e.get("name", ""))):
+            ranges.append(span + (e["name"],))
+    gaps, end = defaultdict(float), None
+    for lo, hi, corr in sorted(ops, key=lambda op: op[:2]):
+        if end is not None and lo > end:
+            gaps[_cause(end, calls.get(corr), ranges)] += lo - end
+        end = hi if end is None else max(end, hi)
+    return dict(gaps)
+
+
 def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
     """Rank the trace's CUDA kernels by device ms a dispatch; group them by
     family; set their sum against the window's CUDA events and count the
@@ -147,8 +197,9 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
     Returns the figures a dispatch (``rows``: the whole ranking;
     ``families``, ``kernel_ms``, ``event_ms``, ``busy``, ``launches``,
     ``matched``, ``dropped``: launches no kernel event answers,
-    ``kernels``; ``graph_launches`` and ``graph_kernels``, the kernel
-    events that answer them, over the window), or {} without a trace."""
+    ``kernels``; ``idle``: idle ms by ``idle_gaps``' label;
+    ``graph_launches`` and ``graph_kernels``, the kernel events that
+    answer them, over the window), or {} without a trace."""
     path = os.path.join(out_dir, "trace.json")
     if not os.path.isfile(path):
         print(f"no trace found under {out_dir}", file=sys.stderr)
@@ -246,11 +297,19 @@ def summarize(out_dir: str, top_k: int = 30, per_op: bool = False) -> dict:
                        else "the sums are low by up to that share"))
         print(f"launch calls answered by a kernel event: {matched} of "
               f"{len(launch_corr)} ({share:.4f}){note}")
+    idle = {label: us / 1e3 / n for label, us in sorted(
+        idle_gaps(events).items(), key=lambda kv: -kv[1])}
+    if idle:
+        print(f"idle between device operations, {sum(idle.values()):.3f} "
+              "ms a dispatch, by the launch that ends each gap:")
+        for label, ms in idle.items():
+            print(f"  {ms:9.3f} ms  {label}")
     return {"rows": rows, "families": families, "kernel_ms": kernel_ms,
             "event_ms": None if event_ms is None else event_ms / n,
             "busy": busy, "launches": len(launch_corr), "matched": matched,
             "dropped": dropped, "kernels": sum(counts.values()) / n,
-            "graph_launches": len(graph_corr), "graph_kernels": graph_kernels}
+            "idle": idle, "graph_launches": len(graph_corr),
+            "graph_kernels": graph_kernels}
 
 
 def main(argv=None) -> int:
