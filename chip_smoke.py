@@ -6,9 +6,9 @@
 Phases (any failure raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   the three CUDA libraries built from ``lighthand_tpu_torch/csrc`` with nvcc and
-   the host libraries of the data readers (the image codec, the TSV
-   engine) with the host C++ compiler, all at once;
+   the CUDA libraries (one a ``lighthand_tpu_torch/csrc/*.cu``) built with
+   nvcc and the host libraries of the data readers (the image codec, the
+   TSV engine) with the host C++ compiler, all at once;
 1b. the codec: every committed fixture image (``tests/fixtures/images``)
    decoded, gray-decoded, resized to 256 and warped to 224 by the port's
    codec, each equal to the SHA-256 of cv2's result stored beside it (this
@@ -60,6 +60,30 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 2c. a ``QuantConv2d`` on the card equals the same module on the CPU, bit
    for bit, at ResNet-50's and HRNet-W32's heaviest shapes, bf16 and f32:
    the weight scale divides on both devices;
+2d. the BatchNorm kernels (``csrc/batch_norm.cu``) against their twins at
+   every distinct BatchNorm shape of HRNet-W32 at bs128 and ResNet-50 at
+   bs32 (read by hooks), bf16 and f32, ReLU on and off, training forward
+   (output, batch and running statistics, the batch count), its backward,
+   eval forward and its backward, and ragged cases (C = 4, 12, 100; 3 rows
+   a channel; NCHW input; x off 16-byte alignment); outputs and dx within
+   1 ulp of the twin's value in their type + 2^-16 of the largest value,
+   statistics, dw and db within 2^-16 (``BN_FLOOR``: the sums add in
+   another order); the fused ReLU's gate bit for bit; each stage's device
+   ms (CUDA graph replays, the profiler's kernel times) beside its byte
+   bound at every shape and summed over a microbatch of each model, beside
+   the device ms of the chain the kernels replaced (the twin) and of the
+   library's one call (``F.batch_norm`` on the bf16 activation, then
+   ``relu``), training forward + backward and eval; then a graphed W32
+   bs128 microbatch launches each stage once a BatchNorm (3 x 292 each
+   way), an eval batch 292 eval passes, ``F.batch_norm`` and ``var_mean``
+   are never called, and the benchmark's "batch norm" family holds only
+   ``lh_bn_`` kernels; then W32 bs128's graphed training microbatch and
+   eval batch timed with the BatchNorms through the kernels and through
+   that library call (kernels, library, library, kernels); the largest and
+   smallest shape of each model make the kernels line's ``batch_norm`` row.
+   From phase 4 on the three BatchNorm wrappers are counted on every path
+   like K1 (``bn_launches``: 3 x the model's BatchNorms a training
+   forward and a backward, 1 x an eval forward);
 4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
    ``make_fused_train_step`` for 3 steps (graphed: the first eager, the
    second captured and replayed, the third replayed, whose time is the
@@ -67,13 +91,17 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    launch 3 times and every loss be finite;
 5. the main path, eval: ``make_eval_step`` twice on a batch of 32 whose last
    4 rows are padding (n_valid must be 28, K2 must launch), then
-   ``make_predict_step`` once;
+   ``make_predict_step`` once; over phases 4 and 5 the BatchNorm wrappers
+   launch 3 x 3 x 292 times in training forwards and as many in
+   backwards, and 3 x 292 in eval forwards;
 4b. int8 training: HRNet-W32, ``DTypePolicy.int8_fwd()``, 3 fused steps:
-   finite losses, K1 3 launches, the int8 conv 3 x 292 and the grouped
-   weight quantize 3 (one a forward);
+   finite losses, K1 3 launches, the int8 conv 3 x 292, the grouped
+   weight quantize 3 (one a forward) and the BatchNorms of 3 training
+   forwards and backwards;
 5b. int8 serving: phase 4's W32 weights predicted under bf16 and under
    int8_fwd (``load_state_dict``), the share of joints within 1 heatmap px
-   of each other printed; 292 int8 conv launches and 1 weight quantize;
+   of each other printed; 292 int8 conv launches, 1 weight quantize and
+   the BatchNorms of 2 eval forwards;
 4c. the flip / rotation route: HRNet-W32, 256x256, bs32, bf16,
    ``make_fused_train_step(flip=True, rot_deg=15.0)`` for 3 steps: finite
    losses, K1 0 and K2 3 launches; the chain (jitter, noise, rotate,
@@ -91,20 +119,23 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    same weights, seed and batches, the generator reseeded before the
    third: K1's images and targets bit-equal in all 12 microbatches, each
    microbatch's loss and the final state dict no further from eager than
-   the eager rerun (both printed), the launch counts equal, one graph for
-   the step; then the eval step (a batch whose last 4 rows are padding,
+   the eager rerun (both printed), the launch counts equal, the
+   BatchNorms of 12 training forwards and backwards, one graph for the
+   step; then the eval step (a batch whose last 4 rows are padding,
    n_valid 28) and the predict step graphed against eager on the trained
-   state, 3 batches each, bit for bit;
+   state, 3 batches each, bit for bit, with the BatchNorms of their 12
+   eval forwards;
 6. the training entry point: ``lighthand_tpu_torch.cli.train.main`` in a
    temporary directory, SimpleBaseline ResNet-50 at 256x256, batch 32, bf16,
    synthetic data (128 train samples, 32 val), 3 microbatches a dispatch:
    run A trains 2 epochs from scratch (``--reset``), run B resumes with 3
    epochs at the best epoch + 1. Each epoch is one K=3 dispatch, a ragged
    K=1 tail step and one eval batch, so K1 must launch 4 times and K2 once
-   for every epoch run. Both runs must print the ``done:`` line, write
-   finite Loss/train and Loss/valid for every epoch run, the checkpoint and
-   ``last_checkpoint.json`` with the model's name and precision, and run B
-   must start at run A's best epoch + 1. Per-epoch wall time, epoch img/s
+   for every epoch run, and the BatchNorm wrappers 4 x 3 x 56 times in
+   training forwards and as many in backwards. Both runs must print the
+   ``done:`` line, write finite Loss/train and Loss/valid for every epoch
+   run, the checkpoint and ``last_checkpoint.json`` with the model's name
+   and precision, and run B must start at run A's best epoch + 1. Per-epoch wall time, epoch img/s
    and the device time of the steady K=3 dispatches are printed (a smoke
    figure, not a benchmark);
 6b. the real-data path: the same CLI on a LightHand99K tree written into
@@ -125,7 +156,8 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    int8_fwd`` and with ``--test``: exit 0, evaluation.json's categories and
    counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
    the --test AUC lines, under int8_fwd 53 int8 conv launches and 1 weight
-   quantize a batch (106 and 2) and none otherwise; img/s of each run;
+   quantize a batch (106 and 2) and none otherwise, and in each run the
+   BatchNorms of one eval forward a batch (2 x 56); img/s of each run;
 6e. the training CLI with ``--flip --rot-aug 15`` (SimpleBaseline
    ResNet-50, synthetic, 64 train and 32 val samples, bs32, 1 epoch): the
    done line, finite losses, K1 0 and K2 3 launches, the route logged once;
@@ -809,6 +841,23 @@ def read(counters) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
 
 
+def bn_launches(n_bn: int, train: int = 0, evals: int = 0) -> dict:
+    """The BatchNorm wrappers' launches for ``train`` training forwards,
+    each with its backward, and ``evals`` eval forwards of a model of
+    ``n_bn`` BatchNorms: three a BatchNorm in a training forward and in a
+    backward, one in an eval forward."""
+    return {"batch_norm_train": 3 * n_bn * train,
+            "batch_norm_eval": n_bn * evals,
+            "batch_norm_backward": 3 * n_bn * train}
+
+
+def off(counts: dict, want: dict) -> bool:
+    """Whether a count that ``want`` names differs from it (a path whose
+    BatchNorm forwards a phase does not count out leaves those counts to
+    the kernels line's sums)."""
+    return any(counts[name] != n for name, n in want.items())
+
+
 def run_cli(argv: list, counters, tag: str, entry: str = "train") -> tuple:
     """One call of the training (or eval) CLI's ``main``, every kernel's
     count zeroed just before it and read just after; its output is printed
@@ -877,10 +926,15 @@ def cli_phase(counters) -> tuple:
                 want = {"fused_aug_targets": 4 * len(ran),
                         "heatmap_targets": len(ran), "int8_conv": 0,
                         "quantize_weight": 0}
-                if counts != want:
+                # a training forward and its backward per optimizer step;
+                # the eval and overlay forwards are not counted out here
+                bn = bn_launches(N_BN["resnet50"], 4 * len(ran))
+                del bn["batch_norm_eval"]
+                if off(counts, {**want, **bn}):
                     fail(f"CLI run {tag}: launches {counts}, expected {want}"
-                         " (K1 once per optimizer step, K2 once per eval "
-                         "batch)")
+                         f" and {bn} (K1 and a BatchNorm training forward "
+                         "and backward once per optimizer step, K2 once per "
+                         "eval batch)")
                 with open(os.path.join(run_dir, "last_checkpoint.json")) as f:
                     marker = json.load(f)
                 if (marker.get("model") != {"name": "simplebaseline",
@@ -997,7 +1051,7 @@ def real_tree_phase(counters, tmp: str) -> tuple:
     want = {"fused_aug_targets": 2 * (128 // B_TRAIN),
             "heatmap_targets": 2 * math.ceil(32 / B_TRAIN), "int8_conv": 0,
             "quantize_weight": 0}
-    if counts != want:
+    if off(counts, want):
         fail(f"real-tree CLI: launches {counts}, expected {want}")
     hits = {(int(e), tag): float(frac) for e, tag, frac in re.findall(
         r"epoch (\d+): (\w+) cache \S+ hit_fraction ([0-9.]+)", log)}
@@ -1067,8 +1121,8 @@ def frei_and_mix_phase(state, counters, tmp: str) -> dict:
           f"{B_TRAIN} max-style) loss {mix_loss:.6f}; launches {counts}")
     if not (math.isfinite(frei_loss) and math.isfinite(mix_loss)):
         fail("non-finite loss in the FreiHAND or mix step")
-    if counts != {"fused_aug_targets": 2, "heatmap_targets": 0,
-                  "int8_conv": 0, "quantize_weight": 0}:
+    if off(counts, {"fused_aug_targets": 2, "heatmap_targets": 0,
+                    "int8_conv": 0, "quantize_weight": 0}):
         fail(f"frei+mix launches {counts}, expected K1 twice")
     return counts
 
@@ -1447,7 +1501,8 @@ def int8_train_phase(batch, counters, n_quant: int) -> dict:
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite int8 train loss: {losses}")
     want = {"fused_aug_targets": 3, "heatmap_targets": 0,
-            "int8_conv": 3 * n_quant, "quantize_weight": 3}
+            "int8_conv": 3 * n_quant, "quantize_weight": 3,
+            **bn_launches(N_BN["hrnet_w32"], train=3)}
     if counts != want:
         fail(f"int8 train launches {counts}, expected {want}")
     return counts
@@ -1484,9 +1539,10 @@ def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
             or not torch.isfinite(maxvals).all()):
         fail("non-finite int8 predictions")
     if counts != {"fused_aug_targets": 0, "heatmap_targets": 0,
-                  "int8_conv": n_quant, "quantize_weight": 1}:
+                  "int8_conv": n_quant, "quantize_weight": 1,
+                  **bn_launches(N_BN["hrnet_w32"], evals=2)}:
         fail(f"int8 serving launches {counts}, expected {n_quant} int8 "
-             "convs and 1 weight quantize")
+             "convs, 1 weight quantize and two eval forwards' BatchNorms")
     return counts
 
 
@@ -1536,7 +1592,8 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
             int8 = tag == "int8_fwd"
             want = {"fused_aug_targets": 0, "heatmap_targets": 0,
                     "int8_conv": n_quant * batches if int8 else 0,
-                    "quantize_weight": batches if int8 else 0}
+                    "quantize_weight": batches if int8 else 0,
+                    **bn_launches(N_BN["resnet50"], evals=batches)}
             if counts != want:
                 fail(f"eval CLI ({tag}): launches {counts}, expected {want}")
             for name in total:
@@ -1752,6 +1809,9 @@ def graph_phase(counters) -> dict:
         if g_counts != e_counts:
             fail(f"[graph] {tag}: launches {g_counts} against eager "
                  f"{e_counts}")
+        want = bn_launches(N_BN[name], train=GRAPH_K * GRAPH_DISPATCHES)
+        if off(g_counts, want):
+            fail(f"[graph] {tag}: launches {g_counts}, expected {want}")
         for key, n in g_counts.items():
             total[key] += n
         del runs
@@ -1774,7 +1834,12 @@ def graph_phase(counters) -> dict:
             if not same or float(got["n_valid"]) != B_TRAIN - 4:
                 fail(f"[graph] {tag}: eval or predict call {d} differs from "
                      f"eager (n_valid {float(got['n_valid'])})")
-        for key, n in read(counters).items():
+        counts = read(counters)
+        want = bn_launches(N_BN[name], evals=4 * 3)
+        if off(counts, want):
+            fail(f"[graph] {tag}: eval and predict launches {counts}, "
+                 f"expected {want}")
+        for key, n in counts.items():
             total[key] += n
         print(f"[graph] {tag}: eval and predict graphed equal to eager in 3 "
               f"calls each (n_valid {B_TRAIN - 4}); graphs {len(eval_step.graphs)}"
@@ -1846,7 +1911,7 @@ def aug_route_phase(counters, card: str, k1_step_ms: float) -> tuple:
         fail(f"non-finite losses on the flip/rotation route: {losses}")
     want = {"fused_aug_targets": 0, "heatmap_targets": 3, "int8_conv": 0,
             "quantize_weight": 0}
-    if counts != want:
+    if off(counts, want):
         fail(f"flip/rotation steps launched {counts}, expected {want}")
 
     # the chain on the card against the chain on the CPU, same draws
@@ -1945,7 +2010,7 @@ def aug_cli_phase(counters, tmp: str) -> dict:
     check_run("flip/rotation CLI", rc, text, train, valid, [0])
     want = {"fused_aug_targets": 0, "heatmap_targets": 64 // B_TRAIN + 1,
             "int8_conv": 0, "quantize_weight": 0}
-    if counts != want:
+    if off(counts, want):
         fail(f"flip/rotation CLI: launches {counts}, expected {want}")
     if len(routed) != 1:
         fail(f"flip/rotation CLI logged its route {len(routed)} times")
@@ -1957,12 +2022,16 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from lighthand_tpu_torch.cli import train
+from lighthand_tpu_torch.ops.kernels import batch_norm as bn
 from lighthand_tpu_torch.ops.kernels.fused_aug import fused_aug_targets_cuda
 from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
 rc = train.main(sys.argv[2:])
 print("LAUNCHES " + json.dumps({
     "fused_aug_targets": fused_aug_targets_cuda.launches,
-    "heatmap_targets": generate_target_batch_cuda.launches}))
+    "heatmap_targets": generate_target_batch_cuda.launches,
+    "batch_norm_train": bn.batch_norm_train_cuda.launches,
+    "batch_norm_eval": bn.batch_norm_eval_cuda.launches,
+    "batch_norm_backward": bn.batch_norm_backward_cuda.launches}))
 sys.exit(rc)
 """
 
@@ -2174,7 +2243,7 @@ def dist_phase(counters, tmp: str) -> dict:
         fail(f"the distributed run's losses differ from the plain run's: "
              f"{gaps}")
     want = {"fused_aug_targets": 64 // B_TRAIN, "heatmap_targets": 1}
-    if launches != want:
+    if off(launches, want):
         fail(f"distributed CLI: launches {launches}, expected {want}")
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2304,7 +2373,7 @@ def overlay_cli_phase(counters, tmp: str, synth: str) -> tuple:
     check_run("overlay CLI", rc, text, train, valid, [0])
     want = {"fused_aug_targets": 64 // B_TRAIN, "heatmap_targets": 1,
             "int8_conv": 0, "quantize_weight": 0}
-    if counts != want:
+    if off(counts, want):
         fail(f"overlay CLI: launches {counts}, expected {want}")
     files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
                    for d, _, fs in os.walk(run_dir) for f in fs
@@ -3223,7 +3292,7 @@ def finetune_phase(weights: dict, batch: dict, counters, card: str,
     counts = read(counters)
     want = {"fused_aug_targets": 3, "heatmap_targets": 0, "int8_conv": 0,
             "quantize_weight": 0}
-    if counts != want:
+    if off(counts, want):
         fail(f"the fine-tune steps launched {counts}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite fine-tune losses: {losses}")
@@ -3431,6 +3500,518 @@ def preprocessor_phase(counters, card: str, dev=None) -> dict:
     return figures
 
 
+# ------------------------------------------------------------- batch norm
+
+# the cells' models and batches: HRNet-W32 at bs128 (w32.train.b128,
+# w32.eval.b128), ResNet-50 at bs32 (r50.train.b32, r50.eval.b32.int8)
+BN_MODELS = (("hrnet_w32", 128), ("resnet50", 32))
+N_BN = {"hrnet_w32": 292, "resnet50": 56}  # BatchNorms a forward
+# the BatchNorm wrappers, as the counters of main() name them
+BN_COUNTERS = ("batch_norm_train", "batch_norm_eval", "batch_norm_backward")
+# bytes an element a stage moves in 2-byte elements (the f32 variant
+# twice as many): x once for the statistics; x in, y out; dy and x for the
+# sums; dy and x in, dx out; x in, y out from the running statistics
+BN_STAGE_BYTES = {"lh_bn_fw_partials": 2, "lh_bn_fw_apply": 4,
+                  "lh_bn_bw_partials": 4, "lh_bn_bw_apply": 6,
+                  "lh_bn_fw_eval": 4, "lh_bn_fw_finalize": 0,
+                  "lh_bn_bw_finalize": 0}
+# The kernels against their twins: |kernel - twin| <= one ulp of the twin's
+# value in the output's type + 2^-16 of the tensor's largest value. The
+# ulp: the output is rounded once, and the f32 value it rounds differs in
+# the last bits (the statistics summed in another order, and
+# (x - mean) * (invstd * w) + b where cuDNN computes its own form). The
+# floor: where the terms cancel (y or dx near 0) the f32 difference is
+# absolute, about 1e-7 of the largest term; 2^-16 leaves room for the
+# few-rows channels (3 rows: 1.2e-6 seen). Statistics, running statistics,
+# dw and db: within 2^-16 of the largest value.
+BN_FLOOR = 2.0 ** -16
+
+
+def bn_shapes(name: str) -> dict:
+    """{(C, H, W, relu): uses} of the BatchNorms of one forward of ``name``
+    at 256x256, read by forward hooks on a batch of one."""
+    import torch
+
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.models.layers import BatchNorm2d
+
+    model = get_model(name).cuda().eval()
+    uses = {}
+
+    def hook(module, inputs, output):
+        _, c, h, w = inputs[0].shape
+        key = (c, h, w, module.relu)
+        uses[key] = uses.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, SIZE, SIZE, device="cuda"))
+    for h in handles:
+        h.remove()
+    return uses
+
+
+def bn_inputs(n: int, c: int, h: int, w: int, dtype, seed: int):
+    """x and dy in ``channels_last`` memory, f32 weight, bias and running
+    statistics, made from ``seed``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def act(mean, std):
+        t = torch.randn(n, c, h, w, generator=g) * std + mean
+        return t.to(dtype).cuda().contiguous(memory_format=torch.channels_last)
+
+    x, dy = act(0.7, 2.0), act(0.0, 1.0)
+    weight = (torch.rand(c, generator=g) + 0.5).cuda()
+    bias = (torch.randn(c, generator=g) * 0.3).cuda()
+    rm = (torch.randn(c, generator=g) * 0.1).cuda()
+    rv = (torch.rand(c, generator=g) + 0.5).cuda()
+    return x, dy, weight, bias, rm, rv
+
+
+def bn_excess(got, want) -> float:
+    """max |got - want| over the tolerance (<= 1 passes): one ulp of
+    ``want`` in ``got``'s type + ``BN_FLOOR`` of max |want|."""
+    import torch
+
+    g, w = got.float(), want.float()
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    a = w.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - (bits - 1))
+    tol = ulp + BN_FLOOR * float(w.abs().max())
+    return float(((g - w).abs() / tol).max())
+
+
+def bn_rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def bn_check(n, c, h, w, dtype, relu: bool, seed: int) -> dict:
+    """One shape against the twins: the training forward (y, the batch
+    statistics, the running statistics and the batch count), its backward,
+    the eval forward and its backward. The ReLU's gate, recomputed in the
+    backward, is checked bit for bit: the backward with ``relu`` equals the
+    backward without it of dy masked by the forward's own output. The
+    gradients are held to the twin's on that masked dy (the twin's mask is
+    cuDNN's f32 y, whose sign can differ where |y| < 1e-7)."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+
+    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, dtype, seed)
+    out = {}
+    for training in (True, False):
+        rm1, rv1, rm2, rv2 = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+        nb1 = torch.zeros((), dtype=torch.long, device="cuda")
+        nb2 = nb1.clone()
+        if training:
+            y, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm1, rv1, nb1, 0.1,
+                                                 1e-5, relu)
+            yw, s0w, s1w = bn.batch_norm_train_plain(x, wt, b, rm2, rv2, nb2,
+                                                     0.1, 1e-5, relu)
+            out["mean"], out["invstd"] = bn_rel(s0, s0w), bn_rel(s1, s1w)
+            out["running"] = max(bn_rel(rm1, rm2), bn_rel(rv1, rv2))
+            if int(nb1) != 1:
+                fail(f"num_batches_tracked {int(nb1)} after one forward")
+        else:
+            y = bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, relu)
+            yw = bn.batch_norm_eval_plain(x, wt, b, rm, rv, 1e-5, relu)
+            s0, s1 = rm, rv
+        tag = "train" if training else "eval"
+        out[f"y_{tag}"] = bn_excess(y, yw)
+        masked = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+        got = bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, training,
+                                          1e-5, relu)
+        if relu:
+            plain = bn.batch_norm_backward_cuda(masked, x, wt, b, s0, s1,
+                                                training, 1e-5, False)
+            out[f"gate_{tag}"] = all(
+                p.shape == q.shape and torch.equal(
+                    p.contiguous().view(-1).view(torch.uint8),
+                    q.contiguous().view(-1).view(torch.uint8))
+                for p, q in zip(got, plain))
+        want = bn.batch_norm_backward_plain(masked, x, wt, b, rm, rv,
+                                            training, 1e-5, False)
+        out[f"dx_{tag}"] = bn_excess(got[0], want[0])
+        out[f"dwb_{tag}"] = max(bn_rel(got[1], want[1]),
+                                bn_rel(got[2], want[2]))
+    torch.cuda.synchronize()
+    return out
+
+
+def bn_stage_ms(fn, calls: int = 10) -> dict:
+    """{kernel name: device ms a call} of the lh_bn_ kernels ``fn``
+    launches, over replays of ``fn`` captured in a CUDA graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = capture(fn)
+    if graph is None:
+        fail("a BatchNorm call could not be captured in a CUDA graph")
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            graph.replay()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        for stage in BN_STAGE_BYTES:
+            if stage in e.key:
+                ms[stage] = ms.get(stage, 0.0) + getattr(
+                    e, "self_device_time_total", 0) / 1e3 / calls
+    return ms
+
+
+def bn_times(n, c, h, w, kind: str) -> dict:
+    """Device ms of each stage (graph replays, the profiler's kernel
+    times) beside its byte bound; device and eager ms of the training
+    forward + backward and of the eval forward; the device ms of the same
+    two through the twin (the port's chain before the kernels: the f32
+    copy, ``var_mean``, ``F.batch_norm``, the cast back, ``relu``) and
+    through the library's one call as the yardstick: ``F.batch_norm`` on
+    the bf16 activation with the f32 parameters, its own statistics pass,
+    then ``relu`` (a timing only: it updates the running variance with the
+    unbiased variance, not Flax's biased one). bf16, ReLU on."""
+    import torch
+    import torch.nn.functional as F
+
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+
+    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, torch.bfloat16, 11)
+    nb = torch.zeros((), dtype=torch.long, device="cuda")
+
+    def train():
+        y, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
+                                             True)
+        bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, True, 1e-5, True)
+
+    def evaluate():
+        bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, True)
+
+    def chain(fn):
+        def run():
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_()
+                out = fn(xg)
+                torch.autograd.grad(out, xg, dy)
+        return run
+
+    def plain(xg):
+        return bn.batch_norm_train_plain(xg, wt, b, rm, rv, nb, 0.1, 1e-5,
+                                         True)[0]
+
+    def library(xg):
+        return torch.relu(F.batch_norm(xg, rm, rv, wt, b, True, 0.1, 1e-5))
+
+    def plain_eval():
+        bn.batch_norm_eval_plain(x, wt, b, rm, rv, 1e-5, True)
+
+    def library_eval():
+        torch.relu(F.batch_norm(x, rm, rv, wt, b, False, 0.0, 1e-5))
+
+    el = n * c * h * w
+    stages = bn_stage_ms(train)
+    stages.update(bn_stage_ms(evaluate))
+    row = {"shape": (n, c, h, w), "elements": el, "stages": {}}
+    for stage, ms in stages.items():
+        bound = BN_STAGE_BYTES[stage] * el / peaks(kind)[0] * 1e3
+        row["stages"][stage] = (round(ms, 5), round(bound, 5))
+    fw_bw = [s for s in stages if s != "lh_bn_fw_eval"]
+    row["train_device_ms"] = sum(stages[s] for s in fw_bw)
+    row["train_bound_ms"] = 16 * el / peaks(kind)[0] * 1e3
+    row["train_eager_ms"] = eager_ms(train)
+    row["eval_device_ms"] = stages["lh_bn_fw_eval"]
+    row["eval_bound_ms"] = 4 * el / peaks(kind)[0] * 1e3
+    row["eval_eager_ms"] = eager_ms(evaluate)
+    for name, fn in (("plain", chain(plain)), ("library", chain(library)),
+                     ("plain_eval", plain_eval),
+                     ("library_eval", library_eval)):
+        row[f"{name}_device_ms"] = device_ms(fn, capture(fn))[0]
+    return row
+
+
+def bn_path_phase() -> dict:
+    """One graphed HRNet-W32 bs128 training microbatch (the fused step,
+    K=1) and one bs128 eval batch: each replay launches each training stage
+    once a BatchNorm (3 x 292 forward, 3 x 292 backward launches) and the
+    eval pass once a BatchNorm; ``F.batch_norm`` and ``var_mean`` are
+    called 0 times from the first call on; in a profiled replay every
+    kernel of the "batch norm" family (``benchmark/lhbench/trace.py``'s
+    pattern) is an ``lh_bn_`` kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthand_tpu_torch.models import get_model
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        graph,
+        make_eval_step,
+        make_fused_train_step,
+    )
+
+    b = B_KERNEL
+    rng = np.random.default_rng(19)
+    batch = {
+        "image_u8": torch.from_numpy(rng.integers(
+            0, 256, size=(b, SIZE, SIZE, 3), dtype=np.uint8)),
+        "joints": torch.from_numpy(rng.uniform(
+            16, SIZE - 16, size=(b, JOINTS, 2)).astype(np.float32)),
+        "aug_enabled": torch.ones(b), "noise_enabled": torch.ones(b)}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    state = create_train_state(get_model("hrnet_w32"),
+                               torch.Generator().manual_seed(0), lr=1e-3)
+    step = make_fused_train_step(scan_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    calls = {"batch_norm": 0, "var_mean": 0}
+    real = {"batch_norm": F.batch_norm, "var_mean": torch.var_mean}
+
+    def counting(name):
+        def fn(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return fn
+
+    F.batch_norm, torch.var_mean = (counting("batch_norm"),
+                                    counting("var_mean"))
+    try:
+        deltas = []
+        for _ in range(3):  # eager, capture, replay
+            before = graph.counts()
+            state, metrics = step(state, gen, batch)
+            deltas.append([a - c for a, c in zip(graph.counts(), before)])
+        float(metrics["loss"])
+        images = torch.randn(b, SIZE, SIZE, 3, device="cuda")
+        eval_step = make_eval_step()
+        eval_batch = {"image": images, "joints": batch["joints"],
+                      "valid": torch.ones(b, device="cuda")}
+        for _ in range(3):
+            before = graph.counts()
+            eval_step(state, eval_batch)
+            eval_deltas = [a - c for a, c in zip(graph.counts(), before)]
+        torch.cuda.synchronize()
+    finally:
+        F.batch_norm, torch.var_mean = real["batch_norm"], real["var_mean"]
+    names = [f.__name__ for f in graph.COUNTED]
+    replay = dict(zip(names, deltas[-1]))
+    ev = dict(zip(names, eval_deltas))
+    n_bn = N_BN["hrnet_w32"]
+    print(f"[bn path] W32 bs{b} graphed microbatch: launches {replay}; eval "
+          f"batch {ev}; F.batch_norm / var_mean calls {calls}")
+    if (replay["batch_norm_train_cuda"] != 3 * n_bn
+            or replay["batch_norm_backward_cuda"] != 3 * n_bn
+            or replay["batch_norm_eval_cuda"] != 0
+            or ev["batch_norm_eval_cuda"] != n_bn
+            or ev["batch_norm_train_cuda"] != 0 or any(calls.values())):
+        fail(f"BatchNorm launches {replay}, eval {ev}, library calls {calls}")
+    family = re.compile(r"batch_norm|batchnorm|bn_fw|bn_bw|welford")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, gen, batch)
+        torch.cuda.synchronize()
+    bn_kernels = {e.key: e.count for e in prof.key_averages()
+                  if family.search(e.key.lower())}
+    foreign = [k for k in bn_kernels if "lh_bn_" not in k]
+    print(f"[bn path] 'batch norm' family of a replayed microbatch: "
+          f"{sum(bn_kernels.values())} kernels, "
+          f"{len(bn_kernels) - len(foreign)} lh_bn_ names; others: {foreign}")
+    if foreign or not bn_kernels:
+        fail(f"the batch norm family holds other kernels: {foreign}")
+    del state, step
+    return replay
+
+
+def bn_route_ms(batch: dict, route, calls: int = 10) -> tuple:
+    """(ms a training microbatch, ms an eval batch) of HRNet-W32 with its
+    BatchNorms through ``route`` (``ops/kernels/batch_norm.py:batch_norm``'s
+    signature), both steps graphed: host wall over ``calls`` replays after
+    the eager call and the capture, synchronised at both ends."""
+    import torch
+
+    from lighthand_tpu_torch.models import get_model, layers
+    from lighthand_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_fused_train_step,
+    )
+
+    kept = layers.batch_norm
+    layers.batch_norm = route
+    try:
+        state = create_train_state(get_model("hrnet_w32"),
+                                   torch.Generator().manual_seed(0), lr=1e-3)
+        step, eval_step = make_fused_train_step(scan_steps=1), make_eval_step()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        b = batch["joints"].shape[0]
+        ev = {"image": torch.randn(b, SIZE, SIZE, 3, device="cuda"),
+              "joints": batch["joints"], "valid": torch.ones(b, device="cuda")}
+        ms = []
+        for run in (lambda: step(state, gen, batch),
+                    lambda: eval_step(state, ev)):
+            for _ in range(2):  # eager, capture
+                run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / calls)
+    finally:
+        layers.batch_norm = kept
+    del state, step, eval_step
+    torch.cuda.empty_cache()
+    return tuple(ms)
+
+
+def bn_routes_phase() -> dict:
+    """HRNet-W32 bs128, graphed: a training microbatch and an eval batch
+    with the BatchNorms through the kernels and through the library's one
+    call (``F.batch_norm`` on the bf16 activation with the f32 parameters,
+    then ``relu``; a timing only, as in ``bn_times``), in the order
+    kernels, library, library, kernels. Returns {route: [(train ms, eval
+    ms), ...]}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+
+    def library(x, weight, bias, running_mean, running_var,
+                num_batches_tracked, training, momentum, eps, relu=False):
+        y = F.batch_norm(x, running_mean, running_var, weight, bias,
+                         training, momentum, eps)
+        return F.relu(y) if relu else y
+
+    b = B_KERNEL
+    rng = np.random.default_rng(20)
+    batch = {
+        "image_u8": torch.from_numpy(rng.integers(
+            0, 256, size=(b, SIZE, SIZE, 3), dtype=np.uint8)),
+        "joints": torch.from_numpy(rng.uniform(
+            16, SIZE - 16, size=(b, JOINTS, 2)).astype(np.float32)),
+        "aug_enabled": torch.ones(b), "noise_enabled": torch.ones(b)}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    routes = {"kernels": bn.batch_norm, "library": library}
+    ms = {name: [] for name in routes}
+    for name in ("kernels", "library", "library", "kernels"):
+        ms[name].append(bn_route_ms(batch, routes[name]))
+    print(f"[bn routes] HRNet-W32 bs{b} graphed, ms a training microbatch "
+          f"and an eval batch (host wall over 10 replays): {ms}")
+    return ms
+
+
+def batch_norm_phase(kind: str) -> dict:
+    """Phase 2d: the BatchNorm kernels (``csrc/batch_norm.cu``) against
+    their twins on the card at every distinct BatchNorm shape of the
+    cells' models (HRNet-W32 bs128, ResNet-50 bs32), bf16 and f32, ReLU on
+    and off, training and eval (``bn_check``), and ragged cases (C = 4, 12,
+    100; NCHW input; a misaligned x: the one-element path); each stage's
+    device ms beside its byte bound at every shape, weighted by uses into
+    each model's ms a microbatch; the kernel table's rows at each model's
+    largest and smallest shape; then ``bn_path_phase`` and
+    ``bn_routes_phase``. Returns the rows."""
+    import torch
+
+    worst, n_checks = {}, 0
+    shapes = {}
+    for name, batch in BN_MODELS:
+        uses = bn_shapes(name)
+        print(f"[bn] {name}: {sum(uses.values())} BatchNorms, "
+              f"{len(uses)} distinct (C, H, W, relu)")
+        for (c, h, w, relu), k in uses.items():
+            shapes.setdefault((name, batch, c, h, w), []).append((relu, k))
+    cases = [(batch, c, h, w) for (_, batch, c, h, w) in shapes]
+    cases += [(8, 4, 9, 7), (4, 12, 10, 10), (4, 100, 8, 8), (3, 256, 1, 1)]
+    for i, (n, c, h, w) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            for relu in (False, True):
+                got = bn_check(n, c, h, w, dtype, relu, seed=100 + i)
+                n_checks += 1
+                for key, v in got.items():
+                    worst[key] = (max(worst.get(key, 0.0), v)
+                                  if not key.startswith("gate")
+                                  else worst.get(key, True) and v)
+                bad = [k for k, v in got.items()
+                       if (v is False) or (not isinstance(v, bool)
+                                           and not v <= (1.0 if k[:2] in (
+                                               "y_", "dx") else BN_FLOOR))]
+                if bad:
+                    fail(f"BatchNorm kernels disagree with the twin at "
+                         f"{(n, c, h, w)} {dtype} relu={relu}: {got}")
+    # ragged layouts: NCHW x, and x 2 (bf16) or 4 (f32) bytes off alignment
+    for dtype in (torch.bfloat16, torch.float32):
+        x, _, wt, b, rm, rv = bn_inputs(2, 64, 16, 16, dtype, 7)
+        nchw = x.contiguous()
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:]
+        off = buf.as_strided(x.shape, x.stride())
+        off.copy_(x)
+        from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+        want = bn.batch_norm_eval_plain(x, wt, b, rm, rv, 1e-5, True)
+        for tag, t in (("NCHW", nchw), ("misaligned", off)):
+            nb = torch.zeros((), dtype=torch.long, device="cuda")
+            y, _, _ = bn.batch_norm_train_cuda(t, wt, b, rm.clone(),
+                                               rv.clone(), nb, 0.1, 1e-5, True)
+            yw, _, _ = bn.batch_norm_train_plain(x.clone(), wt, b, rm.clone(),
+                                                 rv.clone(), nb.clone(), 0.1,
+                                                 1e-5, True)
+            e = max(bn_excess(y, yw),
+                    bn_excess(bn.batch_norm_eval_cuda(t, wt, b, rm, rv, 1e-5,
+                                                      True), want))
+            n_checks += 1
+            if not e <= 1.0:
+                fail(f"BatchNorm {tag} {dtype}: {e} of the tolerance")
+    print(f"[bn] {n_checks} checks against the twins; worst over them "
+          f"(y, dx: of the tolerance; statistics, dw, db: relative; gates "
+          f"bit for bit): { {k: v for k, v in sorted(worst.items())} }")
+
+    rows, per_model = [], {}
+    for (name, batch, c, h, w), relus in shapes.items():
+        t = bn_times(batch, c, h, w, kind)
+        t["model"], t["uses"] = name, sum(k for _, k in relus)
+        rows.append(t)
+        m = per_model.setdefault(name, {})
+        for key in ("train_device_ms", "train_bound_ms", "eval_device_ms",
+                    "eval_bound_ms", "plain_device_ms", "library_device_ms",
+                    "plain_eval_device_ms", "library_eval_device_ms"):
+            m[key] = m.get(key, 0.0) + t["uses"] * t[key]
+        print(f"[bn time] {name} {t['shape']} x{t['uses']}: stages (device "
+              f"ms, bound ms) {t['stages']}; train {t['train_device_ms']:.4f}"
+              f" (eager {t['train_eager_ms']:.4f}, bound "
+              f"{t['train_bound_ms']:.4f}); eval {t['eval_device_ms']:.4f} "
+              f"(eager {t['eval_eager_ms']:.4f}); plain "
+              f"{t['plain_device_ms']:.4f} / {t['plain_eval_device_ms']:.4f}"
+              f", library {t['library_device_ms']:.4f} / "
+              f"{t['library_eval_device_ms']:.4f} (device, train fw + bw / "
+              "eval)")
+    for name, m in per_model.items():
+        print(f"[bn time] {name}: a microbatch's BatchNorms, device ms: "
+              f"train {m['train_device_ms']:.3f} (bound "
+              f"{m['train_bound_ms']:.3f}, "
+              f"{100 * m['train_bound_ms'] / m['train_device_ms']:.1f} %), "
+              f"eval {m['eval_device_ms']:.3f} (bound "
+              f"{m['eval_bound_ms']:.3f}, "
+              f"{100 * m['eval_bound_ms'] / m['eval_device_ms']:.1f} %); "
+              f"plain train {m['plain_device_ms']:.3f}, eval "
+              f"{m['plain_eval_device_ms']:.3f}; library train "
+              f"{m['library_device_ms']:.3f}, eval "
+              f"{m['library_eval_device_ms']:.3f}")
+    table = {}
+    for name, _ in BN_MODELS:
+        mine = sorted((r for r in rows if r["model"] == name),
+                      key=lambda r: r["elements"])
+        table[name] = {"smallest": mine[0], "largest": mine[-1],
+                       "microbatch_ms": per_model[name]}
+    replay = bn_path_phase()
+    return {"launches_by_path": {"w32_bs128_microbatch": sum(
+        replay[f"{k}_cuda"] for k in BN_COUNTERS)},
+            "w32_bs128_ms_by_route": bn_routes_phase(),
+            "by_model": table}
+
+
 # ------------------------------------------------ the measurement entry points
 
 
@@ -3488,7 +4069,7 @@ def bench_phase(counters, n_quant: int) -> tuple:
         if not (math.isfinite(m.img_per_sec) and m.img_per_sec > 0
                 and math.isfinite(m.loss)):
             fail(f"bench {tag}: img/s {m.img_per_sec}, loss {m.loss}")
-        if counts != want:
+        if off(counts, want):
             fail(f"bench {tag}: launches {counts}, expected {want}")
         return m, counts
 
@@ -3527,7 +4108,7 @@ def serving_phase(counters, n_quant: int) -> tuple:
               f" (events); launches {counts}")
         if not (bool(torch.isfinite(m.joints).all()) and m.img_per_sec > 0):
             fail(f"serving {precision}: bad predictions or rate")
-        if counts != want:
+        if off(counts, want):
             fail(f"serving {precision}: launches {counts}, expected {want}")
         figures[precision] = m
         launches = {k: launches[k] + counts[k] for k in launches}
@@ -3624,6 +4205,7 @@ def main() -> int:
     from lighthand_tpu_torch.ops.color import normalize_imagenet
     from lighthand_tpu_torch.ops.heatmap import generate_target_batch
     from lighthand_tpu_torch.ops.kernels import _build
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn_kernels
     from lighthand_tpu_torch.ops.kernels.fused_aug import (
         count_div_mismatches,
         fused_aug_targets_cuda,
@@ -3753,10 +4335,15 @@ def main() -> int:
     weight_err = max(weight_err, grouped_check_phase())
     # 2c. fault 3: the weight scale on the card is the CPU's
     quant_module_phase()
+    # 2d. the BatchNorm kernels
+    bn_figures = batch_norm_phase(kind)
     counters = {"fused_aug_targets": fused_aug_targets_cuda,
                 "heatmap_targets": generate_target_batch_cuda,
                 "int8_conv": int8_conv2d_cuda,
-                "quantize_weight": quantize_weights_cuda}
+                "quantize_weight": quantize_weights_cuda,
+                "batch_norm_train": bn_kernels.batch_norm_train_cuda,
+                "batch_norm_eval": bn_kernels.batch_norm_eval_cuda,
+                "batch_norm_backward": bn_kernels.batch_norm_backward_cuda}
 
     # 4. main path: train ---------------------------------------------------
     rng = np.random.default_rng(3)
@@ -3815,6 +4402,11 @@ def main() -> int:
         fail("the eval step did not launch K2")
     if launches["int8_conv"] or launches["quantize_weight"]:
         fail("the bf16 path launched an int8 kernel")
+    # 3 training forwards and backwards; 2 eval calls and 1 predict
+    want = bn_launches(N_BN["hrnet_w32"], train=3, evals=3)
+    if off(launches, want):
+        fail(f"BatchNorm launches on the main path {launches}, expected "
+             f"{want}")
     if scalars["n_valid"] != 28.0 or not all(map(math.isfinite,
                                                   scalars.values())):
         fail(f"bad eval metrics: {scalars}")
@@ -4077,6 +4669,14 @@ def main() -> int:
     rows[-2]["forward_ms_by_model"] = breakdown
     rows[-2]["stems"] = stem_figs
     rows.append(raster_row)
+    # the three wrappers' launches summed, on each path that counts them
+    bn_by_path = {p: sum(c[k] for k in BN_COUNTERS)
+                  for p, c in paths.items() if BN_COUNTERS[0] in c}
+    bn_by_path.update(bn_figures.pop("launches_by_path"))
+    rows.append({"name": "batch_norm", "route": "cuda",
+                 "source": "lighthand_tpu_torch/csrc/batch_norm.cu",
+                 "replaces": None, "launches": sum(bn_by_path.values()),
+                 "launches_by_path": bn_by_path, **bn_figures})
     print(f"[figures] {card}: rasterize at {raster_row['shape']}: eager "
           f"{raster_row['ms']:.4f} ms, device {raster_row['device_ms']:.4f} "
           f"ms, plain twin {raster_row['plain_ms']:.2f} ms, bound "

@@ -155,9 +155,9 @@ class PoseHRNet(nn.Module):
         self.policy = policy
         # Stem: 2x 3x3 s2 conv (pose_hrnet.py:282-288) -> 1/4 resolution
         self.conv1 = conv(3, 64, 3, 2, policy=policy)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, relu=True)
         self.conv2 = conv(64, 64, 3, 2, policy=policy)
-        self.bn2 = BatchNorm2d(64)
+        self.bn2 = BatchNorm2d(64, relu=True)
         # layer1: 4x Bottleneck(64) -> 256 channels (pose_hrnet.py:289)
         self.layer1 = nn.Sequential(
             Bottleneck(64, 64, 1, True, policy),
@@ -223,8 +223,8 @@ class PoseHRNet(nn.Module):
         # under int8_fwd, every QuantConv2d weight quantized in one call
         with quantized_weights(self.quant_convs):
             x = x.to(self.policy.compute_dtype)
-            x = torch.relu(self.bn1(self.conv1(x)))
-            x = torch.relu(self.bn2(self.conv2(x)))
+            x = self.bn1(self.conv1(x))
+            x = self.bn2(self.conv2(x))
             x = self.layer1(x)
             xs = self.stage2(self._transition(self.transition1, [x]))
             xs = self.stage3(self._transition(self.transition2, xs))

@@ -9,6 +9,10 @@ Numerics that follow the JAX package rather than torch's habits:
 - a conv runs in the dtype of its input (the policy's compute dtype) with
   its f32 weights cast to it; padding is k//2 on both sides;
 - BatchNorm is computed in f32 and its output cast back to the input dtype;
+  where a ReLU follows it directly, the ReLU is part of the BatchNorm
+  (``BatchNorm2d(relu=True)``), applied before that one rounding. On the
+  card both run as the kernels of ``ops/kernels/batch_norm.py``; on the CPU
+  as their plain twins, the formulas above;
 - in training, the running variance is updated with the *biased* batch
   variance, as Flax's ``nn.BatchNorm`` does. ``nn.BatchNorm2d`` would use
   the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5;
@@ -37,6 +41,7 @@ from torch import nn
 
 from lighthand_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from lighthand_tpu_torch.ops import quant
+from lighthand_tpu_torch.ops.kernels.batch_norm import batch_norm
 
 BN_MOMENTUM = 0.1  # torch convention; == 1 - flax momentum 0.9
 BN_EPS = 1e-5
@@ -133,19 +138,27 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """f32 BatchNorm that updates its running stats the way Flax does. It
-    computes in its parameters' dtype: f32, or f64 in a model cast to f64.
+    """f32 BatchNorm that updates its running stats the way Flax does,
+    followed by a ReLU where ``relu``. It computes in its parameters'
+    dtype: f32, or f64 in a model cast to f64 (on the CPU). Its output is
+    in the input's dtype.
 
-    With a ``group`` (``set_batchnorm_group``) of ``group_size`` processes
-    along the data axis, training statistics are those of the global batch:
-    two all-reduced passes (the mean, then the centred squares), each
-    process holding the same number of rows."""
+    Locally (no group) it runs through ``ops/kernels/batch_norm.py:
+    batch_norm``: on the card the BatchNorm kernels, forward and backward;
+    on the CPU their twins. With a ``group`` (``set_batchnorm_group``) of
+    ``group_size`` processes along the data axis, training statistics are
+    those of the global batch: two all-reduced passes (the mean, then the
+    centred squares), each process holding the same number of rows."""
 
     group = None
     group_size = 1
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, relu: bool = False):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.relu = relu
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + (", relu=True" if self.relu else "")
 
     def _global_batch_norm(self, x32: torch.Tensor) -> torch.Tensor:
         count = x32.numel() // x32.shape[1] * self.group_size
@@ -162,22 +175,12 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias[None, :, None, None])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(self.weight.dtype)
         if self.training and self.group is not None:
-            y = self._global_batch_norm(x32)
-        elif self.training:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x32, dim=(0, 2, 3),
-                                           correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
-            y = F.batch_norm(x32, None, None, self.weight, self.bias,
-                             True, 0.0, self.eps)
-        else:
-            y = F.batch_norm(x32, self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
-        return y.to(x.dtype)
+            y = self._global_batch_norm(x.to(self.weight.dtype)).to(x.dtype)
+            return F.relu(y) if self.relu else y
+        return batch_norm(x, self.weight, self.bias, self.running_mean,
+                          self.running_var, self.num_batches_tracked,
+                          self.training, self.momentum, self.eps, self.relu)
 
 
 def set_batchnorm_group(model: nn.Module, group, size: int) -> None:
@@ -203,16 +206,15 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class ConvBN(nn.Sequential):
-    """``Sequential(conv, bn[, relu])``: the reference's naming for the
-    stem-less conv+BN pairs (transitions, fuse layers, downsample)."""
+    """``Sequential(conv, bn)``: the reference's naming for the stem-less
+    conv+BN pairs (transitions, fuse layers, downsample). The reference's
+    ``nn.ReLU`` (a third module, no parameters) is the BatchNorm's fused
+    ReLU here."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  relu: bool = True, policy: DTypePolicy = DEFAULT_POLICY):
-        layers = [conv(cin, cout, kernel, stride, policy=policy),
-                  BatchNorm2d(cout)]
-        if relu:
-            layers.append(nn.ReLU())
-        super().__init__(*layers)
+        super().__init__(conv(cin, cout, kernel, stride, policy=policy),
+                         BatchNorm2d(cout, relu=relu))
 
 
 class BasicBlock(nn.Module):
@@ -225,7 +227,7 @@ class BasicBlock(nn.Module):
                  policy: DTypePolicy = DEFAULT_POLICY):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 3, stride, policy=policy)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes, relu=True)
         self.conv2 = conv(planes, planes, 3, policy=policy)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
@@ -233,7 +235,7 @@ class BasicBlock(nn.Module):
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn1(self.conv1(x))
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
@@ -249,9 +251,9 @@ class Bottleneck(nn.Module):
                  policy: DTypePolicy = DEFAULT_POLICY):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1, policy=policy)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes, relu=True)
         self.conv2 = conv(planes, planes, 3, stride, policy=policy)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes, relu=True)
         self.conv3 = conv(planes, planes * self.expansion, 1, policy=policy)
         self.bn3 = BatchNorm2d(planes * self.expansion)
         self.downsample = (ConvBN(inplanes, planes * self.expansion, 1,
@@ -259,8 +261,8 @@ class Bottleneck(nn.Module):
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn1(self.conv1(x))
+        out = self.bn2(self.conv2(out))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)

@@ -59,7 +59,7 @@ class PoseResNet(nn.Module):
         self.policy = policy
         # Stem: 7x7 s2 conv + BN + ReLU + 3x3 s2 max-pool
         self.conv1 = conv(3, 64, 7, 2, policy=policy)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, relu=True)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), layers, (1, 2, 2, 2))):
@@ -70,12 +70,13 @@ class PoseResNet(nn.Module):
                     for _ in range(1, blocks)]
             setattr(self, f"layer{stage + 1}", nn.Sequential(*seq))
             inplanes = out
-        # Deconv head: Sequential [deconv, BN, ReLU] x3 (pose_resnet.py:207-232)
+        # Deconv head: Sequential [deconv, BN, ReLU] x3 (pose_resnet.py:
+        # 207-232); the ReLU is the BatchNorm's, an Identity keeps its index
         head = []
         for feat in deconv_filters:
             head += [ConvTranspose2d(inplanes, feat, 4, stride=2, padding=1,
                                      bias=False),
-                     BatchNorm2d(feat), nn.ReLU()]
+                     BatchNorm2d(feat, relu=True), nn.Identity()]
             inplanes = feat
         self.deconv_layers = nn.Sequential(*head)
         self.final_layer = conv(inplanes, num_joints, final_conv_kernel,
@@ -86,7 +87,7 @@ class PoseResNet(nn.Module):
         # under int8_fwd, every QuantConv2d weight quantized in one call
         with quantized_weights(self.quant_convs):
             x = x.to(self.policy.compute_dtype)
-            x = max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x))))
+            x = max_pool_3x3_s2(self.bn1(self.conv1(x)))
             x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
             x = self.deconv_layers(x)
             return self.final_layer(x).to(self.policy.output_dtype)

@@ -29,7 +29,8 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lighthand_tpu_torch"
-SOURCES = ("fused_aug", "heatmap", "int8_conv", "rasterize")  # csrc/<name>.cu
+SOURCES = ("batch_norm", "fused_aug", "heatmap", "int8_conv",
+           "rasterize")  # csrc/<name>.cu
 HOST_SOURCES = ("imageio", "tsv_engine", "text")  # host C++, csrc/<name>.cpp
 
 # No --use_fast_math: it changes division and expf. --fmad=false keeps

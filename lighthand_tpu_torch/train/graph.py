@@ -62,6 +62,11 @@ from typing import Callable, Sequence
 
 import torch
 
+from lighthand_tpu_torch.ops.kernels.batch_norm import (
+    batch_norm_backward_cuda,
+    batch_norm_eval_cuda,
+    batch_norm_train_cuda,
+)
 from lighthand_tpu_torch.ops.kernels.fused_aug import fused_aug_targets_cuda
 from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
 from lighthand_tpu_torch.ops.kernels.int8_conv import (
@@ -72,7 +77,8 @@ from lighthand_tpu_torch.train.profiler import annotate
 
 # the kernel wrappers of the steps; each counts its launches in .launches
 COUNTED = (fused_aug_targets_cuda, generate_target_batch_cuda,
-           quantize_weights_cuda, int8_conv2d_cuda)
+           quantize_weights_cuda, int8_conv2d_cuda, batch_norm_train_cuda,
+           batch_norm_eval_cuda, batch_norm_backward_cuda)
 
 
 def counts() -> list:

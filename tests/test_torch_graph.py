@@ -27,8 +27,9 @@ import torch
 
 from lighthand_tpu_torch.core.dtypes import DTypePolicy
 from lighthand_tpu_torch.models import get_model
-from lighthand_tpu_torch.models.layers import quant_convs
+from lighthand_tpu_torch.models.layers import BatchNorm2d, quant_convs
 from lighthand_tpu_torch.ops import quant
+from lighthand_tpu_torch.ops.kernels import batch_norm as bn_kernels
 from lighthand_tpu_torch.ops.kernels.fused_aug import fused_aug_targets_cuda
 from lighthand_tpu_torch.ops.kernels.heatmap import generate_target_batch_cuda
 from lighthand_tpu_torch.ops.kernels.int8_conv import (
@@ -152,19 +153,27 @@ def direct(monkeypatch):
 def counted(monkeypatch):
     """The kernel wrappers count their twins' calls in ``.launches``, as
     they count launches on the card; zeroed first."""
-    def counting(fn):
+    def counting(fn, launches=1):
         def wrapper(*args, **kwargs):
-            fn.launches += 1
+            fn.launches += launches
             return fn(*args, **kwargs)
         return wrapper
 
-    for module, name, fn in (
-            (port_step, "fused_aug_targets_cuda", fused_aug_targets_cuda),
+    for module, name, fn, launches in (
+            (port_step, "fused_aug_targets_cuda", fused_aug_targets_cuda, 1),
             (port_step, "generate_target_batch_cuda",
-             generate_target_batch_cuda),
-            (quant, "quantize_weights_cuda", quantize_weights_cuda),
-            (quant, "int8_conv2d_cuda", int8_conv2d_cuda)):
-        monkeypatch.setattr(module, name, counting(fn))
+             generate_target_batch_cuda, 1),
+            (quant, "quantize_weights_cuda", quantize_weights_cuda, 1),
+            (quant, "int8_conv2d_cuda", int8_conv2d_cuda, 1),
+            # a BatchNorm's training forward and its backward are three
+            # launches each on the card, its eval forward one
+            (bn_kernels, "batch_norm_train_cuda",
+             bn_kernels.batch_norm_train_cuda, 3),
+            (bn_kernels, "batch_norm_eval_cuda",
+             bn_kernels.batch_norm_eval_cuda, 1),
+            (bn_kernels, "batch_norm_backward_cuda",
+             bn_kernels.batch_norm_backward_cuda, 3)):
+        monkeypatch.setattr(module, name, counting(fn, launches))
     for fn in graph.COUNTED:
         monkeypatch.setattr(fn, "launches", 0)
     return graph.COUNTED
@@ -335,9 +344,14 @@ def test_replays_add_the_counters_captured_deltas(direct, counted):
     """The counters count each launch of a replayed microbatch as the
     eager step does: K1 one a microbatch; under int8_fwd the grouped
     weight quantize one a forward and the int8 conv one a quantized conv;
-    K2 one an eval call. A capture itself counts nothing."""
+    K2 one an eval call; each BatchNorm three in a training forward and
+    one in an eval forward (its backward, three on the card, is autograd's
+    through the twin on the CPU and calls no wrapper there). A
+    capture itself counts nothing."""
     policy = DTypePolicy.int8_fwd()
-    n_quant = len(quant_convs(get_model("hrnet_tiny", policy=policy)))
+    model = get_model("hrnet_tiny", policy=policy)
+    n_quant = len(quant_convs(model))
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in model.modules())
     seen = {}
     for mode in ("graphed", "eager"):
         graph.set_counts([0] * len(graph.COUNTED))
@@ -356,8 +370,9 @@ def test_replays_add_the_counters_captured_deltas(direct, counted):
                               "joints": _batch(i)["joints"]})
             per_call.append([a - b for a, b in zip(graph.counts(), before)])
         seen[mode] = per_call
-    want = [2, 1, 2 + 1, n_quant * 3]  # K1, K2, quantize, conv
-    assert n_quant > 0
+    # K1, K2, quantize, conv, BatchNorm forward, eval and backward
+    want = [2, 1, 2 + 1, n_quant * 3, 2 * 3 * n_bn, n_bn, 0]
+    assert n_quant > 0 and n_bn > 0
     assert seen["eager"] == [want] * 3
     assert seen["graphed"] == seen["eager"]
 
