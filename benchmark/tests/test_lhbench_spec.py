@@ -7,6 +7,7 @@ import json
 import shutil
 
 import pytest
+import torch
 
 from lhbench import spec
 
@@ -70,44 +71,60 @@ def test_a_problem_is_reported():
 def test_new_files_add_a_config_cell_and_metric(tmp_path, monkeypatch):
     """A later change adds a configuration, a traffic mix, a cell and a
     per-layer metric as new files and entries; no file of the harness
-    changes."""
+    changes, and the yardstick's checks take the new configuration as
+    they take the others."""
+    import test_lhbench_yardstick as yardstick_checks
+    from reference import models
+
+    bench = spec.load_benchmark()
     bench_dir = tmp_path / "benchmark"
     for sub in ("configs", "traffic", "workloads", "metrics"):
         shutil.copytree(spec.BENCH_DIR / sub, bench_dir / sub)
-    shutil.copy(spec.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     monkeypatch.setattr(spec, "BENCH_DIR", bench_dir)
     monkeypatch.setattr(spec, "ROOT", tmp_path)
 
-    w48 = dict(spec.read_json(bench_dir / "configs" / "hrnet_w32_256.json"),
-               model="hrnet_w48", widths=[48, 96, 192, 384])
-    (bench_dir / "configs" / "hrnet_w48_256.json").write_text(json.dumps(w48))
-    (bench_dir / "traffic" / "train_b32_k4_w48.json").write_text(json.dumps(
-        dict(spec.read_json(bench_dir / "traffic" / "train_b32_k4.json"))))
-    (bench_dir / "workloads" / "w48.train.b32.json").write_text(json.dumps(
-        spec.read_json(bench_dir / "workloads" / "r50.train.b32.json")))
+    w18 = dict(spec.read_json(bench_dir / "configs" / "hrnet_w48_256.json"),
+               model="hrnet_w18", widths=[18, 36, 72, 144], image_size=128,
+               heatmap_size=32)
+    with torch.device("meta"):
+        ref = models.build(w18)
+    w18["forward_flops"] = 2 * models.forward_macs(ref, w18["image_size"])
+    w18["parameters"] = sum(p.numel() for p in ref.parameters())
+    (bench_dir / "configs" / "hrnet_w18_128.json").write_text(json.dumps(w18))
+    (bench_dir / "traffic" / "train_b16_k2.json").write_text(json.dumps(
+        dict(spec.read_json(bench_dir / "traffic" / "train_b32_k4.json"),
+             batch=16, scan_steps=2)))
+    (bench_dir / "workloads" / "w18.train.b16.json").write_text(json.dumps(
+        spec.read_json(bench_dir / "workloads" / "w48.train.b32.json")))
     (bench_dir / "metrics" / "steps.train.py").write_text(
         "def read(run):\n    return float(run.attempted)\n")
 
-    bench = spec.load_benchmark()
-    bench["configs"].append({"name": "hrnet_w48_256", "source": "x",
-                             "file": "benchmark/configs/hrnet_w48_256.json",
-                             "reduced": [], "why": "wider"})
-    bench["workloads"].append({"name": "w48.train.b32",
-                               "config": "hrnet_w48_256",
-                               "traffic": "train_b32_k4_w48", "chips": 1,
-                               "why": "the reference's cfg.yaml widths"})
+    bench["configs"].append({"name": "hrnet_w18_128", "source": "x",
+                             "file": "benchmark/configs/hrnet_w18_128.json",
+                             "reduced": [], "why": "narrower"})
+    bench["workloads"].append({"name": "w18.train.b16",
+                               "config": "hrnet_w18_128",
+                               "traffic": "train_b16_k2", "chips": 1,
+                               "why": "a narrower HRNet at bs16"})
     for m in bench["end_to_end"]:
         if m["name"] == "train_img_s":
-            m["workloads"].append("w48.train.b32")
+            m["workloads"].append("w18.train.b16")
     bench["per_layer"].append({"name": "steps.train", "unit": "1",
                                "better": "higher", "source": "host_clock",
                                "layer": "Steps", "moves": "train_img_s",
-                               "workloads": ["w48.train.b32"]})
-    assert spec.problems(bench) == []
-    cell = spec.cell(bench, "w48.train.b32")
-    assert cell.config["widths"] == [48, 96, 192, 384]
+                               "workloads": ["w18.train.b16"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert spec.problems(spec.load_benchmark()) == []
+    cell = spec.cell(spec.load_benchmark(), "w18.train.b16")
+    assert cell.config["widths"] == [18, 36, 72, 144]
+    assert cell.mix["batch"] == 16
     assert [m["name"] for m in cell.per_layer][-1] == "steps.train"
 
     class Done:
         attempted = 7
     assert spec.reader("steps.train").read(Done()) == 7.0
+
+    for check in ("test_forward_flops_frozen_from_the_reference",
+                  "test_forward_flops_counted_on_the_program",
+                  "test_reference_names_match_the_program"):
+        getattr(yardstick_checks, check)("hrnet_w18_128")
