@@ -117,17 +117,40 @@ def pool(batch: int, size: int, aug_share: float, s: Seeds,
 def weights(model: nn.Module, seed: int,
             device: torch.device) -> Dict[str, torch.Tensor]:
     """Seeded weights for every entry of ``model``'s state dict (``model``
-    may live on the meta device), made on ``device`` in one draw: each
-    conv and deconv weight, and the final conv's bias, uniform in +-1 /
-    sqrt(fan-in) (torch's default init, which LightHand's reference never
-    replaces); BatchNorm scale 1 and shift 0, running mean 0 and variance
-    1."""
+    may live on the meta device), made on ``device`` in one draw, each
+    drawn entry uniform in +-``bound`` (torch's default init, which
+    LightHand's reference never replaces):
+
+    - a conv or deconv weight (rank 4): bound 1 / sqrt(fan-in), fan-in
+      ``shape[1] * kh * kw``;
+    - a linear weight (rank 2, ``.weight``): bound 1 / sqrt(``shape[1]``);
+    - the ``.bias`` beside a drawn ``.weight``: that weight's bound;
+    - an entry that ``model.FREE_STD`` names with its standard deviation
+      (a position embedding, a class token): the uniform of that standard
+      deviation, bound std * sqrt(3).
+
+    Every other entry is constant: a rank-1 ``.weight`` (BatchNorm's and
+    LayerNorm's scale) and BatchNorm's running variance 1; shifts,
+    running means and counters 0. An entry of rank 2 or more that no rule
+    covers raises ValueError, as does a ``FREE_STD`` name that is not in
+    the state dict."""
     state = model.state_dict()
+    free = getattr(model, "FREE_STD", {})
+    unknown = sorted(set(free) - set(state))
+    if unknown:
+        raise ValueError(f"FREE_STD names entries the model lacks: {unknown}")
     drawn = {}
     for name, t in state.items():
-        if t.ndim == 4:  # conv [out, in, kh, kw], deconv [in, out, kh, kw]
+        if name in free:
+            drawn[name] = free[name] * math.sqrt(3.0)
+        elif t.ndim == 4:  # conv [out, in, kh, kw], deconv [in, out, kh, kw]
             drawn[name] = 1.0 / math.sqrt(t.shape[1] * t.shape[2]
                                           * t.shape[3])
+        elif t.ndim == 2 and name.endswith(".weight"):  # linear [out, in]
+            drawn[name] = 1.0 / math.sqrt(t.shape[1])
+        elif t.ndim >= 2:
+            raise ValueError(f"no rule draws {name} {tuple(t.shape)}: name "
+                             f"it in the model's FREE_STD")
     for name, t in state.items():
         base = name.rsplit(".", 1)[0]
         if name.endswith(".bias") and f"{base}.weight" in drawn:
@@ -144,7 +167,7 @@ def weights(model: nn.Module, seed: int,
             at += n
         elif name.endswith(("running_var", ".weight")):
             out[name] = torch.ones(t.shape, dtype=t.dtype, device=device)
-        else:  # BN shift, running mean, num_batches_tracked
+        else:  # shifts, running means, num_batches_tracked
             out[name] = torch.zeros(t.shape, dtype=t.dtype, device=device)
     return out
 

@@ -5,10 +5,12 @@ of the checkout, and under ``benchmark/``
 - ``traffic/<mix>.json``: a traffic mix's parameters, whose ``kind`` names
   the general driver ``traffic/<kind>.py``;
 - ``workloads/<cell>.json``: a cell's correctness limits;
-- ``metrics/<metric>.py``: a per-layer metric's reader, ``read(run)``.
+- ``metrics/<metric>.py``: a per-layer metric's reader, ``read(run)``;
+- ``reference/<architecture>.py``: the plain reference of an architecture
+  that ``reference/models.py`` does not hold, ``build(config, quant)``.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files and entries; nothing here lists them.
+A later change adds a configuration, a mix, a cell, a metric or an
+architecture by adding files and entries; nothing here lists them.
 """
 
 from __future__ import annotations
@@ -86,6 +88,16 @@ def reader(metric: str) -> ModuleType:
     return _module(BENCH_DIR / "metrics" / f"{metric}.py", "lhbench_metric_")
 
 
+def architecture(name: str) -> ModuleType:
+    """The reference of an architecture, ``reference/<name>.py``; raises
+    FileNotFoundError naming the file where there is none."""
+    path = BENCH_DIR / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference for the architecture "
+                                f"{name!r}: {path} does not exist")
+    return _module(path, "lhbench_arch_")
+
+
 def problems(bench: dict) -> List[str]:
     """What in ``bench`` and the files it names breaks the benchmark's
     rules of names, units, references and files (empty when none)."""
@@ -108,9 +120,18 @@ def problems(bench: dict) -> List[str]:
     files = [c["file"] for c in configs.values()]
     if len(set(files)) != len(files):
         out.append("two configurations share a file")
+    from reference import models
+
     for c in configs.values():
         if not (ROOT / c["file"]).is_file():
             out.append(f"config {c['name']}: no file {c['file']}")
+        else:
+            arch = read_json(ROOT / c["file"]).get("architecture", "")
+            if arch not in models.ARCHITECTURES and not (
+                    NAME.fullmatch(arch)
+                    and (BENCH_DIR / "reference" / f"{arch}.py").is_file()):
+                out.append(f"config {c['name']}: no reference for its "
+                           f"architecture {arch!r}")
         for key in c.get("reduced", []):
             if not NAME.fullmatch(key):
                 out.append(f"config {c['name']}: bad reduced key {key!r}")

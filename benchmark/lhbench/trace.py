@@ -5,7 +5,9 @@ host ranges, and the share of launches that a kernel event answers.
 
 ``FAMILIES``, ``family``, ``collapse`` and the answered-launch rule are
 copied from ``tools/profile_step_torch.py``, frozen here so that a later
-change to the program cannot move them.
+change to the program cannot move them. The "attention" and "layer norm"
+families are the benchmark's own, ahead of "conv / gemm", which would
+otherwise take flash attention's ``cutlass::`` templates and cuDNN's SDPA.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ FAMILIES = (
                      r"|raster_"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|welford"),
     ("optimizer", r"multi_tensor|adam"),
+    ("attention", r"flash_fwd|flash_bwd|fmha|sdpa|attention"),
+    ("layer norm", r"layer_norm|layernorm|gammabetabackward"),
     ("conv / gemm (cuDNN, cuBLAS)", r"conv(?!ert)|dgrad|wgrad|fprop|gemm"
                                     r"|xmma|cutlass|cudnn|cublas|winograd"),
     ("elementwise / cast / copy", r"elementwise|copy|cast|fill"),

@@ -18,6 +18,22 @@ not the deconvs and not the final conv) on fake-quantized operands:
 per-output-channel symmetric weights, per-tensor symmetric activations
 clipped at ``act_clip``. It is the control of a cell whose stated
 precision is int8.
+
+Any other architecture is a file of its own, ``reference/<architecture>.py``,
+found by the configuration's ``architecture`` (``lhbench.spec.architecture``)
+and added without an edit here. Its ``build(cfg, quant)`` returns the plain
+f32 model, whose state-dict names are the program's; it may refuse a
+``quant`` other than None, since the int8 policy covers backbone convs
+only. Such a model may compute each block under ``torch.utils.checkpoint``:
+the same arithmetic, recomputed in the backward, with less memory, so that
+a large model's f32 reference fits on the card beside the program's state.
+A parameter that is neither a conv's, a deconv's nor a linear layer's
+weight (a position embedding, a class token) is named with its standard
+deviation in the model's ``FREE_STD`` dict, from which
+``lhbench.inputs.weights`` draws it.
+
+``forward_flops`` counts the FLOPs of one image's forward through any of
+these models.
 """
 
 from __future__ import annotations
@@ -27,6 +43,8 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.utils.flop_counter import FlopCounterMode
 
 BN_EPS = 1e-5
 
@@ -283,36 +301,26 @@ def build(cfg: dict, quant_bits: int | None = None,
           act_clip: float = 8.0) -> nn.Module:
     """The reference model of a configuration dict (its ``architecture``
     and sizes), f32, on the CPU; ``quant_bits`` fake-quantizes the
-    backbone convs."""
+    backbone convs. An architecture not held here is built by its own
+    file, ``reference/<architecture>.py``."""
     quant = None if quant_bits is None else (quant_bits, act_clip)
-    return ARCHITECTURES[cfg["architecture"]](cfg, quant)
+    arch = cfg["architecture"]
+    if arch in ARCHITECTURES:
+        return ARCHITECTURES[arch](cfg, quant)
+    from lhbench import spec
+
+    return spec.architecture(arch).build(cfg, quant)
 
 
-def forward_macs(model: nn.Module, image_size: int) -> int:
-    """Multiply-accumulates of one image's forward through every conv and
-    deconv, from the layers' shapes (a forward on the meta device with
-    hooks; nothing is computed)."""
-    total = [0]
-
-    def hook(m, inp, out):
-        x = inp[0]
-        if isinstance(m, nn.ConvTranspose2d):
-            # each input pixel meets the whole kernel for every output
-            total[0] += (x.shape[1] * x.shape[2] * x.shape[3]
-                         * m.out_channels * m.kernel_size[0]
-                         * m.kernel_size[1])
-        else:
-            total[0] += (out.shape[1] * out.shape[2] * out.shape[3]
-                         * m.in_channels // m.groups * m.kernel_size[0]
-                         * m.kernel_size[1])
-
-    meta = model.to("meta")
-    handles = [m.register_forward_hook(hook) for m in meta.modules()
-               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
-    try:
-        with torch.no_grad():
-            meta(torch.empty(1, 3, image_size, image_size, device="meta"))
-    finally:
-        for h in handles:
-            h.remove()
-    return total[0]
+def forward_flops(model: nn.Module, image_size: int) -> int:
+    """FLOPs of one image's forward on ``model``'s own device (on the meta
+    device nothing is computed), 2 a multiply-accumulate of every conv,
+    deconv, linear layer and attention product, as torch's
+    ``FlopCounterMode`` counts them from the shapes. Attention takes SDPA's
+    math path, whose two products the counter sees on every device (the
+    CPU's fused SDPA counts none)."""
+    device = next(model.parameters()).device
+    with (torch.no_grad(), sdpa_kernel(SDPBackend.MATH),
+          FlopCounterMode(display=False) as counter):
+        model(torch.zeros(1, 3, image_size, image_size, device=device))
+    return counter.get_total_flops()

@@ -1,5 +1,6 @@
 """Shared set-up of the benchmark's tests: the harness and the checkout on
-``sys.path``, the ``card`` marker, and tiny cells for the CPU.
+``sys.path``, the ``card`` marker, and tiny cells for the CPU, each on its
+architecture's tiny configuration, ``tiny/<architecture>.json``.
 
 Tests marked ``card`` need an NVIDIA GPU; the ``card`` fixture skips them
 elsewhere, deciding when the test runs, never at import. Run them on the
@@ -19,21 +20,6 @@ for path in (str(BENCH.parent), str(BENCH)):
         sys.path.insert(0, path)
 
 from lhbench import spec  # noqa: E402
-
-TINY_CONFIGS = {
-    "hrnet": {"model": "hrnet_tiny", "architecture": "hrnet",
-              "widths": [8, 16, 32, 64], "stage_modules": [1, 1, 1],
-              "blocks_per_branch": 1, "block": "BASIC", "fuse_method": "SUM",
-              "stem_width": 64, "layer1_blocks": 4, "final_conv_kernel": 1,
-              "num_joints": 21, "image_size": 64, "heatmap_size": 16,
-              "sigma": 2.0, "forward_flops": 1},
-    "simplebaseline": {"model": "resnet18", "architecture": "simplebaseline",
-                       "num_layers": 18, "deconv_filters": [256, 256, 256],
-                       "deconv_kernel": 4, "final_conv_kernel": 1,
-                       "num_joints": 21, "image_size": 64,
-                       "heatmap_size": 16, "sigma": 2.0,
-                       "forward_flops": 1},
-}
 
 
 def pytest_configure(config):
@@ -61,6 +47,7 @@ def tiny_cell(name: str, precision: str | None = None, batch: int = 4):
         mix["scan_steps"] = 2
     if precision is not None:
         mix["precision"] = precision
-    cell.config = dict(TINY_CONFIGS[cell.config["architecture"]])
+    cell.config = spec.read_json(spec.BENCH_DIR / "tests" / "tiny" / (
+        cell.config["architecture"] + ".json"))
     cell.mix = mix
     return cell

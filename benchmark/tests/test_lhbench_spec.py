@@ -9,7 +9,7 @@ import shutil
 import pytest
 import torch
 
-from lhbench import spec
+from lhbench import spec, yardstick
 
 
 def test_every_file_is_found_and_valid():
@@ -68,6 +68,25 @@ def test_a_problem_is_reported():
     assert any("no limits file" in p for p in found)
 
 
+# the benchmark's folders that a new configuration, cell, metric or
+# architecture adds files to
+DATA = ("configs", "traffic", "workloads", "metrics", "reference",
+        "tests/tiny")
+REHEARSAL = spec.BENCH_DIR / "tests" / "rehearsal"
+
+
+def _copy(tmp_path, monkeypatch):
+    """A copy of the benchmark's data folders under ``tmp_path``, which
+    ``spec`` then reads in place of the checkout's."""
+    bench_dir = tmp_path / "benchmark"
+    for sub in DATA:
+        shutil.copytree(spec.BENCH_DIR / sub, bench_dir / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(spec, "BENCH_DIR", bench_dir)
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    return bench_dir
+
+
 def test_new_files_add_a_config_cell_and_metric(tmp_path, monkeypatch):
     """A later change adds a configuration, a traffic mix, a cell and a
     per-layer metric as new files and entries; no file of the harness
@@ -77,18 +96,14 @@ def test_new_files_add_a_config_cell_and_metric(tmp_path, monkeypatch):
     from reference import models
 
     bench = spec.load_benchmark()
-    bench_dir = tmp_path / "benchmark"
-    for sub in ("configs", "traffic", "workloads", "metrics"):
-        shutil.copytree(spec.BENCH_DIR / sub, bench_dir / sub)
-    monkeypatch.setattr(spec, "BENCH_DIR", bench_dir)
-    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    bench_dir = _copy(tmp_path, monkeypatch)
 
     w18 = dict(spec.read_json(bench_dir / "configs" / "hrnet_w48_256.json"),
                model="hrnet_w18", widths=[18, 36, 72, 144], image_size=128,
                heatmap_size=32)
     with torch.device("meta"):
         ref = models.build(w18)
-    w18["forward_flops"] = 2 * models.forward_macs(ref, w18["image_size"])
+    w18["forward_flops"] = models.forward_flops(ref, w18["image_size"])
     w18["parameters"] = sum(p.numel() for p in ref.parameters())
     (bench_dir / "configs" / "hrnet_w18_128.json").write_text(json.dumps(w18))
     (bench_dir / "traffic" / "train_b16_k2.json").write_text(json.dumps(
@@ -128,3 +143,98 @@ def test_new_files_add_a_config_cell_and_metric(tmp_path, monkeypatch):
                   "test_forward_flops_counted_on_the_program",
                   "test_reference_names_match_the_program"):
         getattr(yardstick_checks, check)("hrnet_w18_128")
+
+
+def test_new_files_add_an_architecture(tmp_path, monkeypatch):
+    """A transformer pose architecture (``tests/rehearsal/``: a patch
+    embedding, a position embedding, two pre-LN blocks with scaled
+    dot-product attention, two deconvs with BatchNorm and a 1x1 conv) is
+    added as new files alone: its reference, a configuration, its tiny
+    configuration, a traffic mix, a cell's limits and a metric reading the
+    "attention" family. ``spec`` takes them, ``build`` finds the
+    reference by the architecture's name, ``weights`` draws every linear
+    weight and the position embedding, and the FLOP count is the hand
+    formula's. The program has no such model, so the rehearsal stops
+    short of a run."""
+    import conftest
+    import test_lhbench_yardstick as yardstick_checks
+    from lhbench import inputs, trace
+    from reference import models
+
+    added = sorted(p.relative_to(REHEARSAL) for p in REHEARSAL.rglob("*")
+                   if p.is_file() and "__pycache__" not in p.parts)
+    assert added and not any((spec.BENCH_DIR / p).exists() for p in added)
+    bench = spec.load_benchmark()
+    bench_dir = _copy(tmp_path, monkeypatch)
+    shutil.copytree(REHEARSAL, bench_dir, dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    bench["configs"].append({"name": "rehearsal_vit_128", "source": "x",
+                             "file": "benchmark/configs/"
+                                     "rehearsal_vit_128.json",
+                             "reduced": [], "why": "a transformer"})
+    bench["workloads"].append({"name": "vit.train.b8",
+                               "config": "rehearsal_vit_128",
+                               "traffic": "train_b8_k2", "chips": 1,
+                               "why": "attention and layer norm"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "train_img_s":
+            m["workloads"].append("vit.train.b8")
+    bench["per_layer"].append({
+        "name": "attention_roofline.train", "unit": "%", "better": "higher",
+        "source": "device_trace", "layer": "Model", "moves": "train_img_s",
+        "workloads": ["vit.train.b8"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert spec.problems(spec.load_benchmark()) == []
+    cell = conftest.tiny_cell("vit.train.b8")
+    assert (cell.config["architecture"], cell.config["image_size"]) == \
+        ("rehearsal_vit", 64)  # its tiny configuration
+    cfg = spec.cell(spec.load_benchmark(), "vit.train.b8").config
+    yardstick_checks.test_forward_flops_frozen_from_the_reference(
+        "rehearsal_vit_128")
+
+    with torch.device("meta"):
+        ref = models.build(cfg)
+    assert type(ref).__module__.startswith("lhbench_arch_")
+    with pytest.raises(ValueError):
+        models.build(cfg, quant_bits=8)
+    side, dim, hidden = 8, cfg["embed_dim"], 4 * cfg["embed_dim"]
+    tokens, feat, joints = side * side, 32, 21
+    block = 2 * tokens * dim * (3 * dim + dim + 2 * hidden) \
+        + 4 * tokens * tokens * dim  # linears, then Q K^T and P V
+    hand = (2 * tokens * dim * 3 * 16 * 16 + 2 * block
+            + 2 * dim * tokens * feat * 16 + 2 * feat * 4 * tokens * feat * 16
+            + 2 * 16 * tokens * feat * joints)
+    assert models.forward_flops(ref, cfg["image_size"]) == hand
+    # counted on the CPU too, as the program's model is: the CPU's fused
+    # SDPA counts no FLOPs, its math path counts both products
+    assert models.forward_flops(models.build(cfg), cfg["image_size"]) == hand
+
+    values = inputs.weights(ref, 2**31 + 1, torch.device("cpu"))
+    drawn = [n for n, t in values.items()
+             if t.ndim >= 2 or n.endswith("proj.bias")]
+    assert "pos_embed" in drawn and sum(".fc1.weight" in n for n in drawn) == 2
+    for name in drawn:
+        t = values[name]
+        assert t.abs().min() < 0.5 * t.abs().max()  # neither ones nor zeros
+    assert values["pos_embed"].std().item() == pytest.approx(0.02, rel=0.1)
+    ref.FREE_STD = {}
+    with pytest.raises(ValueError, match="pos_embed"):
+        inputs.weights(ref, 2**31 + 1, torch.device("cpu"))
+
+    class Run:
+        cell = spec.cell(spec.load_benchmark(), "vit.train.b8")
+        device = torch.device("cpu")
+        summary = trace.read([], 0.0, 2)
+    read = spec.reader("attention_roofline.train").read
+    assert read(Run) is None  # nothing ran in the family: left out
+    Run.summary.families["attention"] = 2e-3
+    least = 2 * sum(yardstick.tensor_bound_s(*yardstick.attention_work(
+        8, 4, tokens, 16, b), "") for b in (False, True))
+    assert read(Run) == pytest.approx(100 * least / 1e-3)
+
+    (bench_dir / "reference" / "rehearsal_vit.py").unlink()
+    assert any("no reference for its architecture" in p
+               for p in spec.problems(spec.load_benchmark()))
+    with pytest.raises(FileNotFoundError, match="rehearsal_vit.py"):
+        models.build(cfg)

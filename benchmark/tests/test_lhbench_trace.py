@@ -5,6 +5,8 @@ kernel families, host ranges, answered launches, from synthetic events
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import pytest
 
@@ -91,3 +93,75 @@ def test_readers_of_a_window():
     assert out["device_ops"][0][0] == "batch norm"
     assert len(out["idle_gaps"]) <= 10
     assert any("below 0.95" in n for n in trace.notes(Run.summary))
+
+
+# kernels of attention and of LayerNorm as the profiler names them: torch's
+# flash attention (cutlass templates), its memory-efficient kernels, cuDNN's
+# SDPA, and LayerNorm's forward and backward
+NEW_FAMILIES = [
+    ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 64, "
+     "64, 4, false, false, cutlass::bfloat16_t, Flash_kernel_traits<128, 64,"
+     " 64, 4, cutlass::bfloat16_t> >, false, false, false, false, true, "
+     "true, false, false>(pytorch_flash::Flash_fwd_params)", "attention"),
+    ("void pytorch_flash::flash_bwd_dq_dk_dv_loop_seqk_parallel_kernel<"
+     "Flash_bwd_kernel_traits<128, 64, 128, 8, 2, 4, 2, false, false, "
+     "cutlass::bfloat16_t, Flash_kernel_traits<128, 64, 128, 8, "
+     "cutlass::bfloat16_t> >, false, false, false, false, false, true, "
+     "false, false>(pytorch_flash::Flash_bwd_params)", "attention"),
+    ("void pytorch_flash::flash_bwd_dot_do_o_kernel<true, "
+     "Flash_bwd_kernel_traits<128, 64, 128, 8, 2, 4, 2, false, false, "
+     "cutlass::bfloat16_t> >(pytorch_flash::Flash_bwd_params)", "attention"),
+    ("void pytorch_flash::flash_bwd_convert_dq_kernel<Flash_bwd_kernel_traits"
+     "<128, 64, 128, 8, 2, 4, 2, false, false, cutlass::bfloat16_t> >("
+     "pytorch_flash::Flash_bwd_params, int)", "attention"),
+    ("fmha_cutlassF_bf16_aligned_64x64_rf_sm80(PyTorchMemEffAttention::"
+     "AttentionKernel<cutlass::bfloat16_t, cutlass::arch::Sm80, true, 64, "
+     "64, 64, true, true>::Params)", "attention"),
+    ("fmha_cutlassB_bf16_aligned_64x64_k96_sm80(PyTorchMemEffAttention::"
+     "AttentionBackwardKernel<cutlass::arch::Sm80, cutlass::bfloat16_t, "
+     "true, false, true, 64, 64, 96, false>::Params)", "attention"),
+    ("cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_3_"
+     "64x64x128_4x1x1_kernel0_0", "attention"),
+    ("cudnn_generated_fort_native_sdpa_sm90_flash_bprop_wgmma_f16_knob_3_"
+     "64x64x128_4x1x1_kernel0_0", "attention"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<"
+     "c10::BFloat16, float>(int, float, c10::BFloat16 const*, c10::BFloat16 "
+     "const*, c10::BFloat16 const*, float*, float*, c10::BFloat16*)",
+     "layer norm"),
+    ("void at::native::(anonymous namespace)::LayerNormForwardCUDAKernel<"
+     "float, float>(long, float const*, float const*, float const*, float "
+     "const*, float const*, float*)", "layer norm"),
+    ("void at::native::(anonymous namespace)::"
+     "layer_norm_grad_input_kernel_vectorized<c10::BFloat16, float>("
+     "c10::BFloat16 const*, c10::BFloat16 const*, float const*, float "
+     "const*, c10::BFloat16 const*, c10::BFloat16*, int)", "layer norm"),
+    ("void at::native::(anonymous namespace)::"
+     "GammaBetaBackwardCUDAKernelTemplate<c10::BFloat16, float, 32u, 32u, "
+     "32u, false>(long, long, c10::BFloat16 const*, c10::BFloat16 const*, "
+     "float const*, float const*, c10::BFloat16*, c10::BFloat16*)",
+     "layer norm"),
+]
+
+
+@pytest.mark.parametrize("name,family", NEW_FAMILIES,
+                         ids=[f"{f}-{i}" for i, (_, f) in
+                              enumerate(NEW_FAMILIES)])
+def test_attention_and_layer_norm_families(name, family):
+    assert trace.family(trace.collapse(name)) == family
+
+
+def test_todays_kernels_keep_their_families():
+    """Every kernel the five cells launched on the card keeps the family
+    it had before "attention" and "layer norm" were added, and none falls
+    in either (``kernel_families.json``)."""
+    path = Path(__file__).with_name("kernel_families.json")
+    families = json.loads(path.read_text())["families"]
+    assert len(families) > 200
+    moved = {n: (f, trace.family(n)) for n, f in families.items()
+             if trace.family(n) != f}
+    assert moved == {}
+    assert not {"attention", "layer norm"} & set(families.values())
+    for pattern in ("lh_bn_", "dgrad", "wgrad", "multi_tensor_apply_kernel",
+                    "fused_aug", "heatmap_targets", "int8_conv",
+                    "quantize_weights", "elementwise_kernel", "copy"):
+        assert any(pattern in n for n in families), pattern

@@ -1,7 +1,8 @@
 """The frozen yardstick: each configuration's FLOPs and parameters from
 the reference's shapes, counted again on the program's model, the
-reference's names against the program's, and the K1/K2 work and peaks
-copied from the chip smoke test.
+reference's names against the program's, the K1/K2 work and peaks
+copied from the chip smoke test, and attention's work and the
+tensor-core bound.
 
 Every check of a configuration reads only its file, so a configuration
 added as files alone is checked as the others are."""
@@ -41,40 +42,12 @@ def program_model(cfg: dict) -> nn.Module:
     return model.eval()
 
 
-def program_macs(model: nn.Module, image_size: int) -> int:
-    """``models.forward_macs``'s count on the program's model: each conv's
-    and deconv's multiply-accumulates from its shapes, by hooks on one
-    image's forward on the CPU."""
-    total = [0]
-
-    def hook(m, inp, out):
-        if isinstance(m, nn.ConvTranspose2d):
-            x = inp[0]
-            total[0] += (x.shape[1] * x.shape[2] * x.shape[3]
-                         * m.out_channels * m.kernel_size[0]
-                         * m.kernel_size[1])
-        else:
-            total[0] += (out.shape[1] * out.shape[2] * out.shape[3]
-                         * m.in_channels // m.groups * m.kernel_size[0]
-                         * m.kernel_size[1])
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
-    try:
-        with torch.no_grad():
-            model(torch.zeros(1, 3, image_size, image_size))
-    finally:
-        for h in handles:
-            h.remove()
-    return total[0]
-
-
 @pytest.mark.parametrize("name", CONFIGS)
 def test_forward_flops_frozen_from_the_reference(name):
     cfg = _config(name)
     with torch.device("meta"):
         model = models.build(cfg)
-    flops = 2 * models.forward_macs(model, cfg["image_size"])
+    flops = models.forward_flops(model, cfg["image_size"])
     assert flops == cfg["forward_flops"]
     assert sum(p.numel() for p in model.parameters()) == cfg["parameters"]
     assert yardstick.train_flops(flops) == 3 * flops
@@ -83,10 +56,12 @@ def test_forward_flops_frozen_from_the_reference(name):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_forward_flops_counted_on_the_program(name):
     """The same count on the program's own model, exact: the frozen
-    FLOPs are those of what the cell times."""
+    FLOPs are those of what the cell times (one image's forward on the
+    CPU; attention, where a model has it, on SDPA's math path)."""
     cfg = _config(name)
     model = program_model(cfg)
-    assert 2 * program_macs(model, cfg["image_size"]) == cfg["forward_flops"]
+    assert models.forward_flops(model, cfg["image_size"]) == \
+        cfg["forward_flops"]
     assert sum(p.numel() for p in model.parameters()) == cfg["parameters"]
 
 
@@ -111,3 +86,25 @@ def test_kernel_work_and_bounds():
     assert round(nbytes / 1e6, 1) == 44.1
     assert yardstick.peaks("NVIDIA H100 PCIe")[0] == 2.0e12
     assert yardstick.MFU_PEAK_FLOPS == 989e12
+
+
+def test_attention_work_and_the_tensor_core_bound():
+    """ViTPose-H's attention at bs64: 16 heads of 80 over 256 tokens."""
+    h100 = "NVIDIA H100 80GB HBM3"
+    nbytes, flops = yardstick.attention_work(64, 16, 256, 80, backward=False)
+    assert (nbytes, flops) == (167_772_160, 21_474_836_480)
+    assert yardstick.tensor_bound_s(nbytes, flops, h100) == \
+        pytest.approx(nbytes / 3.35e12)  # bytes bind: ~50 us
+    assert yardstick.tensor_bound_s(nbytes, flops, h100) == \
+        pytest.approx(50.08e-6, rel=1e-3)
+    nbytes, flops = yardstick.attention_work(64, 16, 256, 80, backward=True)
+    lse = 64 * 16 * 256 * 4
+    assert (nbytes - lse, flops) == (335_544_320, 53_687_091_200)
+    assert yardstick.tensor_bound_s(nbytes, flops, h100) == \
+        pytest.approx(nbytes / 3.35e12)
+    # a product of large matrices binds on the tensor cores instead
+    assert yardstick.tensor_bound_s(1e6, 989e12, h100) == pytest.approx(1.0)
+    assert yardstick.tensor_bound_s(1e6, 756e12, "NVIDIA H100 PCIe") == \
+        pytest.approx(1.0)
+    assert yardstick.peaks("NVIDIA H100 NVL")[4] == 835e12
+    assert yardstick.MFU_PEAK_FLOPS == yardstick.peaks(h100)[4]
