@@ -81,6 +81,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    eval batch timed with the BatchNorms through the kernels and through
    that library call (kernels, library, library, kernels); the largest and
    smallest shape of each model make the kernels line's ``batch_norm`` row.
+   The end of a residual block (``residual=``: ``relu(bn(x) + r)`` in the
+   apply stage's one pass) at every residual shape of the five cells
+   (HRNet-W32 bs128, ResNet-50 bs32, HRNet-W48 bs32), bf16 and f32,
+   training and eval: output, dx, dw, db and dr ``torch.equal`` to the
+   chain the blocks ran before (the kernels with ``relu=False``, PyTorch's
+   add and ``relu``, autograd's backward of them), then its device ms
+   beside the chain's, with each form's byte bound, at W32's and
+   ResNet-50's largest residual shape.
    From phase 4 on the three BatchNorm wrappers are counted on every path
    like K1 (``bn_launches``: 3 x the model's BatchNorms a training
    forward and a backward, 1 x an eval forward);
@@ -3505,6 +3513,8 @@ def preprocessor_phase(counters, card: str, dev=None) -> dict:
 # the cells' models and batches: HRNet-W32 at bs128 (w32.train.b128,
 # w32.eval.b128), ResNet-50 at bs32 (r50.train.b32, r50.eval.b32.int8)
 BN_MODELS = (("hrnet_w32", 128), ("resnet50", 32))
+# ... and with w48.train.b32's HRNet-W48 at bs32, the residual shapes
+RESIDUAL_MODELS = BN_MODELS + (("hrnet_w48", 32),)
 N_BN = {"hrnet_w32": 292, "resnet50": 56}  # BatchNorms a forward
 # the BatchNorm wrappers, as the counters of main() name them
 BN_COUNTERS = ("batch_norm_train", "batch_norm_eval", "batch_norm_backward")
@@ -3515,6 +3525,14 @@ BN_STAGE_BYTES = {"lh_bn_fw_partials": 2, "lh_bn_fw_apply": 4,
                   "lh_bn_bw_partials": 4, "lh_bn_bw_apply": 6,
                   "lh_bn_fw_eval": 4, "lh_bn_fw_finalize": 0,
                   "lh_bn_bw_finalize": 0}
+# bytes an element of a residual block's end, training forward + backward
+# and eval, in 2-byte elements. The one pass: x for the statistics; x and r
+# in, o out; dy, x and o for the sums; dy, x and o in, dx and dr out; eval
+# x and r in, o out. The chain: the stages without the ReLU, the add (y and
+# r in, the sum out), the ReLU (the sum in, o out), its backward (dy and o
+# in, dy' out).
+RESIDUAL_BYTES = {"fused": (2 + 6 + 6 + 10, 6),
+                  "chain": (2 + 4 + 6 + 4 + 6 + 4 + 6, 4 + 6 + 4)}
 # The kernels against their twins: |kernel - twin| <= one ulp of the twin's
 # value in the output's type + 2^-16 of the tensor's largest value. The
 # ulp: the output is rounded once, and the f32 value it rounds differs in
@@ -3528,8 +3546,9 @@ BN_FLOOR = 2.0 ** -16
 
 
 def bn_shapes(name: str) -> dict:
-    """{(C, H, W, relu): uses} of the BatchNorms of one forward of ``name``
-    at 256x256, read by forward hooks on a batch of one."""
+    """{(C, H, W, relu, residual): uses} of the BatchNorms of one forward
+    of ``name`` at 256x256, read by forward hooks on a batch of one
+    (``residual``: the call ends a residual block)."""
     import torch
 
     from lighthand_tpu_torch.models import get_model
@@ -3538,13 +3557,13 @@ def bn_shapes(name: str) -> dict:
     model = get_model(name).cuda().eval()
     uses = {}
 
-    def hook(module, inputs, output):
+    def hook(module, inputs, kwargs, output):
         _, c, h, w = inputs[0].shape
-        key = (c, h, w, module.relu)
+        key = (c, h, w, module.relu, kwargs.get("residual") is not None)
         uses[key] = uses.get(key, 0) + 1
 
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, BatchNorm2d)]
+    handles = [m.register_forward_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, BatchNorm2d)]
     with torch.no_grad():
         model(torch.zeros(1, 3, SIZE, SIZE, device="cuda"))
     for h in handles:
@@ -3639,6 +3658,147 @@ def bn_check(n, c, h, w, dtype, relu: bool, seed: int) -> dict:
                                 bn_rel(got[2], want[2]))
     torch.cuda.synchronize()
     return out
+
+
+def bn_residual_check(n, c, h, w, dtype, seed: int) -> dict:
+    """A residual block's end at one shape, training and eval: the kernels'
+    one pass (``residual=``, and the backward given its output) against
+    the chain the blocks ran before it: the kernels with ``relu=False``,
+    PyTorch's add and ``relu``, autograd's backward of those two (the
+    threshold on the output), then the kernels' backward without the
+    ReLU. The residual cancels the BN's output at a third of the elements
+    (sums tied at 0) and is -0 at a sixth. {check: torch.equal}: output,
+    dx, dw, db, dr; in training also the batch and running statistics."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+
+    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, dtype, seed)
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randn(n, c, h, w, generator=g).to(dtype).cuda()
+    pick = torch.randint(0, 6, (n, c, h, w), generator=g).cuda()
+    out = {}
+    for training in (True, False):
+        tag = "train" if training else "eval"
+        rm1, rv1, rm2, rv2 = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+        nb1 = torch.zeros((), dtype=torch.long, device="cuda")
+        nb2 = nb1.clone()
+        if training:
+            y, t0, t1 = bn.batch_norm_train_cuda(x, wt, b, rm2, rv2, nb2, 0.1,
+                                                 1e-5, False)
+        else:
+            y = bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False)
+            t0, t1 = rm, rv
+        r = torch.where(pick < 2, -y, noise)
+        r = torch.where(pick == 2, torch.full_like(r, -0.0), r)
+        r = r.contiguous(memory_format=torch.channels_last)
+        if training:
+            o, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm1, rv1, nb1, 0.1,
+                                                 1e-5, False, r)
+            out["stats_train"] = all(torch.equal(p, q) for p, q in (
+                (s0, t0), (s1, t1), (rm1, rm2), (rv1, rv2), (nb1, nb2)))
+        else:
+            o = bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False, r)
+            s0, s1 = rm, rv
+        with torch.enable_grad():
+            yg, rg = (t.detach().requires_grad_() for t in (y, r))
+            chain = torch.relu(yg + rg)
+            dyp, dr = torch.autograd.grad(chain, (yg, rg), dy)
+        want = bn.batch_norm_backward_cuda(dyp, x, wt, b, t0, t1, training,
+                                           1e-5, False) + (dr,)
+        got = bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, training,
+                                          1e-5, False, out=o)
+        out[f"y_{tag}"] = torch.equal(o, chain)
+        for name, p, q in zip(("dx", "dw", "db", "dr"), got, want):
+            out[f"{name}_{tag}"] = torch.equal(p, q)
+    torch.cuda.synchronize()
+    return out
+
+
+def bn_residual_times(n, c, h, w, kind: str) -> dict:
+    """Device ms (CUDA graph replays between events) of a residual block's
+    end, bf16: its training forward + backward and its eval forward, in
+    the kernels' one pass and in the chain it replaced (the kernels with
+    ``relu=False``, the add, ``relu``, ``threshold_backward``), each beside
+    its byte bound (``RESIDUAL_BYTES``)."""
+    import torch
+
+    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
+
+    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, torch.bfloat16, 12)
+    r, _, _, _, _, _ = bn_inputs(n, c, h, w, torch.bfloat16, 13)
+    nb = torch.zeros((), dtype=torch.long, device="cuda")
+
+    def fused_train():
+        o, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
+                                             False, r)
+        bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, True, 1e-5, False,
+                                    out=o)
+
+    def chain_train():
+        y, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
+                                             False)
+        o = torch.relu(y + r)
+        dyp = torch.ops.aten.threshold_backward(dy, o, 0)
+        bn.batch_norm_backward_cuda(dyp, x, wt, b, s0, s1, True, 1e-5, False)
+
+    def fused_eval():
+        bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False, r)
+
+    def chain_eval():
+        torch.relu(bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False) + r)
+
+    el = n * c * h * w
+    row = {"shape": (n, c, h, w), "elements": el}
+    for form, train, evaluate in (("fused", fused_train, fused_eval),
+                                  ("chain", chain_train, chain_eval)):
+        for mode, fn, nbytes in zip(("train", "eval"), (train, evaluate),
+                                    RESIDUAL_BYTES[form]):
+            row[f"{form}_{mode}_device_ms"] = device_ms(fn, capture(fn))[0]
+            row[f"{form}_{mode}_bound_ms"] = (nbytes * el / peaks(kind)[0]
+                                              * 1e3)
+    return row
+
+
+def bn_residual_phase(kind: str) -> dict:
+    """The residual block's end in phase 2d: ``bn_residual_check`` at every
+    residual shape of ``RESIDUAL_MODELS`` (bf16 and f32), then
+    ``bn_residual_times`` at HRNet-W32's and ResNet-50's largest."""
+    import torch
+
+    by_model = {}
+    for name, batch in RESIDUAL_MODELS:
+        ends = {(batch, c, h, w): k for (c, h, w, relu, res), k
+                in bn_shapes(name).items() if res}
+        print(f"[bn residual] {name}: {sum(ends.values())} block ends at "
+              f"{sorted(ends)}")
+        by_model[name] = set(ends)
+    shapes = set().union(*by_model.values())
+    for i, (n, c, h, w) in enumerate(sorted(shapes)):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = bn_residual_check(n, c, h, w, dtype, seed=300 + i)
+            if not all(got.values()):
+                fail(f"a residual block's end differs from the chain at "
+                     f"{(n, c, h, w)} {dtype}: {got}")
+    print(f"[bn residual] one pass == the chain (torch.equal: output, dx, "
+          f"dw, db, dr, statistics) at {len(shapes)} shapes, bf16 and f32, "
+          f"training and eval")
+    rows = {}
+    for name, _ in BN_MODELS:
+        n, c, h, w = max(by_model[name],
+                         key=lambda s: s[0] * s[1] * s[2] * s[3])
+        t = bn_residual_times(n, c, h, w, kind)
+        rows[name] = t
+        print(f"[bn residual time] {name} {t['shape']}: train fw + bw "
+              f"device ms one pass {t['fused_train_device_ms']:.4f} (bound "
+              f"{t['fused_train_bound_ms']:.4f}), chain "
+              f"{t['chain_train_device_ms']:.4f} (bound "
+              f"{t['chain_train_bound_ms']:.4f}); eval one pass "
+              f"{t['fused_eval_device_ms']:.4f} (bound "
+              f"{t['fused_eval_bound_ms']:.4f}), chain "
+              f"{t['chain_eval_device_ms']:.4f} (bound "
+              f"{t['chain_eval_bound_ms']:.4f})")
+    return {"shapes": len(shapes), "largest": rows}
 
 
 def bn_stage_ms(fn, calls: int = 10) -> dict:
@@ -3881,10 +4041,11 @@ def bn_routes_phase() -> dict:
     from lighthand_tpu_torch.ops.kernels import batch_norm as bn
 
     def library(x, weight, bias, running_mean, running_var,
-                num_batches_tracked, training, momentum, eps, relu=False):
+                num_batches_tracked, training, momentum, eps, relu=False,
+                residual=None):
         y = F.batch_norm(x, running_mean, running_var, weight, bias,
                          training, momentum, eps)
-        return F.relu(y) if relu else y
+        return bn.activate(y, relu, residual)
 
     b = B_KERNEL
     rng = np.random.default_rng(20)
@@ -3922,7 +4083,7 @@ def batch_norm_phase(kind: str) -> dict:
         uses = bn_shapes(name)
         print(f"[bn] {name}: {sum(uses.values())} BatchNorms, "
               f"{len(uses)} distinct (C, H, W, relu)")
-        for (c, h, w, relu), k in uses.items():
+        for (c, h, w, relu, _), k in uses.items():
             shapes.setdefault((name, batch, c, h, w), []).append((relu, k))
     cases = [(batch, c, h, w) for (_, batch, c, h, w) in shapes]
     cases += [(8, 4, 9, 7), (4, 12, 10, 10), (4, 100, 8, 8), (3, 256, 1, 1)]
@@ -4005,11 +4166,12 @@ def batch_norm_phase(kind: str) -> dict:
                       key=lambda r: r["elements"])
         table[name] = {"smallest": mine[0], "largest": mine[-1],
                        "microbatch_ms": per_model[name]}
+    residual = bn_residual_phase(kind)
     replay = bn_path_phase()
     return {"launches_by_path": {"w32_bs128_microbatch": sum(
         replay[f"{k}_cuda"] for k in BN_COUNTERS)},
             "w32_bs128_ms_by_route": bn_routes_phase(),
-            "by_model": table}
+            "by_model": table, "residual": residual}
 
 
 # ------------------------------------------------ the measurement entry points

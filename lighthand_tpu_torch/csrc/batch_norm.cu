@@ -1,6 +1,6 @@
-// BatchNorm (+ an optional fused ReLU) of the pose models, in seven kernels
-// over NCHW tensors stored channels_last: x is seen as [rows, C] row-major,
-// rows = N*H*W, one channel a column.
+// BatchNorm (+ an optional fused ReLU, or the end of a residual block) of the
+// pose models, in seven kernels over NCHW tensors stored channels_last: x is
+// seen as [rows, C] row-major, rows = N*H*W, one channel a column.
 //
 //   training forward:  lh_bn_fw_partials, lh_bn_fw_finalize, lh_bn_fw_apply
 //   training backward: lh_bn_bw_partials, lh_bn_bw_finalize, lh_bn_bw_apply
@@ -21,10 +21,10 @@
 // f32 operations an element against ~295 the card could do per byte. The
 // design moves those 16 bytes and no more:
 //   - nothing is staged in device memory but per-channel partials (f32,
-//     [splits, C], a few KB): no f32 copy of x, no saved y (the backward
-//     recomputes the ReLU mask from x and the saved mean and invstd with
-//     the forward's arithmetic, so the mask is the one the forward's output
-//     gives), no separate ReLU pass;
+//     [splits, C], a few KB): no f32 copy of x, no saved y for a fused ReLU
+//     (the backward recomputes its mask from x and the saved mean and
+//     invstd with the forward's arithmetic, so the mask is the one the
+//     forward's output gives), no separate ReLU pass;
 //   - each thread owns 16 bytes of one row (8 bf16 or 4 f32 channels; one
 //     element where C or an address does not allow it) and walks rows, so
 //     loads are 16-byte vectors, neighbouring threads on neighbouring
@@ -40,6 +40,16 @@
 //     cancellation small), threads and splits merge by Chan's parallel
 //     rule (count, mean, M2), and the variance is the biased one, as Flax
 //     keeps it. Outputs are rounded once to the input's type.
+//
+// The end of a residual block, relu(bn(x) + r), is the apply stage with a
+// residual r (a null pointer: none): it reads x and r and writes
+// o = relu(T(T(bn(x)) + r)), the rounding order of the chain BN, add, ReLU in
+// T, so o is that chain's bit for bit; 6 bytes an element in bf16 where the
+// chain moved 14 (y written, then read with r for the sum, which is written
+// and read again by the ReLU). Its backward reads o beside dy and x: the gate
+// dy' = dy * [o > 0] is threshold_backward's, and the apply stage also writes
+// dr = dy', the residual's gradient. The saved o is the next conv's saved
+// input already, so the gate keeps no tensor alive that the chain did not.
 //
 // Every a*b + c below that must repeat exactly between the forward and the
 // backward is written with __fmul_rn / __fadd_rn, so no contraction into an
@@ -111,11 +121,17 @@ __device__ __forceinline__ float affine(float xc, float a, float b) {
 
 __device__ __forceinline__ float relu(float v) { return v <= 0.f ? 0.f : v; }
 
-// the ReLU's gradient gate: the forward's output, rounded to T, is > 0 (a
-// NaN output passes the gradient, as torch's threshold_backward does)
+// the ReLU's gradient gate: the forward's output o, in T, is > 0 (a NaN
+// output passes the gradient, as torch's threshold_backward does)
+__device__ __forceinline__ float gate(float o, float g) {
+  return o <= 0.f ? 0.f : g;
+}
+
+// the gate of the ReLU fused into the BN, from its output recomputed from
+// x and rounded to T
 template <typename T>
-__device__ __forceinline__ float gate(float y, float g) {
-  return to_f(from_f<T>(y)) <= 0.f ? 0.f : g;
+__device__ __forceinline__ float gate_bn(float y, float g) {
+  return gate(to_f(from_f<T>(y)), g);
 }
 
 // a channel's (mean, invstd): the batch's, or from the running statistics
@@ -303,9 +319,47 @@ lh_bn_fw_finalize(const float* __restrict__ part, int splits, long long rows,
   }
 }
 
-// y = act((x - mean) * (invstd * w) + b), rounded once to T
+// The rows of tile t from p to o, U at a time: o = act(affine(x)), rounded
+// once to T; with a residual q (R), o = relu(T(T(affine(x)) + r)).
+template <typename T, int V, int U, bool R>
+__device__ __forceinline__ void apply_rows(const T* __restrict__ p,
+                                           const T* __restrict__ q,
+                                           T* __restrict__ o, const Tile& t,
+                                           int C,
+                                           const float (&mu)[V],
+                                           const float (&a)[V],
+                                           const float (&bb)[V], int act) {
+  const int tr = blockDim.y;
+  for (long long base = t.r0 + threadIdx.y; base < t.r1; base += U * tr) {
+    Raw<T, V> v[U], vr[U];
+    load_rows<T, V, U>(v, p, base, tr, t.r1, C);
+    if constexpr (R) load_rows<T, V, U>(vr, q, base, tr, t.r1, C);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + (long long)u * tr;
+      if (r < t.r1) {
+        Raw<T, V> out;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float z = affine(elem<T, V>(v[u], i) - mu[i], a[i], bb[i]);
+          if constexpr (R)
+            z = relu(__fadd_rn(to_f(from_f<T>(z)), elem<T, V>(vr[u], i)));
+          put<T, V>(out, i, act ? relu(z) : z);
+        }
+        *reinterpret_cast<Raw<T, V>*>(o + r * C) = out;
+      }
+    }
+  }
+}
+
+// y = act((x - mean) * (invstd * w) + b), rounded once to T; with a
+// residual r, y = relu(T(T((x - mean) * (invstd * w) + b) + r)) (act is then
+// 0: the ReLU follows the add). A thread loads kRowsFw rows of x at once, or
+// half as many rows of both x and r: the same 16-byte vectors in flight, so
+// the residual path takes no registers, and no occupancy, from the other.
 template <typename T, int V>
 __device__ __forceinline__ void bn_apply(const T* __restrict__ x,
+                                         const T* __restrict__ res,
                                          T* __restrict__ y, long long rows,
                                          int C, long long chunk, int eval,
                                          const float* __restrict__ s0,
@@ -315,7 +369,6 @@ __device__ __forceinline__ void bn_apply(const T* __restrict__ x,
                                          float eps, int act) {
   const Tile t = tile<V>(rows, chunk);
   if (t.c0 >= C) return;
-  const int tr = blockDim.y;
   float mu[V], a[V], bb[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -324,56 +377,47 @@ __device__ __forceinline__ void bn_apply(const T* __restrict__ x,
     a[i] = __fmul_rn(inv, w[t.c0 + i]);
     bb[i] = b[t.c0 + i];
   }
-  const T* p = x + t.c0;
-  T* o = y + t.c0;
-  for (long long base = t.r0 + threadIdx.y; base < t.r1;
-       base += kRowsFw * tr) {
-    Raw<T, V> v[kRowsFw];
-    load_rows<T, V, kRowsFw>(v, p, base, tr, t.r1, C);
-#pragma unroll
-    for (int u = 0; u < kRowsFw; ++u) {
-      const long long r = base + (long long)u * tr;
-      if (r < t.r1) {
-        Raw<T, V> out;
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float z = affine(elem<T, V>(v[u], i) - mu[i], a[i], bb[i]);
-          put<T, V>(out, i, act ? relu(z) : z);
-        }
-        *reinterpret_cast<Raw<T, V>*>(o + r * C) = out;
-      }
-    }
-  }
+  if (res)
+    apply_rows<T, V, kRowsFw / 2, true>(x + t.c0, res + t.c0, y + t.c0, t, C,
+                                        mu, a, bb, act);
+  else
+    apply_rows<T, V, kRowsFw, false>(x + t.c0, nullptr, y + t.c0, t, C, mu,
+                                     a, bb, act);
 }
 
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
-lh_bn_fw_apply(const T* __restrict__ x, T* __restrict__ y, long long rows,
-               int C, long long chunk, const float* __restrict__ mean,
+lh_bn_fw_apply(const T* __restrict__ x, const T* __restrict__ res,
+               T* __restrict__ y, long long rows, int C, long long chunk,
+               const float* __restrict__ mean,
                const float* __restrict__ invstd, const float* __restrict__ w,
                const float* __restrict__ b, int act) {
-  bn_apply<T, V>(x, y, rows, C, chunk, 0, mean, invstd, w, b, 0.f, act);
+  bn_apply<T, V>(x, res, y, rows, C, chunk, 0, mean, invstd, w, b, 0.f, act);
 }
 
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
-lh_bn_fw_eval(const T* __restrict__ x, T* __restrict__ y, long long rows,
-              int C, long long chunk, const float* __restrict__ running_mean,
+lh_bn_fw_eval(const T* __restrict__ x, const T* __restrict__ res,
+              T* __restrict__ y, long long rows, int C, long long chunk,
+              const float* __restrict__ running_mean,
               const float* __restrict__ running_var,
               const float* __restrict__ w, const float* __restrict__ b,
               float eps, int act) {
-  bn_apply<T, V>(x, y, rows, C, chunk, 1, running_mean, running_var, w, b,
-                 eps, act);
+  bn_apply<T, V>(x, res, y, rows, C, chunk, 1, running_mean, running_var, w,
+                 b, eps, act);
 }
 
 // --------------------------------------------------------------- backward
 
 // partials[0][split][c] = sum of dy' and partials[1][split][c] = sum of
-// dy' * (x - mean) over the split's rows, dy' the gradient through the ReLU
+// dy' * (x - mean) over the split's rows, dy' the gradient through the ReLU:
+// gated by the saved output out where there is one (a residual block's end),
+// else by the fused ReLU's output recomputed from x where act
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
 lh_bn_bw_partials(const T* __restrict__ dy, const T* __restrict__ x,
-                  long long rows, int C, long long chunk, int eval,
+                  const T* __restrict__ out, long long rows, int C,
+                  long long chunk, int eval,
                   const float* __restrict__ s0, const float* __restrict__ s1,
                   const float* __restrict__ w, const float* __restrict__ b,
                   float eps, int act, float* __restrict__ part) {
@@ -394,9 +438,10 @@ lh_bn_bw_partials(const T* __restrict__ dy, const T* __restrict__ x,
       bb[i] = b[t.c0 + i];
     }
     for (long long base = t.r0 + ty; base < t.r1; base += kRowsBw * tr) {
-      Raw<T, V> vx[kRowsBw], vg[kRowsBw];
+      Raw<T, V> vx[kRowsBw], vg[kRowsBw], vo[kRowsBw];
       load_rows<T, V, kRowsBw>(vx, x + t.c0, base, tr, t.r1, C);
       load_rows<T, V, kRowsBw>(vg, dy + t.c0, base, tr, t.r1, C);
+      if (out) load_rows<T, V, kRowsBw>(vo, out + t.c0, base, tr, t.r1, C);
 #pragma unroll
       for (int u = 0; u < kRowsBw; ++u) {
         if (base + (long long)u * tr < t.r1) {
@@ -404,7 +449,10 @@ lh_bn_bw_partials(const T* __restrict__ dy, const T* __restrict__ x,
           for (int i = 0; i < V; ++i) {
             const float xc = elem<T, V>(vx[u], i) - mu[i];
             float g = elem<T, V>(vg[u], i);
-            if (act) g = gate<T>(affine(xc, a[i], bb[i]), g);
+            if (out)
+              g = gate(elem<T, V>(vo[u], i), g);
+            else if (act)
+              g = gate_bn<T>(affine(xc, a[i], bb[i]), g);
             g1[i] += g;
             g2[i] = fmaf(g, xc, g2[i]);
           }
@@ -475,10 +523,12 @@ lh_bn_bw_finalize(const float* __restrict__ part, int splits, long long rows,
   }
 }
 
+// dx from dy' as above; where there is a saved output out, also dres = dy'
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
 lh_bn_bw_apply(const T* __restrict__ dy, const T* __restrict__ x,
-               T* __restrict__ dx, long long rows, int C, long long chunk,
+               const T* __restrict__ out, T* __restrict__ dx,
+               T* __restrict__ dres, long long rows, int C, long long chunk,
                int eval, const float* __restrict__ s0,
                const float* __restrict__ s1, const float* __restrict__ w,
                const float* __restrict__ b, float eps, int act,
@@ -500,22 +550,28 @@ lh_bn_bw_apply(const T* __restrict__ dy, const T* __restrict__ x,
   }
   for (long long base = t.r0 + threadIdx.y; base < t.r1;
        base += kRowsBw * tr) {
-    Raw<T, V> vx[kRowsBw], vg[kRowsBw];
+    Raw<T, V> vx[kRowsBw], vg[kRowsBw], vo[kRowsBw];
     load_rows<T, V, kRowsBw>(vx, x + t.c0, base, tr, t.r1, C);
     load_rows<T, V, kRowsBw>(vg, dy + t.c0, base, tr, t.r1, C);
+    if (out) load_rows<T, V, kRowsBw>(vo, out + t.c0, base, tr, t.r1, C);
 #pragma unroll
     for (int u = 0; u < kRowsBw; ++u) {
       const long long r = base + (long long)u * tr;
       if (r < t.r1) {
-        Raw<T, V> out;
+        Raw<T, V> vdx, vdr;
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           const float xc = elem<T, V>(vx[u], i) - mu[i];
           float g = elem<T, V>(vg[u], i);
-          if (act) g = gate<T>(affine(xc, a[i], bb[i]), g);
-          put<T, V>(out, i, kk[i] * ((g - mdy[i]) - xc * q[i]));
+          if (out)
+            g = gate(elem<T, V>(vo[u], i), g);
+          else if (act)
+            g = gate_bn<T>(affine(xc, a[i], bb[i]), g);
+          put<T, V>(vdx, i, kk[i] * ((g - mdy[i]) - xc * q[i]));
+          put<T, V>(vdr, i, g);
         }
-        *reinterpret_cast<Raw<T, V>*>(dx + r * C + t.c0) = out;
+        *reinterpret_cast<Raw<T, V>*>(dx + r * C + t.c0) = vdx;
+        if (out) *reinterpret_cast<Raw<T, V>*>(dres + r * C + t.c0) = vdr;
       }
     }
   }
@@ -578,16 +634,18 @@ extern "C" int lh_bn_rows(int stage) {
   return stage < 0 || stage > 4 ? -1 : stage < 3 ? kRowsFw : kRowsBw;
 }
 
-// Training forward. x, y: [rows, C] of dtype; (tc, tr) the block, (splits,
-// chunk) the partials' grid, (asplits, achunk) the apply's; w, b, the
-// running statistics, mean and invstd f32 [C]; part f32 [2, splits, C];
-// batches the int64 num_batches_tracked. Returns the first launch error.
+// Training forward. x, y: [rows, C] of dtype; res: the residual, [rows, C]
+// of dtype, or null; (tc, tr) the block, (splits, chunk) the partials' grid,
+// (asplits, achunk) the apply's; w, b, the running statistics, mean and
+// invstd f32 [C]; part f32 [2, splits, C]; batches the int64
+// num_batches_tracked. Returns the first launch error.
 extern "C" int lh_bn_forward_train(
-    const void* x, void* y, long long rows, int C, int dtype, int vec, int tc,
-    int tr, int splits, long long chunk, int asplits, long long achunk,
-    const float* w, const float* b, float* running_mean, float* running_var,
-    long long* batches, float momentum, float eps, int act, float* part,
-    float* mean, float* invstd, void* stream) {
+    const void* x, const void* res, void* y, long long rows, int C,
+    int dtype, int vec, int tc, int tr, int splits, long long chunk,
+    int asplits, long long achunk, const float* w, const float* b,
+    float* running_mean, float* running_var, long long* batches,
+    float momentum, float eps, int act, float* part, float* mean,
+    float* invstd, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, vec, [&](auto kind) {
     using T = typename decltype(kind)::T;
@@ -603,16 +661,18 @@ extern "C" int lh_bn_forward_train(
     err = cudaGetLastError();
     if (err) return (int)err;
     lh_bn_fw_apply<T, V><<<grid(C, V, tc, asplits), dim3(tc, tr), 0, st>>>(
-        (const T*)x, (T*)y, rows, C, achunk, mean, invstd, w, b, act);
+        (const T*)x, (const T*)res, (T*)y, rows, C, achunk, mean, invstd, w,
+        b, act);
     return (int)cudaGetLastError();
   });
 }
 
-// Eval forward from the running statistics, one pass.
-extern "C" int lh_bn_forward_eval(const void* x, void* y, long long rows,
-                                  int C, int dtype, int vec, int tc, int tr,
-                                  int splits, long long chunk, const float* w,
-                                  const float* b, const float* running_mean,
+// Eval forward from the running statistics, one pass; res as above.
+extern "C" int lh_bn_forward_eval(const void* x, const void* res, void* y,
+                                  long long rows, int C, int dtype, int vec,
+                                  int tc, int tr, int splits, long long chunk,
+                                  const float* w, const float* b,
+                                  const float* running_mean,
                                   const float* running_var, float eps,
                                   int act, void* stream) {
   return dispatch(dtype, vec, [&](auto kind) {
@@ -620,17 +680,20 @@ extern "C" int lh_bn_forward_eval(const void* x, void* y, long long rows,
     constexpr int V = decltype(kind)::V;
     lh_bn_fw_eval<T, V><<<grid(C, V, tc, splits), dim3(tc, tr), 0,
                           (cudaStream_t)stream>>>(
-        (const T*)x, (T*)y, rows, C, chunk, running_mean, running_var, w, b,
-        eps, act);
+        (const T*)x, (const T*)res, (T*)y, rows, C, chunk, running_mean,
+        running_var, w, b, eps, act);
     return (int)cudaGetLastError();
   });
 }
 
-// Backward. s0, s1: the saved mean and invstd (eval = 0) or the running
-// mean and variance (eval = 1); part f32 [2, splits, C]; dw, db f32 [C];
-// coef f32 [3, C] scratch.
+// Backward. out: the saved output of a residual block's end, or null; dres:
+// the residual's gradient, [rows, C] of dtype, written where out is given;
+// s0, s1: the saved mean and invstd (eval = 0) or the running mean and
+// variance (eval = 1); part f32 [2, splits, C]; dw, db f32 [C]; coef f32
+// [3, C] scratch.
 extern "C" int lh_bn_backward(
-    const void* dy, const void* x, void* dx, long long rows, int C, int dtype,
+    const void* dy, const void* x, const void* out, void* dx, void* dres,
+    long long rows, int C, int dtype,
     int vec, int tc, int tr, int splits, long long chunk, int asplits,
     long long achunk, const float* w, const float* b, const float* s0,
     const float* s1, int eval, float eps, int act, float* part, float* dw,
@@ -641,8 +704,8 @@ extern "C" int lh_bn_backward(
     constexpr int V = decltype(kind)::V;
     lh_bn_bw_partials<T, V><<<grid(C, V, tc, splits), dim3(tc, tr),
                               partial_smem(tc, tr, V), st>>>(
-        (const T*)dy, (const T*)x, rows, C, chunk, eval, s0, s1, w, b, eps,
-        act, part);
+        (const T*)dy, (const T*)x, (const T*)out, rows, C, chunk, eval, s0, s1,
+        w, b, eps, act, part);
     cudaError_t err = cudaGetLastError();
     if (err) return (int)err;
     lh_bn_bw_finalize<<<fin_grid(C), dim3(kFinC, kFinLanes), 0, st>>>(
@@ -650,8 +713,8 @@ extern "C" int lh_bn_backward(
     err = cudaGetLastError();
     if (err) return (int)err;
     lh_bn_bw_apply<T, V><<<grid(C, V, tc, asplits), dim3(tc, tr), 0, st>>>(
-        (const T*)dy, (const T*)x, (T*)dx, rows, C, achunk, eval, s0, s1, w, b,
-        eps, act, coef);
+        (const T*)dy, (const T*)x, (const T*)out, (T*)dx, (T*)dres, rows, C,
+        achunk, eval, s0, s1, w, b, eps, act, coef);
     return (int)cudaGetLastError();
   });
 }

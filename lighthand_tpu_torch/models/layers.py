@@ -10,9 +10,14 @@ Numerics that follow the JAX package rather than torch's habits:
   its f32 weights cast to it; padding is k//2 on both sides;
 - BatchNorm is computed in f32 and its output cast back to the input dtype;
   where a ReLU follows it directly, the ReLU is part of the BatchNorm
-  (``BatchNorm2d(relu=True)``), applied before that one rounding. On the
-  card both run as the kernels of ``ops/kernels/batch_norm.py``; on the CPU
-  as their plain twins, the formulas above;
+  (``BatchNorm2d(relu=True)``), applied before that one rounding. A
+  residual block ends in its last BatchNorm too (``bn(x, residual=r)``):
+  ``relu(bn(x) + r)`` in one pass on the card, rounded as the chain BN,
+  cast, add, ReLU rounds (the BN output to the compute dtype, the f32 sum
+  again), so its bits are that chain's; its backward gates the gradient by
+  the saved output, as the ReLU's own backward does. On the card these run
+  as the kernels of ``ops/kernels/batch_norm.py``; on the CPU as their
+  plain twins, the formulas above;
 - in training, the running variance is updated with the *biased* batch
   variance, as Flax's ``nn.BatchNorm`` does. ``nn.BatchNorm2d`` would use
   the unbiased one. Flax momentum 0.9 is torch momentum 0.1; eps is 1e-5;
@@ -41,7 +46,7 @@ from torch import nn
 
 from lighthand_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from lighthand_tpu_torch.ops import quant
-from lighthand_tpu_torch.ops.kernels.batch_norm import batch_norm
+from lighthand_tpu_torch.ops.kernels.batch_norm import activate, batch_norm
 
 BN_MOMENTUM = 0.1  # torch convention; == 1 - flax momentum 0.9
 BN_EPS = 1e-5
@@ -139,9 +144,10 @@ class _AllReduceSum(torch.autograd.Function):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """f32 BatchNorm that updates its running stats the way Flax does,
-    followed by a ReLU where ``relu``. It computes in its parameters'
-    dtype: f32, or f64 in a model cast to f64 (on the CPU). Its output is
-    in the input's dtype.
+    followed by a ReLU where ``relu``; called with a ``residual``, it ends
+    a residual block: ``relu(bn(x) + residual)`` (``relu`` then False). It
+    computes in its parameters' dtype: f32, or f64 in a model cast to f64
+    (on the CPU). Its output is in the input's dtype.
 
     Locally (no group) it runs through ``ops/kernels/batch_norm.py:
     batch_norm``: on the card the BatchNorm kernels, forward and backward;
@@ -174,13 +180,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         return (xc * (inv * self.weight)[None, :, None, None]
                 + self.bias[None, :, None, None])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         if self.training and self.group is not None:
             y = self._global_batch_norm(x.to(self.weight.dtype)).to(x.dtype)
-            return F.relu(y) if self.relu else y
+            return activate(y, self.relu, residual)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, self.num_batches_tracked,
-                          self.training, self.momentum, self.eps, self.relu)
+                          self.training, self.momentum, self.eps, self.relu,
+                          residual)
 
 
 def set_batchnorm_group(model: nn.Module, group, size: int) -> None:
@@ -235,10 +243,9 @@ class BasicBlock(nn.Module):
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn1(self.conv1(x))
-        out = self.bn2(self.conv2(out))
+        out = self.conv2(self.bn1(self.conv1(x)))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return self.bn2(out, residual=residual)  # relu(bn2(out) + residual)
 
 
 class Bottleneck(nn.Module):
@@ -262,10 +269,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn1(self.conv1(x))
-        out = self.bn2(self.conv2(out))
-        out = self.bn3(self.conv3(out))
+        out = self.conv3(self.bn2(self.conv2(out)))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return self.bn3(out, residual=residual)  # relu(bn3(out) + residual)
 
 
 class BottleneckCaffe(Bottleneck):

@@ -16,6 +16,7 @@ and three with no Pallas counterpart:
   (``lighthand_tpu/utils/mesh_render.py:119``);
 - ``batch_norm.batch_norm`` (the ``batch_norm_train_cuda``,
   ``batch_norm_eval_cuda`` and ``batch_norm_backward_cuda`` wrappers), the
-  models' BatchNorm with its fused ReLU, which the JAX package leaves to
-  XLA (Flax's ``nn.BatchNorm`` in ``lighthand_tpu/models/layers.py:111``).
+  models' BatchNorm with its fused ReLU or residual block end (add and
+  ReLU), which the JAX package leaves to XLA (Flax's ``nn.BatchNorm`` in
+  ``lighthand_tpu/models/layers.py:111``).
 """

@@ -1,6 +1,6 @@
-"""BatchNorm (+ an optional fused ReLU) as CUDA kernels
-(``csrc/batch_norm.cu``), with their plain twins and the autograd Function
-that ``models/layers.py:BatchNorm2d`` runs through.
+"""BatchNorm (+ an optional fused ReLU, or the end of a residual block) as
+CUDA kernels (``csrc/batch_norm.cu``), with their plain twins and the
+autograd Function that ``models/layers.py:BatchNorm2d`` runs through.
 
 - ``batch_norm_train_cuda``: the training forward (statistics, the running
   statistics' update, the normalisation) in three launches;
@@ -17,10 +17,16 @@ the f32 policy); parameters, statistics and every intermediate in f32; the
 output rounded once; the ReLU, where fused, applied before that rounding,
 which gives the bits of ``relu(bf16(y))`` since rounding is monotone; the
 running variance updated with the biased batch variance, as Flax's is.
+With a ``residual`` r the apply stage ends the residual block in the same
+pass: ``relu(T(T(bn(x)) + r))`` in the compute dtype T, the two roundings
+of the chain BN, add, ReLU, so the bits are that chain's; its backward
+gates the gradient by the saved output (``threshold_backward``'s
+``dy * [o > 0]``) and writes the residual's gradient, that gated ``dy``.
 The twins, which the wrappers compute for a CPU tensor, are the port's
 formulas before these kernels: ``var_mean`` then ``F.batch_norm`` on the
-f32 copy, cast back, then ``relu``; their backward is autograd's through
-the same chain. On a CUDA tensor the wrappers launch the kernels or raise.
+f32 copy, cast back, then ``relu`` (with a residual: the add, then
+``relu``); their backward is autograd's through the same chain. On a CUDA
+tensor the wrappers launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -43,11 +49,32 @@ FW_PARTIALS, FW_APPLY, FW_EVAL, BW_PARTIALS, BW_APPLY = range(5)
 # ------------------------------------------------------------- the twins
 
 
+def _act(relu: bool, residual) -> int:
+    """The kernels' ``act``: the BatchNorm's own ReLU, which a residual
+    block's end does not take (its ReLU follows the add)."""
+    if relu and residual is not None:
+        raise ValueError("with a residual the ReLU follows the add: relu "
+                         "must be False")
+    return int(relu)
+
+
+def activate(y, relu: bool, residual=None):
+    """The output of a BatchNorm ``y`` (in the compute dtype): ``relu(y +
+    residual)`` with a residual (the end of a residual block, whose ReLU
+    follows the add; ``relu`` must then be False), else ``y`` through a
+    ReLU where ``relu``."""
+    if residual is None:
+        return F.relu(y) if relu else y
+    _act(relu, residual)  # refuses a ReLU before the add
+    return F.relu(y + residual)
+
+
 def batch_norm_train_plain(x, weight, bias, running_mean, running_var,
                            num_batches_tracked, momentum: float, eps: float,
-                           relu: bool):
+                           relu: bool, residual=None):
     """(y, mean, invstd): the training forward in the parameters' dtype,
-    the running statistics lerped toward the batch's biased ones."""
+    the running statistics lerped toward the batch's biased ones; ``y``
+    through ``activate``."""
     x32 = x.to(weight.dtype)
     with torch.no_grad():
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
@@ -56,21 +83,31 @@ def batch_norm_train_plain(x, weight, bias, running_mean, running_var,
         num_batches_tracked.add_(1)
     y = F.batch_norm(x32, None, None, weight, bias, True, 0.0, eps)
     y = y.to(x.dtype)
-    return (F.relu(y) if relu else y), mean, torch.rsqrt(var + eps)
+    return activate(y, relu, residual), mean, torch.rsqrt(var + eps)
 
 
 def batch_norm_eval_plain(x, weight, bias, running_mean, running_var,
-                          eps: float, relu: bool):
+                          eps: float, relu: bool, residual=None):
     y = F.batch_norm(x.to(weight.dtype), running_mean, running_var, weight,
                      bias, False, 0.0, eps).to(x.dtype)
-    return F.relu(y) if relu else y
+    return activate(y, relu, residual)
 
 
 def batch_norm_backward_plain(dy, x, weight, bias, running_mean, running_var,
-                              training: bool, eps: float, relu: bool):
+                              training: bool, eps: float, relu: bool,
+                              out=None):
     """(dx, dw, db): autograd's gradient of the twin's forward (in training
     the batch statistics are recomputed from ``x``, as ``F.batch_norm``'s
-    own backward takes them)."""
+    own backward takes them). With ``out``, the saved output of a residual
+    block's end, (dx, dw, db, dr): ``dy`` through the ReLU's backward
+    (``threshold_backward`` on ``out``), which is also the residual's
+    gradient ``dr``, then the BatchNorm's."""
+    if out is not None:
+        _act(relu, out)  # refuses a ReLU before the add
+        dy = torch.ops.aten.threshold_backward(dy, out, 0)
+        return batch_norm_backward_plain(dy, x, weight, bias, running_mean,
+                                         running_var, training, eps,
+                                         False) + (dy,)
     with torch.enable_grad():
         xd, wd, bd = (t.detach().requires_grad_() for t in (x, weight, bias))
         if training:
@@ -123,13 +160,13 @@ def _lib() -> ctypes.CDLL:
                    ctypes.c_float)
     lib.lh_bn_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
     lib.lh_bn_rows.argtypes = [i]
-    lib.lh_bn_forward_train.argtypes = [p, p, ll, i, i, i, i, i, i, ll, i,
-                                        ll, p, p, p, p, p, f, f, i, p, p, p,
-                                        p]
-    lib.lh_bn_forward_eval.argtypes = [p, p, ll, i, i, i, i, i, i, ll, p, p,
-                                       p, p, f, i, p]
-    lib.lh_bn_backward.argtypes = [p, p, p, ll, i, i, i, i, i, i, ll, i, ll,
-                                   p, p, p, p, i, f, i, p, p, p, p, p]
+    lib.lh_bn_forward_train.argtypes = [p, p, p, ll, i, i, i, i, i, i, ll,
+                                        i, ll, p, p, p, p, p, f, f, i, p, p,
+                                        p, p]
+    lib.lh_bn_forward_eval.argtypes = [p, p, p, ll, i, i, i, i, i, i, ll, p,
+                                       p, p, p, f, i, p]
+    lib.lh_bn_backward.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, ll,
+                                   i, ll, p, p, p, p, i, f, i, p, p, p, p, p]
     for fn in (lib.lh_bn_occupancy, lib.lh_bn_rows, lib.lh_bn_forward_train,
                lib.lh_bn_forward_eval, lib.lh_bn_backward):
         fn.restype = ctypes.c_int
@@ -181,11 +218,29 @@ def _layout(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def _vec(*tensors: torch.Tensor) -> int:
-    """1 where each row of every tensor splits into 16-byte vectors."""
+def _vec(*tensors) -> int:
+    """1 where each row of every tensor (None: none) splits into 16-byte
+    vectors."""
     t = tensors[0]
     return int(t.shape[1] * t.element_size() % 16 == 0
-               and all(u.data_ptr() % 16 == 0 for u in tensors))
+               and all(u.data_ptr() % 16 == 0 for u in tensors
+                       if u is not None))
+
+
+def _like(x: torch.Tensor, t, name: str):
+    """``t`` (a residual or a saved output; None stays None) checked
+    against ``x`` and in ``channels_last`` memory."""
+    if t is None:
+        return None
+    if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+        raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"does not match x {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _params(c: int, *tensors: torch.Tensor) -> None:
@@ -202,21 +257,26 @@ def _rows(x: torch.Tensor) -> int:
 
 def batch_norm_train_cuda(x, weight, bias, running_mean, running_var,
                           num_batches_tracked, momentum: float, eps: float,
-                          relu: bool):
+                          relu: bool, residual=None):
     """(y, mean, invstd) of a training forward; ``running_mean``,
     ``running_var`` and ``num_batches_tracked`` updated in place.
 
     On a CUDA tensor this launches the three forward kernels (or raises):
     ``x`` bf16 or f32 ``[N, C, H, W]`` (made ``channels_last`` first), the
     parameters and statistics f32 ``[C]``; ``y`` in ``x``'s dtype,
-    ``channels_last``; ``mean`` and ``invstd`` f32 ``[C]``. On a CPU tensor
-    it computes the plain twin. ``batch_norm_train_cuda.launches`` counts
-    the kernel launches."""
+    ``channels_last``; ``mean`` and ``invstd`` f32 ``[C]``. With a
+    ``residual`` (``x``'s shape and dtype) ``y`` is ``relu(bn(x) +
+    residual)``, computed by the apply stage in its one pass. On a CPU
+    tensor it computes the plain twin. ``batch_norm_train_cuda.launches``
+    counts the kernel launches, ``.residuals`` the calls with a residual
+    on either device."""
+    batch_norm_train_cuda.residuals += residual is not None
     if x.device.type == "cpu":
         return batch_norm_train_plain(x, weight, bias, running_mean,
                                       running_var, num_batches_tracked,
-                                      momentum, eps, relu)
+                                      momentum, eps, relu, residual)
     x = _layout(x, weight)
+    act, residual = _act(relu, residual), _like(x, residual, "residual")
     c, rows = x.shape[1], _rows(x)
     _params(c, weight, bias, running_mean, running_var)
     if rows < 2:
@@ -225,7 +285,7 @@ def batch_norm_train_cuda(x, weight, bias, running_mean, running_var,
     if num_batches_tracked.dtype != torch.int64:
         raise TypeError("num_batches_tracked must be int64")
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    index, dtype, vec = x.device.index, DTYPES[x.dtype], _vec(x, y)
+    index, dtype, vec = x.device.index, DTYPES[x.dtype], _vec(x, y, residual)
     tc, tr, splits, chunk = _stage_plan(index, FW_PARTIALS, dtype, vec, rows,
                                         c)
     _, _, asplits, achunk = _stage_plan(index, FW_APPLY, dtype, vec, rows, c)
@@ -233,10 +293,10 @@ def batch_norm_train_cuda(x, weight, bias, running_mean, running_var,
     stats = torch.empty((2, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().lh_bn_forward_train(
-            x.data_ptr(), y.data_ptr(), rows, c, dtype, vec, tc, tr, splits,
-            chunk, asplits, achunk, weight.data_ptr(), bias.data_ptr(),
-            running_mean.data_ptr(), running_var.data_ptr(),
-            num_batches_tracked.data_ptr(), momentum, eps, int(relu),
+            x.data_ptr(), _ptr(residual), y.data_ptr(), rows, c, dtype, vec,
+            tc, tr, splits, chunk, asplits, achunk, weight.data_ptr(),
+            bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
+            num_batches_tracked.data_ptr(), momentum, eps, act,
             part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         batch_norm_train_cuda.launches += 3
@@ -247,26 +307,30 @@ def batch_norm_train_cuda(x, weight, bias, running_mean, running_var,
 
 
 def batch_norm_eval_cuda(x, weight, bias, running_mean, running_var,
-                         eps: float, relu: bool):
-    """The eval forward from the running statistics, in ``x``'s dtype: one
-    launch on a CUDA tensor (or raises), the plain twin on a CPU tensor.
-    ``batch_norm_eval_cuda.launches`` counts the kernel launches."""
+                         eps: float, relu: bool, residual=None):
+    """The eval forward from the running statistics, in ``x``'s dtype
+    (with a ``residual``: ``relu(bn(x) + residual)``): one launch on a CUDA
+    tensor (or raises), the plain twin on a CPU tensor.
+    ``batch_norm_eval_cuda.launches`` counts the kernel launches,
+    ``.residuals`` the calls with a residual on either device."""
+    batch_norm_eval_cuda.residuals += residual is not None
     if x.device.type == "cpu":
         return batch_norm_eval_plain(x, weight, bias, running_mean,
-                                     running_var, eps, relu)
+                                     running_var, eps, relu, residual)
     x = _layout(x, weight)
+    act, residual = _act(relu, residual), _like(x, residual, "residual")
     c, rows = x.shape[1], _rows(x)
     _params(c, weight, bias, running_mean, running_var)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if rows == 0:
         return y
-    index, dtype, vec = x.device.index, DTYPES[x.dtype], _vec(x, y)
+    index, dtype, vec = x.device.index, DTYPES[x.dtype], _vec(x, y, residual)
     tc, tr, splits, chunk = _stage_plan(index, FW_EVAL, dtype, vec, rows, c)
     with torch.cuda.device(x.device):
         err = _lib().lh_bn_forward_eval(
-            x.data_ptr(), y.data_ptr(), rows, c, dtype, vec, tc, tr, splits,
-            chunk, weight.data_ptr(), bias.data_ptr(),
-            running_mean.data_ptr(), running_var.data_ptr(), eps, int(relu),
+            x.data_ptr(), _ptr(residual), y.data_ptr(), rows, c, dtype, vec,
+            tc, tr, splits, chunk, weight.data_ptr(), bias.data_ptr(),
+            running_mean.data_ptr(), running_var.data_ptr(), eps, act,
             torch.cuda.current_stream().cuda_stream)
         batch_norm_eval_cuda.launches += 1
     if err:
@@ -275,31 +339,42 @@ def batch_norm_eval_cuda(x, weight, bias, running_mean, running_var,
 
 
 def batch_norm_backward_cuda(dy, x, weight, bias, stat0, stat1,
-                             training: bool, eps: float, relu: bool):
+                             training: bool, eps: float, relu: bool,
+                             out=None):
     """(dx, dw, db) of either forward: ``stat0``, ``stat1`` are the saved
     ``mean`` and ``invstd`` in training, the running mean and variance in
     eval. ``dx`` in ``x``'s dtype, ``channels_last``; ``dw``, ``db`` f32.
+    With ``out``, the saved output of a forward with a residual, (dx, dw,
+    db, dr): ``dy`` gated by ``out > 0`` runs through the BatchNorm's
+    backward, and is itself ``dr``, the residual's gradient.
 
     On a CUDA tensor this launches the three backward kernels (or raises);
     on a CPU tensor it computes the plain twin (which takes the running
     statistics in eval and ignores the saved ones in training).
-    ``batch_norm_backward_cuda.launches`` counts the kernel launches."""
+    ``batch_norm_backward_cuda.launches`` counts the kernel launches,
+    ``.residuals`` the calls with ``out`` on either device."""
+    batch_norm_backward_cuda.residuals += out is not None
     if x.device.type == "cpu":
         return batch_norm_backward_plain(dy, x, weight, bias, stat0, stat1,
-                                         training, eps, relu)
+                                         training, eps, relu, out)
     x = _layout(x, weight)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
                          f"{x.dtype} {tuple(x.shape)}")
     dy = dy.contiguous(memory_format=torch.channels_last)
+    act, out = _act(relu, out), _like(x, out, "out")
     c, rows = x.shape[1], _rows(x)
     _params(c, weight, bias, stat0, stat1)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dr = (None if out is None
+          else torch.empty_like(x, memory_format=torch.channels_last))
     dw = torch.empty(c, dtype=torch.float32, device=x.device)
     db = torch.empty(c, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dw.zero_(), db.zero_()
-    index, dtype, vec = x.device.index, DTYPES[x.dtype], _vec(x, dy, dx)
+        grads = dx, dw.zero_(), db.zero_()
+        return grads if out is None else grads + (dr,)
+    index, dtype, vec = (x.device.index, DTYPES[x.dtype],
+                         _vec(x, dy, dx, out, dr))
     tc, tr, splits, chunk = _stage_plan(index, BW_PARTIALS, dtype, vec, rows,
                                         c)
     _, _, asplits, achunk = _stage_plan(index, BW_APPLY, dtype, vec, rows, c)
@@ -307,22 +382,22 @@ def batch_norm_backward_cuda(dy, x, weight, bias, stat0, stat1,
     coef = torch.empty((3, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().lh_bn_backward(
-            dy.data_ptr(), x.data_ptr(), dx.data_ptr(), rows, c, dtype, vec,
-            tc, tr, splits, chunk, asplits, achunk, weight.data_ptr(),
-            bias.data_ptr(), stat0.data_ptr(), stat1.data_ptr(),
-            int(not training), eps, int(relu), part.data_ptr(),
+            dy.data_ptr(), x.data_ptr(), _ptr(out), dx.data_ptr(), _ptr(dr),
+            rows, c, dtype, vec, tc, tr, splits, chunk, asplits, achunk,
+            weight.data_ptr(), bias.data_ptr(), stat0.data_ptr(),
+            stat1.data_ptr(), int(not training), eps, act, part.data_ptr(),
             dw.data_ptr(), db.data_ptr(), coef.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         batch_norm_backward_cuda.launches += 3
     if err:
         raise RuntimeError(f"batch norm backward launch failed: CUDA error "
                            f"{err}")
-    return dx, dw, db
+    return (dx, dw, db) if out is None else (dx, dw, db, dr)
 
 
-batch_norm_train_cuda.launches = 0
-batch_norm_eval_cuda.launches = 0
-batch_norm_backward_cuda.launches = 0
+batch_norm_train_cuda.launches = batch_norm_train_cuda.residuals = 0
+batch_norm_eval_cuda.launches = batch_norm_eval_cuda.residuals = 0
+batch_norm_backward_cuda.launches = batch_norm_backward_cuda.residuals = 0
 
 
 # ------------------------------------------------------------- autograd
@@ -331,52 +406,61 @@ batch_norm_backward_cuda.launches = 0
 class _BatchNorm(torch.autograd.Function):
     """Forward and backward through the kernels on the card: saves ``x``
     in its own dtype and, in training, the f32 ``mean`` and ``invstd`` (in
-    eval the running statistics), no f32 copy of ``x`` and no output."""
+    eval the running statistics), no f32 copy of ``x``; the output only
+    where the forward took a residual, for the ReLU's gate (the next conv
+    saves that output as its input, as the ReLU after the add saved it)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var,
-                num_batches_tracked, training, momentum, eps, relu):
+                num_batches_tracked, residual, training, momentum, eps,
+                relu):
         ctx.conf = (training, eps, relu)
         if training:
             y, s0, s1 = batch_norm_train_cuda(
                 x, weight, bias, running_mean, running_var,
-                num_batches_tracked, momentum, eps, relu)
+                num_batches_tracked, momentum, eps, relu, residual)
         else:
             y = batch_norm_eval_cuda(x, weight, bias, running_mean,
-                                     running_var, eps, relu)
+                                     running_var, eps, relu, residual)
             s0, s1 = running_mean, running_var
-        ctx.save_for_backward(x, weight, bias, s0, s1)
+        ctx.save_for_backward(x, weight, bias, s0, s1,
+                              None if residual is None else y)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, bias, s0, s1 = ctx.saved_tensors
+        x, weight, bias, s0, s1, out = ctx.saved_tensors
         training, eps, relu = ctx.conf
-        dx, dw, db = batch_norm_backward_cuda(dy, x, weight, bias, s0, s1,
-                                              training, eps, relu)
+        grads = batch_norm_backward_cuda(dy, x, weight, bias, s0, s1,
+                                         training, eps, relu, out)
+        dr = grads[3] if out is not None else None
         need = ctx.needs_input_grad
-        return ((dx if need[0] else None), (dw if need[1] else None),
-                (db if need[2] else None)) + (None,) * 7
+        return tuple(g if n else None for g, n in zip(
+            grads[:3] + (None,) * 3 + (dr,), need)) + (None,) * 4
 
 
 def batch_norm(x, weight, bias, running_mean, running_var,
                num_batches_tracked, training: bool, momentum: float,
-               eps: float, relu: bool = False) -> torch.Tensor:
+               eps: float, relu: bool = False,
+               residual=None) -> torch.Tensor:
     """BatchNorm over (N, H, W) of ``x`` ``[N, C, H, W]`` with f32
     parameters, in training (batch statistics; the running ones updated in
-    place) or eval (the running statistics), then ReLU if ``relu``; the
-    result in ``x``'s dtype. On the card a gradient goes through the
-    kernels' autograd Function; on the CPU autograd differentiates the
-    twin, and where no gradient is wanted the forward runs alone."""
+    place) or eval (the running statistics), then ReLU if ``relu``; with a
+    ``residual``, ``relu(bn(x) + residual)`` instead (the end of a residual
+    block: on the card in the apply stage's one pass); the result in
+    ``x``'s dtype. On the card a gradient goes through the kernels'
+    autograd Function; on the CPU autograd differentiates the twin, and
+    where no gradient is wanted the forward runs alone."""
     if x.device.type == "cpu" or not (
             torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x, weight, bias))):
+            and any(t is not None and t.requires_grad
+                    for t in (x, weight, bias, residual))):
         if training:
             return batch_norm_train_cuda(x, weight, bias, running_mean,
                                          running_var, num_batches_tracked,
-                                         momentum, eps, relu)[0]
+                                         momentum, eps, relu, residual)[0]
         return batch_norm_eval_cuda(x, weight, bias, running_mean,
-                                    running_var, eps, relu)
+                                    running_var, eps, relu, residual)
     return _BatchNorm.apply(x, weight, bias, running_mean, running_var,
-                            num_batches_tracked, training, momentum, eps,
-                            relu)
+                            num_batches_tracked, residual, training,
+                            momentum, eps, relu)

@@ -16,11 +16,15 @@ up to 1 ulp of the largest value); running statistics atol 1e-5, rtol 1e-4
 (tests/test_torch_models.py).
 
 Also here: the models fuse a ReLU into exactly the BatchNorms that the JAX
-models follow with one; every kernel of ``csrc/batch_norm.cu`` falls in
-the benchmark's "batch norm" family, which ``bn_ms.train`` reads; the
-grid plan of the kernels covers every BatchNorm shape of the cells.
+models follow with one; the end of a residual block (``bn(x,
+residual=r)``) equals the chain BN, add, ReLU bit for bit, forward and
+gradients, and its wrappers count it; every kernel of
+``csrc/batch_norm.cu`` falls in the benchmark's "batch norm" family, which
+``bn_ms.train`` reads; the grid plan of the kernels covers every BatchNorm
+shape of the cells.
 """
 
+import copy
 import importlib.util
 import re
 import sys
@@ -32,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lighthand_tpu.models import get_model as jax_get_model
 from lighthand_tpu.models.layers import BN_EPS as JAX_EPS
@@ -199,6 +204,107 @@ def test_fused_relus_are_the_jax_models_bn_relu_pairs(name, n_bn):
     assert (len(bns), sum(m.relu for m in bns)) == _jax_bn_relu_pairs(name)
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bytes (so -0 is not 0)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8)))
+
+
+def _residual_case(c, train, dtype, seed):
+    """(module, x, residual, dy) for a block's end: x and dy from
+    ``_inputs``; the residual random but for a third of its elements, which
+    cancel the BN's output exactly (the sum a tie at 0), and a sixth, which
+    are -0 (as are a sixth of dy's)."""
+    d = _inputs(c, seed=seed)
+    m = BatchNorm2d(c).train(train)
+    with torch.no_grad():
+        for name, key in (("weight", "scale"), ("bias", "bias"),
+                          ("running_mean", "mean"), ("running_var", "var")):
+            getattr(m, name).copy_(torch.from_numpy(d[key]))
+    nchw = (0, 3, 1, 2)
+    x = torch.from_numpy(d["x"]).permute(*nchw).contiguous().to(dtype)
+    dy = torch.from_numpy(d["dy"]).permute(*nchw).contiguous().to(dtype)
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn(x.shape, generator=g).to(dtype)
+    with torch.no_grad():
+        y = copy.deepcopy(m)(x)
+    pick = torch.randint(0, 6, x.shape, generator=g)
+    r = torch.where(pick < 2, -y, r)
+    r = torch.where(pick == 2, torch.full_like(r, -0.0), r)
+    dy = torch.where(pick == 3, torch.full_like(dy, -0.0), dy)
+    return m, x, r, dy
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("train", [True, False])
+def test_residual_form_equals_the_chain(train, precision):
+    """``bn(x, residual=r)`` (the twin of the kernels' residual form) equals
+    ``relu(bn(x) + r)``, the chain the blocks ran, bit for bit: output,
+    the gradients of x, r, weight and bias, the running statistics; ties at
+    0 where r cancels the BN output, -0 in r and dy. The backward wrapper
+    given the saved output gives the same four gradients (the reference
+    that chip phase 2d holds the kernels to)."""
+    dtype = DTYPES[precision][0]
+    m1, x, r, dy = _residual_case(8, train, dtype, seed=40 + train)
+    m2 = copy.deepcopy(m1)
+    x1, r1, x2, r2 = (t.clone().requires_grad_() for t in (x, r, x, r))
+    before = (bn.batch_norm_train_cuda if train
+              else bn.batch_norm_eval_cuda).residuals
+    fused = m1(x1, residual=r1)
+    counted = (bn.batch_norm_train_cuda if train
+               else bn.batch_norm_eval_cuda).residuals - before
+    chain = F.relu(m2(x2) + r2)
+    assert counted == 1
+    assert (fused == 0).any() and _bits_equal(fused, chain)
+    fused.backward(dy)
+    chain.backward(dy)
+    for got, want in ((x1.grad, x2.grad), (r1.grad, r2.grad),
+                      (m1.weight.grad, m2.weight.grad),
+                      (m1.bias.grad, m2.bias.grad),
+                      (m1.running_mean, m2.running_mean),
+                      (m1.running_var, m2.running_var)):
+        assert _bits_equal(got, want)
+    s0, s1 = m2.running_mean, m2.running_var  # the twin reads these in eval
+    before = bn.batch_norm_backward_cuda.residuals
+    grads = bn.batch_norm_backward_cuda(dy, x, m2.weight, m2.bias, s0, s1,
+                                        train, m2.eps, False,
+                                        out=chain.detach())
+    assert bn.batch_norm_backward_cuda.residuals == before + 1
+    for got, want in zip(grads, (x2.grad, m2.weight.grad, m2.bias.grad,
+                                 r2.grad)):
+        assert _bits_equal(got, want)
+
+
+def test_residual_form_refuses_a_relu_before_the_add():
+    """A block's end takes its ReLU after the add: ``relu=True`` beside a
+    residual is refused, not read as a second ReLU."""
+    m, x, r, dy = _residual_case(4, True, torch.float32, seed=3)
+    w = m.weight.detach()
+    with pytest.raises(ValueError, match="relu must be False"):
+        bn.batch_norm(x, w, w, m.running_mean, m.running_var,
+                      m.num_batches_tracked, True, 0.1, 1e-5, True, r)
+    with pytest.raises(ValueError, match="relu must be False"):
+        bn.batch_norm_backward_cuda(dy, x, w, w, m.running_mean,
+                                    m.running_var, False, 1e-5, True, out=r)
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("name,ends", [("hrnet_tiny", 13),
+                                       ("resnet50", 16)])
+def test_residual_counter_counts_each_block_end(name, ends, train):
+    """One forward ends every residual block in its last BatchNorm: 13 in
+    HRNet-tiny (layer1's 4 Bottlenecks, 9 BasicBlocks), 16 in ResNet-50's
+    Bottlenecks; counted by the wrapper of the mode, none by the other."""
+    model = get_model(name).train(train)
+    wrappers = (bn.batch_norm_train_cuda, bn.batch_norm_eval_cuda)
+    before = [f.residuals for f in wrappers]
+    with torch.no_grad():
+        model(torch.zeros(2, 3, 64, 64))
+    got = [f.residuals - b for f, b in zip(wrappers, before)]
+    assert got == ([ends, 0] if train else [0, ends])
+
+
 def _trace_family():
     """``benchmark/lhbench/trace.py:family``, read from its file (the
     benchmark's package is not on the import path of the tests)."""
@@ -235,7 +341,7 @@ def test_every_kernel_is_in_the_benchmarks_batch_norm_family():
 
 
 # every distinct (rows, C) of the cells' BatchNorms: HRNet-W32 at bs128,
-# SimpleBaseline-R50 at bs32, 256x256 inputs
+# SimpleBaseline-R50 and HRNet-W48 at bs32, 256x256 inputs
 CELL_SHAPES = sorted({(128 * h * w, c) for c, h, w in (
     (64, 128, 128), (64, 64, 64), (256, 64, 64), (32, 64, 64), (64, 32, 32),
     (32, 32, 32), (128, 16, 16), (32, 16, 16), (64, 16, 16), (256, 8, 8),
@@ -243,7 +349,11 @@ CELL_SHAPES = sorted({(128 * h * w, c) for c, h, w in (
         (64, 128, 128), (64, 64, 64), (256, 64, 64), (128, 64, 64),
         (128, 32, 32), (512, 32, 32), (256, 32, 32), (256, 16, 16),
         (1024, 16, 16), (512, 16, 16), (512, 8, 8), (2048, 8, 8),
-        (256, 128, 128))})
+        (256, 128, 128),
+        # HRNet-W48
+        (64, 128, 128), (64, 64, 64), (256, 64, 64), (48, 64, 64),
+        (48, 32, 32), (48, 16, 16), (48, 8, 8), (96, 32, 32), (96, 16, 16),
+        (96, 8, 8), (192, 16, 16), (192, 8, 8), (384, 8, 8))})
 
 
 @pytest.mark.parametrize("per_sm", [2, 3, 4])

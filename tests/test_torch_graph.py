@@ -19,6 +19,7 @@ step against the JAX package.
 """
 
 import contextlib
+import functools
 import socket
 
 import numpy as np
@@ -152,8 +153,11 @@ def direct(monkeypatch):
 @pytest.fixture
 def counted(monkeypatch):
     """The kernel wrappers count their twins' calls in ``.launches``, as
-    they count launches on the card; zeroed first."""
+    they count launches on the card; zeroed first. Each stand-in carries
+    the wrapper's other attributes (the BatchNorm wrappers' ``.residuals``,
+    which their own bodies count through the module's name)."""
     def counting(fn, launches=1):
+        @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             fn.launches += launches
             return fn(*args, **kwargs)
