@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``lighthand_tpu_torch``) on one NVIDIA GPU.
+"""Check the PyTorch/CUDA port (``lighthand_tpu_torch``) on one NVIDIA GPU:
+is it right on the card?
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Phases (any failure raises, exits nonzero and prints no ok line):
+Each kernel's time alone, against its bound, is ``kernel_breakdown.py``'s;
+the end-to-end figures are the benchmark's (``benchmark/``). The inputs and
+stored results come from ``tests/torch_fixtures.py``. Phases (any failure
+raises, exits nonzero and prints no ok line):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    the CUDA libraries (one a ``lighthand_tpu_torch/csrc/*.cu``) built with
@@ -12,8 +16,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 1b. the codec: every committed fixture image (``tests/fixtures/images``)
    decoded, gray-decoded, resized to 256 and warped to 224 by the port's
    codec, each equal to the SHA-256 of cv2's result stored beside it (this
-   machine has no cv2 for the port to lean on); the host ms of a 224x224
-   JPEG decode, of its resize to 256 and of its warp;
+   machine has no cv2 for the port to lean on);
 2. K2 (heatmap targets) against its plain twin, B=128 and B=32, atol 1e-5,
    and one ragged case: B=5, hm=50 (scalar stores), stride 3.0, joints a
    [B, J, 3] tensor read through its strides;
@@ -49,14 +52,14 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    reached; each model's heaviest shape and its stem again at batch 128
    (the bench's int8_fwd step and the serving bench, phase 11); the twin
    runs on the card with cuDNN off (im2col + DGEMM, exact on integers);
-   then the
-   grouped weight quantize (``quantize_weights_cuda``, one launch for a
-   list of weights) against ``quantize_weights_plain``, bit for bit, over
-   all 292 HRNet-W32 and all 53 ResNet-50 weights in one group each, in
-   both layouts, and ragged groups (the K = 27 and 147 stems, Cout 40 and
-   33, rows of 45 and 20 values, all-zero channels, a source off 16-byte
-   alignment, every other output or input channel of a weight, rows
-   beyond a stage buffer, a group of one), each w_q at a 128-byte offset;
+   then the grouped weight quantize (``quantize_weights_cuda``, one launch
+   for a list of weights) against ``quantize_weights_plain``, bit for bit,
+   over all 292 HRNet-W32 and all 53 ResNet-50 weights in one group each,
+   in both layouts, and ragged groups (the K = 27 and 147 stems, Cout 40
+   and 33, rows of 45 and 20 values, all-zero channels, a source off
+   16-byte alignment, every other output or input channel of a weight,
+   rows beyond a stage buffer, a group of one), each w_q at a 128-byte
+   offset;
 2c. a ``QuantConv2d`` on the card equals the same module on the CPU, bit
    for bit, at ResNet-50's and HRNet-W32's heaviest shapes, bf16 and f32:
    the weight scale divides on both devices;
@@ -68,35 +71,23 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    a channel; NCHW input; x off 16-byte alignment); outputs and dx within
    1 ulp of the twin's value in their type + 2^-16 of the largest value,
    statistics, dw and db within 2^-16 (``BN_FLOOR``: the sums add in
-   another order); the fused ReLU's gate bit for bit; each stage's device
-   ms (CUDA graph replays, the profiler's kernel times) beside its byte
-   bound at every shape and summed over a microbatch of each model, beside
-   the device ms of the chain the kernels replaced (the twin) and of the
-   library's one call (``F.batch_norm`` on the bf16 activation, then
-   ``relu``), training forward + backward and eval; then a graphed W32
-   bs128 microbatch launches each stage once a BatchNorm (3 x 292 each
-   way), an eval batch 292 eval passes, ``F.batch_norm`` and ``var_mean``
-   are never called, and the benchmark's "batch norm" family holds only
-   ``lh_bn_`` kernels; then W32 bs128's graphed training microbatch and
-   eval batch timed with the BatchNorms through the kernels and through
-   that library call (kernels, library, library, kernels); the largest and
-   smallest shape of each model make the kernels line's ``batch_norm`` row.
-   The end of a residual block (``residual=``: ``relu(bn(x) + r)`` in the
-   apply stage's one pass) at every residual shape of the five cells
-   (HRNet-W32 bs128, ResNet-50 bs32, HRNet-W48 bs32), bf16 and f32,
-   training and eval: output, dx, dw, db and dr ``torch.equal`` to the
-   chain the blocks ran before (the kernels with ``relu=False``, PyTorch's
-   add and ``relu``, autograd's backward of them), then its device ms
-   beside the chain's, with each form's byte bound, at W32's and
-   ResNet-50's largest residual shape.
+   another order); the fused ReLU's gate bit for bit. The end of a
+   residual block (``residual=``: ``relu(bn(x) + r)`` in the apply stage's
+   one pass) at every residual shape of the five cells (HRNet-W32 bs128,
+   ResNet-50 bs32, HRNet-W48 bs32), bf16 and f32, training and eval:
+   output, dx, dw, db and dr ``torch.equal`` to the chain the blocks ran
+   before (the kernels with ``relu=False``, PyTorch's add and ``relu``,
+   autograd's backward of them). Then a graphed W32 bs128 microbatch
+   launches each stage once a BatchNorm (3 x 292 each way), an eval batch
+   292 eval passes, ``F.batch_norm`` and ``var_mean`` are never called, and
+   the benchmark's "batch norm" family holds only ``lh_bn_`` kernels.
    From phase 4 on the three BatchNorm wrappers are counted on every path
    like K1 (``bn_launches``: 3 x the model's BatchNorms a training
    forward and a backward, 1 x an eval forward);
 4. the main path, train: HRNet-W32 at 256x256, batch 32, bf16 policy,
    ``make_fused_train_step`` for 3 steps (graphed: the first eager, the
-   second captured and replayed, the third replayed, whose time is the
-   steady ms/step that phases 4c and 10a print beside theirs); K1 must
-   launch 3 times and every loss be finite;
+   second captured and replayed, the third replayed); K1 must launch 3
+   times and every loss be finite;
 5. the main path, eval: ``make_eval_step`` twice on a batch of 32 whose last
    4 rows are padding (n_valid must be 28, K2 must launch), then
    ``make_predict_step`` once; over phases 4 and 5 the BatchNorm wrappers
@@ -116,8 +107,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    normalize, flip) on the card against the same chain on the CPU with the
    same draws (the CPU tests' tolerances: images 3e-4, joints 1e-4 px, K2's
    targets 1e-5); the chain without flip or rotation on K1's draws against
-   K1 under phase 3's tolerances; the chain's time at B=128 beside K1's and
-   the step's beside phase 4's;
+   K1 under phase 3's tolerances;
 4d. the steps as CUDA graphs (``train/graph.py``; every step of phases
    4-11 runs graphed, its first call of a shape eager, its second captured
    and replayed, the later ones replayed, the launch counters adding each
@@ -143,16 +133,13 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    training forwards and as many in backwards. Both runs must print the
    ``done:`` line, write finite Loss/train and Loss/valid for every epoch
    run, the checkpoint and ``last_checkpoint.json`` with the model's name
-   and precision, and run B must start at run A's best epoch + 1. Per-epoch wall time, epoch img/s
-   and the device time of the steady K=3 dispatches are printed (a smoke
-   figure, not a benchmark);
+   and precision, and run B must start at run A's best epoch + 1;
 6b. the real-data path: the same CLI on a LightHand99K tree written into
    a temporary directory (128 train, 32 eval records pointing at the
    fixture JPEGs), without ``--synthetic``, 2 epochs: the done line,
    finite losses for both epochs, K1 4 and K2 1 launches an epoch, the
    decoded-crop cache's hit fraction 1.0 in epoch 2 (read from the log),
-   and the cached rows epoch 2 read equal to a fresh decode; epoch wall
-   seconds and img/s printed beside phase 6's synthetic ones;
+   and the cached rows epoch 2 read equal to a fresh decode;
 6c. a FreiHAND TSV tree of the fixture bytes through the Loader into one
    fused step (TSV engine, base64, decode, inverse-map warp, noise rows),
    then one ``per_sample`` fused step on a GAN + LightHand mix (max-combine
@@ -165,7 +152,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    counts, three pck_eval files of 5 rows (finite AUC, EPE, 100 PCK values),
    the --test AUC lines, under int8_fwd 53 int8 conv launches and 1 weight
    quantize a batch (106 and 2) and none otherwise, and in each run the
-   BatchNorms of one eval forward a batch (2 x 56); img/s of each run;
+   BatchNorms of one eval forward a batch (2 x 56);
 6e. the training CLI with ``--flip --rot-aug 15`` (SimpleBaseline
    ResNet-50, synthetic, 64 train and 32 val samples, bs32, 1 epoch): the
    done line, finite losses, K1 0 and K2 3 launches, the route logged once;
@@ -180,21 +167,20 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    (32 Armo records); then phase 4's steady step, plain and on a 1 x 1 mesh
    (plain, ``channels_last`` parameters, no FSDP wrap), in one NCCL
    process, both eager (a mesh keeps its step eager; the plain step runs
-   its ``.eager`` form): the mesh step within 10 % of the plain one, with Adam alone
-   (``train/state.py:ShardAdam``) and the profiler's top operations and
-   ranges of both steps. Meshes above one process are rehearsed only on
-   the CPU (``tests/test_torch_dist.py``);
+   its ``.eager`` form): the mesh step within 10 % of the plain one, with
+   Adam alone (``train/state.py:ShardAdam``) and the profiler's top
+   operations and ranges of both steps. Meshes above one process are
+   rehearsed only on the CPU (``tests/test_torch_dist.py``);
 9a. ``python -m lighthand_tpu_torch.cli.make_synth_data`` with
    ``SYNTH_ARGS`` (64 train, 32 eval, 32 Armo, 16 FreiHAND TSV): every
    file's SHA-256 equal to the digests of the JAX CLI's tree
    (``tests/fixtures/make_synth_digests.json``, which a CPU test checks;
-   this machine's cv2 may differ and is not used); host img/s;
-9b. host ms of one 224x224 RGB JPEG encode at quality 95 and of one
-   decode, beside phase 1b's;
+   this machine's cv2 may differ and is not used);
+9b. a 224x224 RGB JPEG encoded at quality 95 decodes to its shape;
 9c. ``cli.train`` (SimpleBaseline ResNet-50, bs32, bf16, 1 epoch) on 9a's
    LightHand tree with overlays on: the train overlays at iterations 0 and
-   1 and the val overlay at 0, each decoding to 256x512x3; K1 2 and K2 1
-   launches; the epoch's seconds and host ms per overlay;
+   1 and the val overlay at 0, each decoding to 256x512x3 and logged once;
+   K1 2 and K2 1 launches;
 9d. ``cli.eval --plt --plt_max 8`` on 9a's Armo tree with 9c's
    checkpoint: exactly 8 overlays, all 32 rows in evaluation.json;
 9e. ``python -m lighthand_tpu_torch.cli.make_lighthand`` over
@@ -207,23 +193,21 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    package's cv2 5.0.0 drawings (``tests/fixtures/overlay_digests.json``);
    the ``.png`` route decoding to its pixels; a line saying that the two
    Matplotlib figure functions are tested on the CPU only;
-9h. the mesh renderer: the rasterizer kernel (``csrc/rasterize.cu``)
-   against its plain twin on the card, bit for bit, at 800x600 and
-   224x224 on a MANO-sized procedural mesh with coplanar duplicate faces,
-   and on ``raster_edge_cases`` at both of the wrapper's geometries (a tile
-   meeting more faces than its list holds, a face larger than a tile,
-   faces off the image, 1x1 and 17x13 images); at most 2 kernels a call
-   and no allocation a pixel but the image;
-   ``Renderer.render`` and ``render_vertex_color`` end to end on the card
-   (one rasterizer launch each) against the CPU; the kernel's times beside
-   the twin's and its bound (the ``rasterize`` row of the kernels line);
 9i. the captions on the host: ``utils/vis3d.py:draw_text`` and
    ``utils/visualize.py:put_text`` (cv2 5.0's FontFace text: Rubik read by
    ``utils/font.py``, rasterized and blended by ``csrc/text.cpp``) on
    ``text_drawings``' seeded cases, every caption equal to the stored
    digests of the JAX package's and cv2 5.0.0's
-   (``tests/fixtures/text_digests.json``); the host ms of one
-   ``draw_text`` call (no kernel: the kernels line is unchanged);
+   (``tests/fixtures/text_digests.json``);
+9h. the mesh renderer: the rasterizer kernel (``csrc/rasterize.cu``)
+   against its plain twin on the card, bit for bit, at 800x600 and
+   224x224 on a MANO-sized procedural mesh with coplanar duplicate faces,
+   and on ``raster_edge_cases`` at both of the wrapper's geometries (a tile
+   meeting more faces than its list holds, a face larger than a tile,
+   faces off the image, 1x1 and 17x13 images); ``Renderer.render`` and
+   ``render_vertex_color`` end to end on the card (one rasterizer launch
+   each) against the CPU; at most 2 kernels a call and no allocation a
+   pixel but the image;
 10a. fine-tuning and scoring: phase 4's trained HRNet-W32 (256x256, bs32,
    bf16) in a state whose stem and ``layer1`` are frozen
    (``freeze_mask``, ``create_train_state(trainable=...)``), 3 fused
@@ -234,7 +218,7 @@ Phases (any failure raises, exits nonzero and prints no ok line):
    mm), ``pck_2d_visible``, ``pck_curve`` over the offline eval's pckb and
    mm grids and ``pck_3d`` on a lifted, jittered copy of the joints all
    equal, ``soft_argmax_preds`` within 1e-4 px, the keypoint losses within
-   1e-5 relative; the steps' ms and the scores printed;
+   1e-5 relative;
 10b. single-sample targets: ``generate_target`` on CUDA joints at J=21,
    H=64, stride 4, and at H=50, stride 3.0 with [J, 3] joints and one
    joint off the map: one K2 launch a call, maps within 1e-5 of the plain
@@ -242,82 +226,40 @@ Phases (any failure raises, exits nonzero and prints no ok line):
 10c. the jittering preprocessor: ``DevicePreprocessor(jitter=True)`` on a
    u8 bs32 256x256 batch on the card and on the CPU with the same
    injected draws (every op order), f32 out, within 3e-4 in normalised
-   units (the chain's bound, phase 4c); no kernel launched; its device ms
-   (the profiler's kernel sum) beside K1's at the same batch;
+   units (the chain's bound, phase 4c); no kernel launched;
 11. the measurement entry points (``bench_torch.py``, ``tools/
-   *_torch.py``): 11a ``bench_torch.measure`` on the headline (HRNet-W32,
-   256x256, bs128, bf16, 4 microbatches a dispatch) with 2 measured
-   dispatches: finite positive img/s, finite loss, K1 launched (warm-ups +
-   measured + blocked) x 4 times; 11b every ``EXTRA_CONFIGS`` entry at one
-   warm-up, one measured and one blocked dispatch, each with its peak
-   memory and its launches (int8_fwd: 292 int8 convs and one weight
-   quantize a forward); 11c the serving bench (bf16 and int8_fwd predict,
-   bs128) at 2 warm-up calls (eager, then the capture), 1 measured and 1
-   blocked call, with the int8
-   kernels' launches; 11d ``profile_step_torch`` over 2 profiled
-   dispatches of the headline: K1 in the kernel ranking (its count, 8 if
-   no event is dropped, printed, not checked), the families and the
-   dropped-event share; 11e ``prewarm_cache_torch`` in a subprocess over
-   a tree like phase 6b's: the caches full afterwards and CUDA never
-   initialised in the subprocess;
+   *_torch.py``) run and count their launches: 11a ``bench_torch.measure``
+   on the headline (HRNet-W32, 256x256, bs128, bf16, 4 microbatches a
+   dispatch) with 2 measured dispatches: finite positive img/s, finite
+   loss, K1 launched (warm-ups + measured + blocked) x 4 times; 11b every
+   ``EXTRA_CONFIGS`` entry at one warm-up, one measured and one blocked
+   dispatch, each with its launches (int8_fwd: 292 int8 convs and one
+   weight quantize a forward); 11c the serving bench (bf16 and int8_fwd
+   predict, bs128) at 2 warm-up calls (eager, then the capture), 1
+   measured and 1 blocked call, with the int8 kernels' launches; 11d
+   ``profile_step_torch`` over 2 profiled dispatches of the headline: K1
+   in the kernel ranking (its count, 8 if no event is dropped, printed,
+   not checked); 11e ``prewarm_cache_torch`` in a subprocess over a tree
+   like phase 6b's: the caches full afterwards and CUDA never initialised
+   in the subprocess;
 7. reference: the trained W32 in f32 on the card against the same
    weights on the CPU at 64x64, atol 2e-4 / rtol 1e-3 (the tolerances the
    CPU tests hold the port's CPU forward to against JAX), with both TF32
    switches set True beforehand and only the f32 policy's
    ``core/dtypes.py:numerics`` around the forward: it fails if that
    context does not make the convs full f32;
-8. kernel times beside their plain twins' and their bounds, at the main
-   path's batch (32) and at the bench's (128): the eager call time (CUDA
-   events around 20 back-to-back calls, over 20) and the device time (the
-   call captured once in a CUDA graph and replayed 20 times between two
-   events, or the profiler's kernel time where capture refuses it); at
-   B=32, whose ~30 MB fit in the 50 MB L2, both again with the L2 flushed
-   by a 128 MB write before each call. The B=128 figures make the
-   ``{"kernels": ...}`` JSON line, whose ``launches`` add up the launches of
-   phases 4-5, 4b, 5b, 4c, 4d, 6, 6b, 6c, 6d, 6e, 6f, 9c, 9d, 10a, 10b and
-   11a-11d
-   (``bench`` 11a-11b, ``serving`` 11c, ``profile`` 11d; each
-   also under ``launches_by_path``; each path's counts are zeroed just
-   before it and read just after); the rasterizer's row is phase 9h's, its
-   launches those of 9h's renders;
-8b. both int8 kernels at the heaviest conv shape (by operations a
-   forward) of ResNet-50 and of HRNet-W32, and at each model's Cin-3 stem
-   (the stem path; the ``stems`` of the ``int8_conv`` row), batch 32, bf16
-   activations:
-   eager and device time, the twin's time and the bound (int8 tensor-core
-   operations or bytes, bf16 in and out, for the conv; 5 bytes a weight
-   for the weight quantize, here a group of one); for the conv, the GEMM
-   of ``torch._int_mm`` on the pre-quantized im2col of the same operands,
-   K zero-padded to a multiple of 8 (checked equal to the kernel), and
-   cuDNN's bf16 conv of the shape; the
-   shape with more operations a call makes the kernels line's
-   ``int8_conv`` row;
 8c. the eval forward of ResNet-50 and HRNet-W32 at bs32 under bf16 and
-   int8_fwd, with the profiler's device time by kernel, the device's busy
-   share of it and its count of device kernels a forward, which must not
-   be larger under int8_fwd than under bf16;
-8d. the grouped weight quantize over each whole model's weights (292 of
-   W32, 53 of ResNet-50): eager ms, device ms in a replayed CUDA graph,
-   its byte bound, the twin's ms and the host us a call, beside the same
-   weights quantized a launch a conv (eager and device ms); the grouped
-   launch over W32's weights makes the kernels line's ``quantize_weight``
-   row. Then the quantized convs of a forward, every distinct shape of
-   both nets at bs32 weighted by its uses: device ms of the conv alone
-   (plus the grouped launch: a forward's quantized convs) and with a
-   quantize a conv, each shape's plan, and the host us a call of
-   ``quant_forward`` (its weights quantized already, and quantizing its
-   own) beside a bf16 conv with its weight cast.
+   int8_fwd: the profiler's count of device kernels a forward must not be
+   larger under int8_fwd than under bf16.
    The last line is the ok line.
 
-TF32: phases 1 to 10 run with torch's defaults (``cudnn.allow_tf32`` True,
+TF32: phases 1 to 11 run with torch's defaults (``cudnn.allow_tf32`` True,
 ``cuda.matmul.allow_tf32`` False), as a user's process does: the entry
 points' f32 runs set their own full f32 (``core/dtypes.py:numerics``), and
 no other phase compares an f32 convolution; the main path's convolutions
 are bf16, which TF32 does not touch. Phase 7 sets both True and relies on
-the policy's context. Phases 8 to 8d, which only time kernels, run with
-both False.
+the policy's context; phase 8c runs with both False.
 """
-
 from __future__ import annotations
 
 import contextlib
@@ -331,141 +273,54 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 
-# Published peaks (NVIDIA data sheets, dense): memory bytes/s, f32
-# (non-tensor-core) operations/s, int8 tensor-core operations/s and f64
-# (non-tensor-core) operations/s, keyed by a substring of the card's name.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 1513e12, 26e12),
-    "H100 NVL": (3.9e12, 60e12, 1671e12, 30e12),
-    "H100": (3.35e12, 67e12, 1979e12, 34e12),  # SXM
-}
-# f32 operations per pixel of K1's function: u8/255 (3), brightness (9),
-# contrast incl. its gray mean (21), saturation (20), hue (~42), the
-# enable gate (9), channel noise (9), normalize (6).
-K1_OPS_PER_PIXEL = 119
-TARGET_OPS_PER_ELEMENT = 10  # 2 sub, 2 abs+cmp, 2 mul, add, mul, exp
-# f32 operations per weight of the weight quantize: |w| and its max, then
-# the division, the rounding and the two-sided clamp.
-WEIGHT_OPS_PER_VALUE = 6
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(REPO, "tests"))
 
-B_KERNEL, B_TRAIN, SIZE, JOINTS, HM = 128, 32, 256, 21, 64
+from torch_fixtures import (  # noqa: E402
+    ACT_CLIP,
+    B_KERNEL,
+    B_TRAIN,
+    BN_MODELS,
+    DIGESTS,
+    GEOMETRY_ATOL,
+    GEOMETRY_RTOL,
+    HM,
+    JOINTS,
+    OVERLAY_DIGESTS,
+    POSE_CATEGORIES,
+    PROCRUSTES_ATOL,
+    RENDER_SIZES,
+    SIZE,
+    SYNTH_ARGS,
+    TEXT_DIGESTS,
+    bn_inputs,
+    bn_shapes,
+    heaviest_shape,
+    int8_inputs,
+    int8_twin,
+    k1_inputs,
+    load_manifest,
+    model_quant_weights,
+    overlay_digests,
+    overlay_drawings,
+    procedural_hand_mesh,
+    quant_conv_shapes,
+    raster_edge_cases,
+    text_drawings,
+    tree_digests,
+    write_armhand_tree,
+    write_armo_tree,
+    write_freihand_tree,
+    write_gan_tree,
+    write_lighthand_tree,
+)
+
 F32_ATOL = 1e-5
-ACT_CLIP = 8.0  # the int8_fwd policy's static activation clip
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
-
-
-def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    print(f"note: no peak table entry for {name!r}; using H100 SXM's")
-    return PEAKS["H100"]
-
-
-def bound_ms(nbytes: float, ops: float, name: str, int8: bool = False,
-             f64: bool = False):
-    """The least time for the work: bytes over the memory rate or the
-    operations over the peak rate of their type (f32, int8 tensor-core
-    or f64 operations), whichever is larger."""
-    bw, flops, int8_ops, f64_ops = peaks(name)
-    rate = int8_ops if int8 else f64_ops if f64 else flops
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _events():
-    import torch
-
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-
-
-def eager_ms(fn, calls: int = 20, warmup: int = 5) -> float:
-    """Events around ``calls`` back-to-back calls, over ``calls``: launch
-    cost and device time together, as a caller sees them."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = _events()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def capture(fn):
-    """``fn`` captured once in a CUDA graph after a warm-up on a side
-    stream, or None (with the reason printed) where capture refuses it."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            fn()
-    except RuntimeError as exc:
-        print(f"note: CUDA graph capture refused: {exc}")
-        return None
-    return graph
-
-
-def device_ms(fn, graph, calls: int = 20):
-    """(ms per call on the device, how it was measured): graph replays
-    between two events, or the profiler's summed kernel time."""
-    import torch
-
-    if graph is not None:
-        graph.replay()
-        torch.cuda.synchronize()
-        start, end = _events()
-        start.record()
-        for _ in range(calls):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / calls, "cuda graph"
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages())
-    return us / 1e3 / calls, "profiler"
-
-
-def flushed_ms(run, flush, calls: int = 20) -> float:
-    """Mean of ``calls`` calls of ``run``, each timed by its own events
-    after ``flush`` has evicted the L2 cache."""
-    import torch
-
-    run()
-    pairs = []
-    for _ in range(calls):
-        flush()
-        start, end = _events()
-        start.record()
-        run()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / calls
 
 
 def bf16_ulp(x):
@@ -473,362 +328,6 @@ def bf16_ulp(x):
 
     a = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
-
-
-def k1_inputs(b: int, seed: int, h: int = SIZE, w: int = SIZE,
-              cols: int = 2, order=None, njoints: int = JOINTS,
-              device="cuda"):
-    """u8 images, joints and packed draws: the first half of the batch (its
-    larger half) has
-    jitter on, every 4th sample noise on, and sample i takes the i-th of
-    the 24 op orders (or row i of ``order``), so every op sits in every
-    slot (hue before contrast included) among the jittered samples."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, size=(b, h, w, 3), dtype=np.uint8)
-    joints = rng.uniform(-40, max(h, w) + 40, size=(b, njoints, cols))
-    perms = list(itertools.permutations(range(4)))
-    if order is None:
-        order = [perms[i % 24] for i in range(b)]
-    order = np.array(order, np.float32)
-    aug = (np.arange(b) < (b + 1) // 2).astype(np.float32)
-    noise = (np.arange(b) % 4 == 1).astype(np.float32)
-    pn = rng.uniform(0.6, 1.4, (b, 3)) * noise[:, None] + (1 - noise[:, None])
-    params = np.concatenate([aug[:, None], rng.uniform(0.5, 1.5, (b, 3)),
-                             rng.uniform(-0.5, 0.5, (b, 1)), order, pn], 1)
-    dev = torch.device(device)
-    return (torch.from_numpy(images).to(dev),
-            torch.from_numpy(joints.astype(np.float32)).to(dev),
-            torch.from_numpy(params.astype(np.float32)).to(dev))
-
-
-REPO = os.path.dirname(os.path.abspath(__file__))
-FIXTURES = os.path.join(REPO, "tests", "fixtures", "images")
-
-
-def load_manifest() -> list:
-    """The committed fixture images (``tests/fixtures/images``): file,
-    kind, joints and the SHA-256 of cv2's decode, gray decode, resize to
-    256 and warp to 224 (``tests/fixtures/make_images.py``)."""
-    with open(os.path.join(FIXTURES, "manifest.json")) as f:
-        images = json.load(f)["images"]
-    for e in images:
-        e["path"] = os.path.join(FIXTURES, e["file"])
-    return images
-
-
-def _square_jpegs(size: int = 224) -> list:
-    return [e for e in load_manifest()
-            if e["kind"] == "jpeg" and e["shape"][:2] == [size, size]]
-
-
-def write_lighthand_tree(root: str, n_train: int, n_eval: int) -> None:
-    """A LightHand99K tree: ``{root}/LightHand/annotations/{phase}/
-    CISLAB_{phase}_data.json`` whose records point at the 224x224 fixture
-    JPEGs (in turn) and carry their joints (224-px space, as stored)."""
-    jpegs = _square_jpegs()
-    for phase, n in (("train", n_train), ("eval", n_eval)):
-        d = os.path.join(root, "LightHand", "annotations", phase)
-        os.makedirs(d, exist_ok=True)
-        recs = [{"file_name": jpegs[i % len(jpegs)]["path"],
-                 "joint_2d": jpegs[i % len(jpegs)]["joints"]}
-                for i in range(n)]
-        with open(os.path.join(d, f"CISLAB_{phase}_data.json"), "w") as f:
-            json.dump(recs, f)
-
-
-def write_freihand_tree(directory: str, n: int) -> str:
-    """A FreiHAND TSV tree of ``n`` rows from the fixture JPEG bytes
-    (base64 in the image TSV, center/scale/2d joints in the label TSV);
-    returns the yaml descriptor's path."""
-    import base64
-
-    from lighthand_tpu_torch.data.tsv import tsv_writer
-
-    jpegs = _square_jpegs()
-    img_rows, label_rows, hw_rows = [], [], []
-    for i in range(n):
-        e = jpegs[i % len(jpegs)]
-        with open(e["path"], "rb") as f:
-            b64 = base64.b64encode(f.read()).decode("ascii")
-        key = f"{i:05d}"
-        img_rows.append([key, b64])
-        label_rows.append([key, json.dumps([{
-            "center": [112.0 + i % 5, 112.0 - i % 3],
-            "scale": 0.9 + 0.05 * (i % 4), "2d_joints": e["joints"]}])])
-        hw_rows.append([key, json.dumps([{"height": 224, "width": 224}])])
-    os.makedirs(directory, exist_ok=True)
-    for name, rows in (("img", img_rows), ("label", label_rows),
-                       ("hw", hw_rows)):
-        tsv_writer(rows, os.path.join(directory, f"train.{name}.tsv"))
-    path = os.path.join(directory, "train.yaml")
-    with open(path, "w") as f:
-        f.write("img: train.img.tsv\nlabel: train.label.tsv\n"
-                "hw: train.hw.tsv\n")
-    return path
-
-
-def write_gan_tree(root: str, n: int) -> None:
-    """A GANeratedHands tree of ``n`` samples from the fixture PNGs:
-    ``noObject/0001/{i}_color.png`` + ``{i}_joint2D.txt``."""
-    import shutil
-
-    pngs = [e for e in load_manifest() if e["kind"] == "png"]
-    d = os.path.join(root, "GANeratedHands_Release", "data", "noObject",
-                     "0001")
-    os.makedirs(d, exist_ok=True)
-    for i in range(1, n + 1):
-        e = pngs[i % len(pngs)]
-        shutil.copyfile(e["path"], os.path.join(d, f"{i:04d}_color.png"))
-        with open(os.path.join(d, f"{i:04d}_joint2D.txt"), "w") as f:
-            f.write(",".join(f"{v:.3f}" for xy in e["joints"] for v in xy)
-                    + ",")
-
-
-POSE_CATEGORIES = ("Standard", "Occlusion_by_Pinky", "Occlusion_by_Thumb",
-                   "Occlusion_by_Both")
-
-
-def write_armo_tree(root: str, n: int, n_bad: int = 2) -> None:
-    """An Armo eval tree: ``{root}/Armo_hand_dataset/rgb/{id}.jpg`` (the
-    224x224 fixture JPEGs in turn) and ``annotations.json`` with ``n``
-    records cycling through the four pose categories, normalized joints,
-    every 5th record's last 1-3 joints not visible, then ``n_bad`` records
-    with fewer than 21 coordinates, which the reader drops."""
-    import shutil
-
-    jpegs = _square_jpegs()
-    rgb = os.path.join(root, "Armo_hand_dataset", "rgb")
-    os.makedirs(rgb, exist_ok=True)
-    annos = {}
-    for i in range(n + n_bad):
-        e = jpegs[i % len(jpegs)]
-        shutil.copyfile(e["path"], os.path.join(rgb, f"im{i:04d}.jpg"))
-        coords = [[x / 224.0, y / 224.0] for x, y in e["joints"]]
-        hidden = 1 + i % 3 if i % 5 == 0 else 0
-        visible = [1.0] * (21 - hidden) + [0.0] * hidden
-        if i >= n:
-            coords = coords[:10 + i - n]
-        annos[f"k{i:04d}"] = {"coordinates": coords, "visible": visible,
-                              "pose_ctgy": POSE_CATEGORIES[i % 4],
-                              "image_id": f"im{i:04d}"}
-    with open(os.path.join(root, "Armo_hand_dataset", "annotations.json"),
-              "w") as f:
-        json.dump(annos, f)
-
-
-# phase 9a's make_synth_data arguments, and the digests of the tree the
-# JAX package's CLI writes for them (tests/fixtures/make_digests.py)
-SYNTH_ARGS = ("--n-train", "64", "--n-eval", "32", "--n-armo", "32",
-              "--n-frei", "16")
-DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                       "fixtures", "make_synth_digests.json")
-
-
-# phase 9g's drawings: the digests of what the JAX package draws for them
-# with cv2 5.0.0 (tests/fixtures/make_overlay_digests.py)
-OVERLAY_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "tests", "fixtures", "overlay_digests.json")
-
-
-def array_digest(a) -> str:
-    """SHA-256 of an array's shape, dtype and bytes."""
-    import hashlib
-
-    import numpy as np
-
-    a = np.ascontiguousarray(a)
-    return hashlib.sha256(f"{a.shape} {a.dtype} ".encode()
-                          + a.tobytes()).hexdigest()
-
-
-def overlay_drawings(line, circle, arrow, landmarks, vis3d,
-                     out_dir: str) -> dict:
-    """{name: uint8 array, or bytes of a written file} of phase 9g's
-    drawings, made with ``line(img, p1, p2, color, thickness)``,
-    ``circle(img, centre, radius, color, thickness)``, ``arrow(img, p1, p2,
-    color, thickness)`` and the ``landmarks`` and ``vis3d`` modules given
-    (the port's, or the JAX package's with cv2's primitives), from seeded
-    inputs: 40 thick lines, 40 outline circles and 40 arrows each on one
-    canvas (ends and centres off the image among them), the landmark
-    overlay twice (the default specs; per-landmark and per-connection
-    specs), the axis triad twice, and ``vis_keypoints`` on HWC and CHW
-    input with its JPEG file written into ``out_dir``."""
-    import numpy as np
-
-    rng = np.random.default_rng(17)
-    out = {}
-
-    def pt():
-        return tuple(int(v) for v in rng.integers(-60, 190, 2))
-
-    for name, draw in (("lines", line), ("circles", circle),
-                       ("arrows", arrow)):
-        img = np.zeros((96, 128, 3), np.uint8)
-        for _ in range(40):
-            color = tuple(int(v) for v in rng.integers(0, 256, 3))
-            thickness = int(rng.integers(1, 6))
-            if name == "circles":
-                draw(img, pt(), int(rng.integers(0, 40)), color, thickness)
-            else:
-                draw(img, pt(), pt(), color, thickness)
-        out[name] = img
-    spec = landmarks.DrawingSpec
-    for k in range(2):
-        img = rng.integers(0, 256, size=(256, 256, 3), dtype=np.uint8)
-        lms = rng.uniform(-0.1, 1.1, size=(21, 4))
-        kw = {} if k == 0 else {
-            "landmark_drawing_spec": {
-                i: spec(color=(i, 9 * i, 255 - i), thickness=1 + i % 4,
-                        circle_radius=i % 7) for i in range(21)},
-            "connection_drawing_spec": {
-                c: spec(color=(200, 7 * c[1], 30), thickness=1 + c[1] % 5)
-                for c in landmarks.HAND_CONNECTIONS}}
-        landmarks.draw_landmarks(img, lms, landmarks.HAND_CONNECTIONS, **kw)
-        out[f"landmarks_{k}"] = img
-        img = rng.integers(0, 256, size=(240, 320, 3), dtype=np.uint8)
-        # a rotation from a unit quaternion: no trigonometry, no BLAS
-        w, x, y, z = (float(v) for v in rng.normal(size=4))
-        n = math.sqrt(w * w + x * x + y * y + z * z)
-        w, x, y, z = w / n, x / n, y / n, z / n
-        rot = np.array(
-            [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
-              2 * (x * z + w * y)],
-             [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
-              2 * (y * z - w * x)],
-             [2 * (x * z - w * y), 2 * (y * z + w * x),
-              1 - 2 * (x * x + y * y)]])
-        landmarks.draw_axis(img, rot, np.array([0.02, -0.01, -0.5]),
-                            axis_length=0.15,
-                            axis_drawing_spec=spec(thickness=2 + k))
-        out[f"axis_{k}"] = img
-    skeleton = vis3d.hand_skeleton_21()
-    for layout in ("hwc", "chw"):
-        img = rng.integers(0, 256, size=(224, 224, 3), dtype=np.uint8)
-        kps = rng.uniform(-10, 234, size=(21, 2))
-        score = rng.uniform(0, 1, 21)
-        if layout == "chw":
-            img = img.transpose(2, 0, 1).astype(np.float64)
-        name = f"vis_keypoints_{layout}"
-        out[name] = vis3d.vis_keypoints(img, kps, score, skeleton,
-                                        filename=f"{name}.jpg",
-                                        save_path=out_dir)
-        with open(os.path.join(out_dir, f"{name}.jpg"), "rb") as f:
-            out[f"{name}.jpg"] = f.read()
-    return out
-
-
-def overlay_digests(drawings: dict) -> dict:
-    import hashlib
-
-    return {k: (hashlib.sha256(v).hexdigest() if isinstance(v, bytes)
-                else array_digest(v)) for k, v in sorted(drawings.items())}
-
-
-# phase 9i's captions: the digests of what the JAX package's draw_text and
-# cv2 5.0.0's FontFace putText draw (tests/fixtures/make_text_digests.py)
-TEXT_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "tests", "fixtures", "text_digests.json")
-
-
-def text_drawings(draw_text, put_text) -> dict:
-    """{name: array} of phase 9i's captions, made with ``draw_text(image,
-    content)`` and ``put_text(img, text, org, color, size, weight)`` (which
-    returns the pen's end) from seeded inputs: ``draw_text`` on four float
-    images with black letterbox margins and values out of [0, 1], with
-    float, numpy float, int, str and bool values and enough rows to run off
-    the bottom; ``put_text`` at sizes 8-24 and weights 300-900 over random
-    backgrounds and colours, with origins that cut the text at each edge,
-    on a 1x1 and a 17x13 image too; the pens' ends as one array."""
-    import numpy as np
-
-    rng = np.random.default_rng(23)
-    out = {}
-    for i, (h, w) in enumerate(((96, 128), (64, 200), (40, 90), (256, 256))):
-        img = rng.uniform(-0.2, 1.2, (h, w, 3))
-        img[:6 + 4 * i] = 0.0
-        img[:, :5 + i] = 0.0
-        content = {"pck": float(rng.uniform()), "auc": np.float64(0.5),
-                   "loss": np.float32(rng.uniform()), "epoch": i,
-                   "name": "hand", "ok": bool(i % 2)}
-        for k in range(3 * i):
-            content[f"row{k}"] = float(rng.uniform(-10, 10))
-        out[f"draw_text_{i}"] = draw_text(img, content)
-    letters = ("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
-               "0123456789 !\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
-               "\u00c0\u00c5\u00c9\u00d1\u00d6\u00df\u00e5\u00e7"
-               "\u00ea\u00f1\u00f6\u00ff")
-    pens = []
-    cases = [((40, 140), 8, 300, (4, 30)), ((40, 140), 11, 400, (-6, 12)),
-             ((40, 140), 16, 550, (90, 45)), ((48, 160), 24, 700, (10, 8)),
-             ((40, 140), 13, 900, (30, 38)), ((40, 140), 20, 400, (120, 20)),
-             ((1, 1), 11, 400, (0, 5)), ((13, 17), 11, 400, (-2, 10))]
-    for k, (shape, size, weight, org) in enumerate(cases):
-        canvas = rng.integers(0, 256, shape + (3,)).astype(np.uint8)
-        text = "".join(rng.choice(list(letters), 14))
-        color = tuple(int(c) for c in rng.integers(0, 256, 3))
-        pens.append(put_text(canvas, text, org, color, size, weight))
-        out[f"put_text_{k}_{size}_{weight}"] = canvas
-    out["put_text_pens"] = np.array(pens, dtype=np.int64)
-    return out
-
-
-def write_armhand_tree(root: str, n: int = 8, seed: int = 3) -> str:
-    """A raw "ArmHand" capture tree for ``cli.make_lighthand`` (as
-    ``tests/test_make_lighthand.py`` builds one): camera 1 at -400 mm on z,
-    focal 500, a seeded joint cloud near the axis per frame, the 224x224
-    fixture JPEGs in turn as the captures; then a camera-0 record (skipped)
-    and a record whose image is missing (skipped). Returns the phase."""
-    import shutil
-
-    import numpy as np
-
-    phase = "train"
-    rng = np.random.default_rng(seed)
-    jpegs = _square_jpegs()
-    anno = os.path.join(root, "annotations", phase)
-    cam_dir = os.path.join(root, "images", phase, "Capture0", "cam1")
-    os.makedirs(anno, exist_ok=True)
-    os.makedirs(cam_dir, exist_ok=True)
-    camera = {"0": {"focal": {"1": [500.0, 500.0]},
-                    "campos": {"1": [0.0, 0.0, -400.0]},
-                    "camrot": {"1": np.eye(3).tolist()}}}
-    images, joints3d = [], {}
-    for i in range(n + 2):
-        images.append({"camera": "0" if i == n else "1", "frame_idx": i,
-                       "file_name": f"Capture0/cam1/{i:05d}.jpg"})
-        pts = rng.uniform(-25, 25, size=(21, 3))
-        pts[:, 2] = 0.0
-        joints3d[str(i)] = {"world_coord": pts.tolist()}
-        if i < n:
-            shutil.copyfile(jpegs[i % len(jpegs)]["path"],
-                            os.path.join(cam_dir, f"{i:05d}.jpg"))
-    for name, obj in (("camera", camera), ("joint_3d", {"0": joints3d}),
-                      ("data", {"images": images})):
-        with open(os.path.join(anno, f"CISLAB_{phase}_{name}.json"),
-                  "w") as f:
-            json.dump(obj, f)
-    return phase
-
-
-def tree_digests(root: str) -> dict:
-    """{path under ``root``: SHA-256} of every file of a tree; JSON files
-    are hashed with ``root`` replaced by ``{out}`` (they name paths)."""
-    import hashlib
-
-    out = {}
-    for d, _, files in os.walk(root):
-        for name in files:
-            path = os.path.join(d, name)
-            with open(path, "rb") as f:
-                data = f.read()
-            if name.endswith(".json"):
-                data = data.replace(root.encode(), b"{out}")
-            out[os.path.relpath(path, root)] = hashlib.sha256(
-                data).hexdigest()
-    return dict(sorted(out.items()))
 
 
 def _scalars(run_dir: str) -> list:
@@ -860,29 +359,26 @@ def bn_launches(n_bn: int, train: int = 0, evals: int = 0) -> dict:
 
 
 def off(counts: dict, want: dict) -> bool:
-    """Whether a count that ``want`` names differs from it (a path whose
-    BatchNorm forwards a phase does not count out leaves those counts to
-    the kernels line's sums)."""
+    """Whether a count that ``want`` names differs from it (a phase leaves
+    out the counts it cannot name)."""
     return any(counts[name] != n for name, n in want.items())
 
 
 def run_cli(argv: list, counters, tag: str, entry: str = "train") -> tuple:
     """One call of the training (or eval) CLI's ``main``, every kernel's
     count zeroed just before it and read just after; its output is printed
-    with ``tag``. Returns (exit code, output, wall seconds, launches)."""
+    with ``tag``. Returns (exit code, output, launches)."""
     import importlib
 
     cli = importlib.import_module(f"lighthand_tpu_torch.cli.{entry}")
     zero(counters)
     out = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
-    wall = time.perf_counter() - t0
     counts = read(counters)
     text = out.getvalue()
     print("\n".join(f"[{tag}] {line}" for line in text.splitlines()))
-    return rc, text, wall, counts
+    return rc, text, counts
 
 
 def check_run(what: str, rc: int, text: str, train: dict, valid: dict,
@@ -899,21 +395,19 @@ def check_run(what: str, rc: int, text: str, train: dict, valid: dict,
         fail(f"{what}: non-finite losses {losses}")
 
 
-def cli_phase(counters) -> tuple:
-    """Phase 6: two runs of the training CLI; returns each kernel's launches
-    over both runs, and run A's epoch wall seconds and img/s."""
+def cli_phase(counters) -> None:
+    """Phase 6: two runs of the training CLI."""
     argv = ["--root", "simplebaseline/ours", "--name", "smoke", "--synthetic",
             "--batch_size", str(B_TRAIN), "--num_our", "128",
             "--steps-per-dispatch", "3", "--count", "5", "--yes"]
     run_dir = os.path.join("output", "simplebaseline", "ours", "smoke")
-    launches = {name: 0 for name in counters}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         os.chdir(tmp)
         try:
             seen, best = 0, None
             for tag, extra, epochs in (("A", ["--reset"], 2), ("B", [], 3)):
-                rc, text, wall, counts = run_cli(
+                rc, text, counts = run_cli(
                     argv + extra + ["--epoch", str(epochs)], counters,
                     f"cli {tag}")
                 rows = _scalars(run_dir)[seen:]
@@ -922,12 +416,7 @@ def cli_phase(counters) -> tuple:
                 ran = list(range(first, epochs))
                 train, valid = (_by_epoch(rows, "Loss/train"),
                                 _by_epoch(rows, "Loss/valid"))
-                secs = _by_epoch(rows, "perf/epoch_seconds")
-                ips = _by_epoch(rows, "perf/images_per_sec")
-                disp = _by_epoch(rows, "perf/dispatch_ms")
-                print(f"[cli {tag}] {wall:.1f} s in main; epochs {ran}; "
-                      f"epoch wall s {secs}; epoch img/s {ips}; K=3 "
-                      f"dispatch device ms {disp}; launches {counts}")
+                print(f"[cli {tag}] epochs {ran}; launches {counts}")
                 check_run(f"CLI run {tag}", rc, text, train, valid, ran)
                 if f"Start_epoch: {first}" not in text:
                     fail(f"CLI run {tag} did not start at epoch {first}")
@@ -951,27 +440,14 @@ def cli_phase(counters) -> tuple:
                             run_dir, "checkpoint-good", "state.pt"))):
                     fail(f"CLI run {tag}: bad checkpoint marker {marker}")
                 best = marker["epoch"]
-                for name in launches:
-                    launches[name] += counts[name]
-                if tag == "A":
-                    figures = {"epoch_s": secs, "img_s": ips}
-                    steady = [ms for e, ms in disp.items() if e > 0]
-                else:
-                    steady += list(disp.values())
-            print(f"[cli] steady K=3 dispatches: median "
-                  f"{statistics.median(steady):.2f} ms device time "
-                  f"({len(steady)} dispatches, 3 x {B_TRAIN} images each)")
         finally:
             os.chdir(cwd)
-    return launches, figures
 
 
-def codec_phase() -> dict:
+def codec_phase() -> None:
     """Phase 1b: every fixture through the port's codec (decode, gray
     decode, resize to 256, warp to 224) against the SHA-256 of cv2's result
-    stored beside it; all must be equal. Returns host ms per call of the
-    224x224 4:2:0 q95 JPEG decode, its resize to 256 and its warp, one
-    thread, mean of 200 calls."""
+    stored beside it; all must be equal."""
     import hashlib
 
     import numpy as np
@@ -992,35 +468,17 @@ def codec_phase() -> dict:
         if bad:
             fail(f"codec: {e['file']} differs from cv2 in {bad}")
         checked += len(got)
-    ref = next(e for e in load_manifest() if e["file"] == "hand_420_q95.jpg")
-    with open(ref["path"], "rb") as f:
-        data = f.read()
-    img = imageio.imdecode_rgb(data)
-    mat = np.asarray(ref["warp"])
-    times = {}
-    for name, fn in (("decode_224_jpeg", lambda: imageio.imdecode_rgb(data)),
-                     ("resize_224_to_256",
-                      lambda: imageio.resize_linear(img, 256)),
-                     ("warp_224", lambda: imageio.warp_affine_inverse(
-                         img, mat, (224, 224)))):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        times[name] = (time.perf_counter() - t0) / 200 * 1e3
     print(f"[codec] {checked} results of {len(load_manifest())} fixtures "
-          f"equal cv2's (bit-exact); host ms per call, one thread: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
-    return times
+          "equal cv2's (bit-exact)")
 
 
-def real_tree_phase(counters, tmp: str) -> tuple:
+def real_tree_phase(counters, tmp: str) -> None:
     """Phase 6b: the training CLI on a LightHand99K tree of the fixture
     JPEGs (128 train, 32 eval records), without --synthetic, 2 epochs.
     Checks the done line, finite losses for both epochs, K1 4 and K2 1
     launches an epoch, the decoded-crop cache's hit fraction 1.0 in epoch 2
     (train and eval) and that the cached rows epoch 2 read equal a fresh
-    decode of the tree. Returns the launches and the epoch figures."""
+    decode of the tree."""
     import numpy as np
 
     from lighthand_tpu_torch.config import parse_args
@@ -1041,7 +499,7 @@ def real_tree_phase(counters, tmp: str) -> tuple:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, text, wall, counts = run_cli(argv, counters, "real")
+        rc, text, counts = run_cli(argv, counters, "real")
         rows = _scalars(run_dir)
         with open(os.path.join(run_dir, "log.txt")) as f:
             log = f.read()
@@ -1050,10 +508,7 @@ def real_tree_phase(counters, tmp: str) -> tuple:
     finally:
         os.chdir(cwd)
     train, valid = _by_epoch(rows, "Loss/train"), _by_epoch(rows, "Loss/valid")
-    secs = _by_epoch(rows, "perf/epoch_seconds")
-    ips = _by_epoch(rows, "perf/images_per_sec")
-    print(f"[real] {wall:.1f} s in main; epoch wall s {secs}; epoch img/s "
-          f"{ips}; launches {counts}")
+    print(f"[real] launches {counts}")
     check_run("real-tree CLI", rc, text, train, valid, [0, 1])
     # K1 once per optimizer step, K2 once per eval batch, for 2 epochs
     want = {"fused_aug_targets": 2 * (128 // B_TRAIN),
@@ -1083,16 +538,15 @@ def real_tree_phase(counters, tmp: str) -> tuple:
                     and np.array_equal(a.joints, b.joints)
                     and a.aug_enabled == b.aug_enabled):
                 fail(f"real-tree cache row {i} differs from a fresh decode")
-    print(f"[real] the 160 cached rows epoch 2 read equal a fresh decode")
-    return counts, {"epoch_s": secs, "img_s": ips}
+    print("[real] the 160 cached rows epoch 2 read equal a fresh decode")
 
 
-def frei_and_mix_phase(state, counters, tmp: str) -> dict:
+def frei_and_mix_phase(state, counters, tmp: str) -> None:
     """Phase 6c: a FreiHAND TSV tree of the fixture JPEG bytes read through
     the Loader (TSV engine bulk reads, base64, decode, the inverse-map
     warp; every row noise-enabled) into one fused step; then one
     ``per_sample`` fused step on a GAN + LightHand mix (max-combine targets
-    where ``hm_max`` is set). Returns the launches."""
+    where ``hm_max`` is set)."""
     import torch
 
     from lighthand_tpu_torch.data import ConcatSource, Loader
@@ -1132,92 +586,9 @@ def frei_and_mix_phase(state, counters, tmp: str) -> dict:
     if off(counts, {"fused_aug_targets": 2, "heatmap_targets": 0,
                     "int8_conv": 0, "quantize_weight": 0}):
         fail(f"frei+mix launches {counts}, expected K1 twice")
-    return counts
+
 
 # --------------------------------------------------------------- int8 conv
-
-
-def quant_conv_shapes(name: str) -> dict:
-    """{(Cin, H, W, Cout, k, stride): uses} of the quantized convs of model
-    ``name`` at SIZE x SIZE, read by hooks from a batch-1 forward on the
-    card (before any counted path)."""
-    import torch
-
-    from lighthand_tpu_torch.core.dtypes import DTypePolicy
-    from lighthand_tpu_torch.models import get_model
-    from lighthand_tpu_torch.models.layers import QuantConv2d
-
-    model = get_model(name, policy=DTypePolicy.int8_fwd()).eval().to(
-        "cuda", memory_format=torch.channels_last)
-    shapes = {}
-
-    def hook(mod, args):
-        x = args[0]
-        key = (x.shape[1], x.shape[2], x.shape[3], mod.out_channels,
-               mod.kernel_size[0], mod.stride[0])
-        shapes[key] = shapes.get(key, 0) + 1
-
-    for m in model.modules():
-        if isinstance(m, QuantConv2d):
-            m.register_forward_pre_hook(hook)
-    with torch.no_grad():
-        model(torch.zeros(1, 3, SIZE, SIZE, device="cuda").to(
-            memory_format=torch.channels_last))
-    return shapes
-
-
-def heaviest_shape(uses: dict):
-    """The conv shape of a model with the most operations a forward."""
-    return max(uses, key=lambda key: conv_ops(B_TRAIN, key) * uses[key])
-
-
-def conv_ops(n: int, shape) -> int:
-    """2 N Ho Wo Cout k^2 Cin: a multiply and an add per weight and pixel."""
-    cin, h, w, cout, k, s = shape
-    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
-    return 2 * n * ho * wo * cout * k * k * cin
-
-
-def int8_inputs(n: int, shape, seed: int, dtype=None, device="cuda"):
-    """A conv shape's operands on the card, drawn from ``seed``: activations
-    ``x`` [N, Cin, H, W] (channels_last) in ``dtype`` (bf16 by default), at
-    3 sigma with x * inv = k + 0.5 ties, values beyond +-act_clip and exact
-    zeros planted in the first values; f32 master weights [Cout, Cin, k, k]
-    (channels_last, as the models hold them on the card) with one all-zero
-    output channel (the 1e-8 floor)."""
-    import numpy as np
-    import torch
-
-    cin, h, w, cout, k, _ = shape
-    rng = np.random.default_rng(seed)
-    x = (rng.normal(size=(n, h, w, cin)) * 3).astype(np.float32)
-    inv = np.float32(127.0 / ACT_CLIP)
-    near = np.float32((np.arange(-127, 127) + 0.5) / inv)
-    ties = near[(near * inv) - np.floor(near * inv) == 0.5]
-    special = np.concatenate([ties, [ACT_CLIP, -ACT_CLIP, 8.5, -8.5, 100.0,
-                                     -100.0, 4.0, -4.0, 0.0, -0.0]])
-    flat = x.reshape(-1)
-    flat[:min(len(special), flat.size)] = special[:flat.size]
-    wt = (rng.normal(size=(cout, cin, k, k)) * 0.05).astype(np.float32)
-    wt[min(1, cout - 1)] = 0.0
-    dev = torch.device(device)
-    xt = torch.from_numpy(x).to(dev).to(dtype or torch.bfloat16)
-    return (xt.permute(0, 3, 1, 2),
-            torch.from_numpy(wt).to(dev).contiguous(
-                memory_format=torch.channels_last))
-
-
-def int8_twin(x, w_q, scale, stride, pad, out_dtype):
-    """The conv's plain twin on the card with cuDNN off: the float64 conv
-    then goes to im2col + cuBLAS DGEMM, exact on integers (no FFT or
-    Winograd)."""
-    import torch
-
-    from lighthand_tpu_torch.ops.kernels.int8_conv import int8_conv2d_plain
-
-    with torch.backends.cudnn.flags(enabled=False):
-        return int8_conv2d_plain(x, w_q, scale, ACT_CLIP, stride, pad,
-                                 out_dtype)
 
 
 def misaligned(x):
@@ -1256,16 +627,14 @@ INT8_RAGGED = [
 ]
 
 
-def int8_check_phase(shapes: dict) -> tuple:
+def int8_check_phase(shapes: dict) -> None:
     """Phase 2b: both int8 kernels against their twins, bit for bit (0
     differing values): the weight kernel's w_q, s_w and scale, then the
     conv (from the kernel's w_q and scale) on bf16 and f32 activations, in
     bf16 and f32 output; every distinct quantized conv shape of ResNet-50
     and HRNet-W32 at batch 32, and the ragged cases of ``INT8_RAGGED``.
     Every model stem (Cin not a multiple of 32) must take the stem path,
-    each ragged case its path, and the simple path must be reached.
-    Returns the largest |kernel - twin| of each kernel (0 where it
-    passes)."""
+    each ragged case its path, and the simple path must be reached."""
     import torch
 
     from lighthand_tpu_torch.ops.kernels.int8_conv import (
@@ -1333,7 +702,6 @@ def int8_check_phase(shapes: dict) -> tuple:
           f"on the stem path), {len(INT8_RAGGED)} ragged ones, and at batch "
           f"{B_KERNEL} {bench}; conv paths (cases x dtypes) {paths}; max |kernel -"
           f" twin| weights {err_w}, conv {err_c}")
-    return err_w, err_c
 
 
 def quant_module_phase() -> None:
@@ -1366,29 +734,6 @@ def quant_module_phase() -> None:
             if got.shape != want.shape or bad:
                 fail(f"QuantConv2d on the card differs from the CPU at "
                      f"{shape} {dtype}")
-
-
-def model_quant_weights(name: str, layout) -> list:
-    """The f32 master weights of model ``name``'s ``QuantConv2d`` modules
-    under int8_fwd, in ``modules()`` order (the order of its forward's
-    grouped quantize call), drawn by ``init_weights`` from a seed, with an
-    all-zero output channel in every seventh; on the card in ``layout``
-    (``channels_last``, as the models hold them there, or contiguous)."""
-    import torch
-
-    from lighthand_tpu_torch.core.dtypes import DTypePolicy
-    from lighthand_tpu_torch.models import get_model
-    from lighthand_tpu_torch.models.layers import init_weights
-
-    model = get_model(name, policy=DTypePolicy.int8_fwd())
-    init_weights(model, torch.Generator().manual_seed(11))
-    ws = []
-    for i, m in enumerate(model.quant_convs):
-        w = m.weight.detach().clone()
-        if i % 7 == 0:
-            w[min(1, w.shape[0] - 1)] = 0.0
-        ws.append(w.to("cuda", memory_format=layout))
-    return ws
 
 
 def ragged_weight_groups() -> dict:
@@ -1426,13 +771,13 @@ def ragged_weight_groups() -> dict:
     }
 
 
-def grouped_check_phase() -> float:
+def grouped_check_phase() -> None:
     """Phase 2b, the grouped weight kernel: ``quantize_weights_cuda``
     against ``quantize_weights_plain`` on the card, bit for bit (0
     differing values of w_q, s_w and scale), over all 292 HRNet-W32 and 53
     ResNet-50 weights in one group each, channels_last and contiguous, and
     the ragged groups; every w_q ``[Cout, kh, kw, Cin]`` contiguous at a
-    128-byte offset of its pool. Returns the largest |kernel - twin|."""
+    128-byte offset of its pool."""
     import torch
 
     from lighthand_tpu_torch.ops.kernels.int8_conv import (
@@ -1446,7 +791,6 @@ def grouped_check_phase() -> float:
                             ("contiguous", torch.contiguous_format)):
             groups[f"{name}, {tag}"] = model_quant_weights(name, layout)
     groups.update(ragged_weight_groups())
-    err = 0.0
     for label, ws in groups.items():
         got = quantize_weights_cuda(ws, ACT_CLIP)
         want = quantize_weights_plain(ws, ACT_CLIP)
@@ -1466,21 +810,19 @@ def grouped_check_phase() -> float:
                     fail(f"grouped weight kernel ({label}): shapes "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
                 bad += int((a != b).sum())
-                err = max(err, float((a.float() - b.float()).abs().max()))
         n = sum(w.numel() for w in ws)
         print(f"[quantize_weights] {label}: {len(ws)} weights, {n} values: "
               f"{bad} differing values against the twin")
         if bad:
             fail(f"the grouped weight kernel differs from its twin "
                  f"({label}): {bad} values")
-    return err
 
 
-def int8_train_phase(batch, counters, n_quant: int) -> dict:
+def int8_train_phase(batch, counters, n_quant: int) -> None:
     """Phase 4b: HRNet-W32 256x256 bs32 under DTypePolicy.int8_fwd(), 3
     fused train steps. Every loss finite; K1 3 launches, the int8 conv 3 x
     the model's quantized convs, the grouped weight quantize 3 (one a
-    forward). Returns the launches."""
+    forward)."""
     import torch
 
     from lighthand_tpu_torch.core.dtypes import DTypePolicy
@@ -1496,16 +838,13 @@ def int8_train_phase(batch, counters, n_quant: int) -> dict:
     step = make_fused_train_step(scan_steps=1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     zero(counters)
-    losses, step_s = [], []
+    losses = []
     for _ in range(3):
-        t0 = time.perf_counter()
         state, metrics = step(state, gen, batch)
-        losses.append(float(metrics["loss"]))  # synchronises
-        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
     counts = read(counters)
     print(f"[int8 train] HRNet-W32 {SIZE}x{SIZE} bs{B_TRAIN} int8_fwd: "
-          f"losses {losses}; step ms {[round(t * 1e3, 2) for t in step_s]};"
-          f" launches {counts}")
+          f"losses {losses}; launches {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite int8 train loss: {losses}")
     want = {"fused_aug_targets": 3, "heatmap_targets": 0,
@@ -1513,10 +852,9 @@ def int8_train_phase(batch, counters, n_quant: int) -> dict:
             **bn_launches(N_BN["hrnet_w32"], train=3)}
     if counts != want:
         fail(f"int8 train launches {counts}, expected {want}")
-    return counts
 
 
-def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
+def int8_serving_phase(state, images, counters, n_quant: int) -> None:
     """Phase 5b: phase 4's trained W32 served under bf16 and under
     int8_fwd (the same weights through load_state_dict); prints the share
     of joints whose two predictions lie within 1 heatmap px of each other
@@ -1551,7 +889,6 @@ def int8_serving_phase(state, images, counters, n_quant: int) -> dict:
                   **bn_launches(N_BN["hrnet_w32"], evals=2)}:
         fail(f"int8 serving launches {counts}, expected {n_quant} int8 "
              "convs, 1 weight quantize and two eval forwards' BatchNorms")
-    return counts
 
 
 def _pck_rows(path: str) -> list:
@@ -1559,7 +896,7 @@ def _pck_rows(path: str) -> list:
         return [line.rstrip(";").split(";") for line in f.read().splitlines()]
 
 
-def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
+def eval_cli_phase(counters, tmp: str, n_quant: int) -> None:
     """Phase 6d: ``lighthand_tpu_torch.cli.eval.main`` on phase 6b's run
     tree (SimpleBaseline ResNet-50, bf16) over an Armo tree of the fixture
     JPEGs (64 records, 16 per category, some joints hidden, plus 2 short
@@ -1568,8 +905,7 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
     evaluation.json's categories and counts, the three pck_eval files (5
     rows of finite AUC and EPE and 100 PCK values), the --test AUC lines,
     and under int8_fwd 53 int8 conv launches and 1 weight quantize a batch,
-    none otherwise.
-    Returns the launches summed over the three runs and img/s per run."""
+    none otherwise."""
     import numpy as np
 
     armo = os.path.join(tmp, "armo")
@@ -1579,8 +915,6 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
             "--dataset-root", armo, "--batch_size", str(B_TRAIN)]
     batches = math.ceil(n_rec / B_TRAIN)
     run_dir = os.path.join(tmp, "output", "simplebaseline", "ours", "real")
-    total = {name: 0 for name in counters}
-    ips = {}
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -1590,11 +924,10 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
             for f in os.listdir(tmp):
                 if f.startswith("pck_eval_"):
                     os.remove(f)
-            rc, text, wall, counts = run_cli(argv + extra, counters,
-                                             f"eval {tag}", entry="eval")
-            ips[tag] = n_rec / wall
-            print(f"[eval {tag}] {wall:.2f} s in main = {ips[tag]:.1f} "
-                  f"img/s ({n_rec} images, bs{B_TRAIN}); launches {counts}")
+            rc, text, counts = run_cli(argv + extra, counters, f"eval {tag}",
+                                       entry="eval")
+            print(f"[eval {tag}] {n_rec} images, bs{B_TRAIN}; launches "
+                  f"{counts}")
             if rc != 0:
                 fail(f"eval CLI ({tag}) exited {rc}")
             int8 = tag == "int8_fwd"
@@ -1604,8 +937,6 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
                     **bn_launches(N_BN["resnet50"], evals=batches)}
             if counts != want:
                 fail(f"eval CLI ({tag}): launches {counts}, expected {want}")
-            for name in total:
-                total[name] += counts[name]
             if tag == "test":
                 lines = [ln for ln in text.splitlines() if "auc=" in ln]
                 if len(lines) != 3 or not all(
@@ -1640,7 +971,6 @@ def eval_cli_phase(counters, tmp: str, n_quant: int) -> tuple:
                   f"{mean[3]} mm")
     finally:
         os.chdir(cwd)
-    return total, ips
 
 
 def k1_agrees(got_img, want_img, got_hm, want_hm) -> tuple:
@@ -1757,7 +1087,7 @@ def graph_train_run(name: str, policy, graphed: bool, batches, counters):
     return state, kept, launches, flat
 
 
-def graph_phase(counters) -> dict:
+def graph_phase(counters) -> None:
     """Phase 4d: the steps as CUDA graphs against their eager forms. For
     HRNet-W32 bf16, HRNet-W32 int8_fwd and SimpleBaseline ResNet-50 bf16,
     bs32, 256x256, K=4: 3 dispatches graphed, the same 3 eager, and the
@@ -1767,8 +1097,7 @@ def graph_phase(counters) -> dict:
     (parameters and BatchNorm stats) no further from eager than the eager
     rerun is; the launches equal. Then the eval and predict steps, graphed
     against eager on the trained state, 3 batches each, bit for bit, the
-    eval batch's last 4 rows padding (n_valid 28). Returns the graphed
-    runs' launches."""
+    eval batch's last 4 rows padding (n_valid 28)."""
     import torch
 
     from lighthand_tpu_torch.core.dtypes import DTypePolicy
@@ -1777,7 +1106,6 @@ def graph_phase(counters) -> dict:
 
     policies = {"bf16": DTypePolicy(), "int8_fwd": DTypePolicy.int8_fwd()}
     batches = [graph_batch(40 + d) for d in range(GRAPH_DISPATCHES)]
-    total = {name: 0 for name in counters}
     for name, prec in GRAPH_CONFIGS:
         runs = {}
         for mode in ("graphed", "eager", "eager again"):
@@ -1820,8 +1148,6 @@ def graph_phase(counters) -> dict:
         want = bn_launches(N_BN[name], train=GRAPH_K * GRAPH_DISPATCHES)
         if off(g_counts, want):
             fail(f"[graph] {tag}: launches {g_counts}, expected {want}")
-        for key, n in g_counts.items():
-            total[key] += n
         del runs
 
         # eval and predict on the trained state, graphed against eager
@@ -1847,8 +1173,6 @@ def graph_phase(counters) -> dict:
         if off(counts, want):
             fail(f"[graph] {tag}: eval and predict launches {counts}, "
                  f"expected {want}")
-        for key, n in counts.items():
-            total[key] += n
         print(f"[graph] {tag}: eval and predict graphed equal to eager in 3 "
               f"calls each (n_valid {B_TRAIN - 4}); graphs {len(eval_step.graphs)}"
               f" and {len(predict.graphs)}")
@@ -1857,18 +1181,16 @@ def graph_phase(counters) -> dict:
                  f"{len(eval_step.graphs)} and {len(predict.graphs)} graphs")
         del state, eval_step, predict
         torch.cuda.empty_cache()
-    return total
 
 
-def aug_route_phase(counters, card: str, k1_step_ms: float) -> tuple:
+def aug_route_phase(counters) -> None:
     """Phase 4c: ``make_fused_train_step(flip=True, rot_deg=15.0)`` on
     HRNet-W32, 256x256, bs32, bf16 for 3 steps (finite losses, K1 0 and K2
     3 launches); the chain on the card against the same chain on the CPU
     with the same draws (f32 images within CHAIN_IMAGE_ATOL, joints within
     CHAIN_JOINT_ATOL, K2's targets from them within F32_ATOL of the plain
     targets); the chain with neither flip nor rotation, on K1's draws,
-    against K1 under phase 3's tolerances; the chain's and K1's times at
-    B=128. Returns the path's launches and the figures."""
+    against K1 under phase 3's tolerances."""
     import numpy as np
     import torch
 
@@ -1903,18 +1225,13 @@ def aug_route_phase(counters, card: str, k1_step_ms: float) -> tuple:
     step = make_fused_train_step(flip=True, rot_deg=15.0)
     gen = torch.Generator(device=dev).manual_seed(1)
     zero(counters)
-    losses, step_s = [], []
+    losses = []
     for _ in range(3):
-        t0 = time.perf_counter()
         state, metrics = step(state, gen, batch)
-        losses.append(float(metrics["loss"]))  # synchronises
-        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
     counts = read(counters)
-    ms_step = step_s[-1] * 1e3  # the replayed step (the second captures)
     print(f"[aug] HRNet-W32 256x256 bs{B_TRAIN} bf16, flip + rotation 15: "
-          f"losses {losses}; step ms {[round(s * 1e3, 2) for s in step_s]};"
-          f" steady {ms_step:.2f} ms/step against phase 4's "
-          f"{k1_step_ms:.2f} (K1); launches {counts}")
+          f"losses {losses}; launches {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite losses on the flip/rotation route: {losses}")
     want = {"fused_aug_targets": 0, "heatmap_targets": 3, "int8_conv": 0,
@@ -1954,39 +1271,18 @@ def aug_route_phase(counters, card: str, k1_step_ms: float) -> tuple:
     if not ok:
         fail("the chain without flip or rotation disagrees with K1")
 
-    # what --flip --rot-aug costs a step: the chain beside K1 at B=128
-    images, joints, params = k1_inputs(B_KERNEL, 1)
-    mask, deg = draw_affine_params(torch.Generator(device=dev).manual_seed(3),
-                                   B_KERNEL, True, 15.0)
-
-    def chain():
-        img, moved = chain_augment(images, joints, params, mask, deg)
-        return img, make_targets(moved)
-
-    def k1():
-        return fused_aug_targets_cuda(images, joints, params)
-
-    figures = {"step_ms": ms_step, "k1_step_ms": k1_step_ms}
-    for name, fn, graph in (("chain", chain, None), ("K1", k1, capture(k1))):
-        figures[f"{name}_eager_ms"] = eager_ms(fn)
-        figures[f"{name}_device_ms"], how = device_ms(fn, graph)
-        print(f"[aug] {name} B={B_KERNEL} 256x256 bf16 + targets: eager "
-              f"{figures[f'{name}_eager_ms']:.4f} ms, device "
-              f"{figures[f'{name}_device_ms']:.4f} ms ({how}) on {card}")
-    return counts, figures, hm_err
-
 
 def _strip_dist_env() -> dict:
     return {k: v for k, v in os.environ.items()
             if not k.startswith("LIGHTHAND_")}
 
 
-def aug_cli_phase(counters, tmp: str) -> dict:
+def aug_cli_phase(counters, tmp: str) -> None:
     """Phase 6e: the training CLI with ``--flip --rot-aug 15``
     (SimpleBaseline ResNet-50, synthetic data, 64 train and 32 val
     samples, bs32, 1 epoch): the done line, finite Loss/train and
     Loss/valid, K1 0 and K2 3 launches (2 steps, 1 eval batch) and the
-    route's log line once. Returns the launches."""
+    route's log line once."""
     import logging
 
     argv = ["--root", "simplebaseline/ours", "--name", "affine",
@@ -2005,7 +1301,7 @@ def aug_cli_phase(counters, tmp: str) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, text, wall, counts = run_cli(argv, counters, "cli affine")
+        rc, text, counts = run_cli(argv, counters, "cli affine")
         rows = _scalars(os.path.join("output", "simplebaseline", "ours",
                                      "affine"))
     finally:
@@ -2013,7 +1309,7 @@ def aug_cli_phase(counters, tmp: str) -> dict:
         route_log.removeHandler(keep)
     train, valid = _by_epoch(rows, "Loss/train"), _by_epoch(rows, "Loss/valid")
     routed = [m for m in records if "K1" in m]
-    print(f"[cli affine] {wall:.1f} s in main; Loss/train {train}, "
+    print(f"[cli affine] Loss/train {train}, "
           f"Loss/valid {valid}; launches {counts}; route log lines {routed}")
     check_run("flip/rotation CLI", rc, text, train, valid, [0])
     want = {"fused_aug_targets": 0, "heatmap_targets": 64 // B_TRAIN + 1,
@@ -2022,7 +1318,6 @@ def aug_cli_phase(counters, tmp: str) -> dict:
         fail(f"flip/rotation CLI: launches {counts}, expected {want}")
     if len(routed) != 1:
         fail(f"flip/rotation CLI logged its route {len(routed)} times")
-    return counts
 
 
 DIST_CHILD = r"""
@@ -2188,7 +1483,7 @@ def dist_step_times(env: dict, tmp: str) -> dict:
             "adam_runs": got["adam"], "step_runs": got["ms"]}
 
 
-def dist_phase(counters, tmp: str) -> dict:
+def dist_phase(counters, tmp: str) -> None:
     """Phase 6f: ``cli.train`` in a subprocess under the environment
     contract (``LIGHTHAND_COORDINATOR`` on a free local port, 1 process,
     rank 0, ``--mesh-data 1 --mesh-model 1``) against a plain subprocess
@@ -2199,8 +1494,7 @@ def dist_phase(counters, tmp: str) -> dict:
     model in the run's log line, Loss/train and Loss/valid within 5e-3
     relative of the plain run, and that ``cli.eval`` reads the checkpoint
     rank 0 wrote; times phase 4's step plain and on a 1 x 1 mesh
-    (``dist_step_times``), the mesh step within 10 % of the plain one. Returns
-    the distributed run's launches, the loss gaps and the step times."""
+    (``dist_step_times``), the mesh step within 10 % of the plain one."""
     import socket
 
     with socket.socket() as s:
@@ -2215,12 +1509,10 @@ def dist_phase(counters, tmp: str) -> dict:
             ("dist", ["--mesh-data", "1", "--mesh-model", "1"],
              dict(_strip_dist_env(), LIGHTHAND_COORDINATOR=f"localhost:{port}",
                   LIGHTHAND_NUM_PROCESSES="1", LIGHTHAND_PROCESS_ID="0"))):
-        t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-c", DIST_CHILD, REPO, *base, "--name", tag,
              *extra], cwd=tmp, env=env, capture_output=True, text=True,
             timeout=300)
-        wall = time.perf_counter() - t0
         print("\n".join(f"[{tag}] {ln}" for ln in out.stdout.splitlines()))
         if out.returncode != 0:
             print(out.stderr[-4000:])
@@ -2230,8 +1522,7 @@ def dist_phase(counters, tmp: str) -> dict:
                                      tag))
         runs[tag] = (out.stdout, launches, _by_epoch(rows, "Loss/train"),
                      _by_epoch(rows, "Loss/valid"))
-        print(f"[{tag}] {wall:.1f} s (process start included); launches "
-              f"{launches}")
+        print(f"[{tag}] launches {launches}")
         check_run(f"{tag} CLI", 0, out.stdout, runs[tag][2], runs[tag][3],
                   [0])
     text, launches = runs["dist"][0], runs["dist"][1]
@@ -2281,7 +1572,7 @@ def dist_phase(counters, tmp: str) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, _, wall, counts = run_cli(
+        rc, _, _ = run_cli(
             ["--root", "simplebaseline/ours", "--name", "dist", "--eval",
              "--dataset-root", armo, "--batch_size", str(B_TRAIN)],
             counters, "eval dist", entry="eval")
@@ -2292,27 +1583,24 @@ def dist_phase(counters, tmp: str) -> dict:
         os.chdir(cwd)
     by_cat = {c: len(v["gt"]) for c, v in store.items()}
     print(f"[eval dist] rank 0's checkpoint through cli.eval: rc {rc}, "
-          f"{wall:.2f} s, categories {by_cat}")
+          f"categories {by_cat}")
     if rc != 0 or by_cat != {c: 8 for c in POSE_CATEGORIES}:
         fail("cli.eval did not read the distributed run's checkpoint")
     print("[dist] meshes above one process (data or model axis > 1) are "
           "rehearsed only on the CPU, in gloo processes "
           "(tests/test_torch_dist.py): this machine has one GPU")
-    return {**launches, "int8_conv": 0, "quantize_weight": 0}, gaps, step_ms
 
 
-def synth_tree_phase(tmp: str) -> tuple:
+def synth_tree_phase(tmp: str) -> str:
     """Phase 9a: ``python -m lighthand_tpu_torch.cli.make_synth_data`` with
     ``SYNTH_ARGS`` into ``tmp``: every file's SHA-256 equal to the stored
     digests of the JAX CLI's tree (JSON up to the output root). Returns the
-    tree's root and the host img/s of the writing."""
+    tree's root."""
     out = os.path.join(tmp, "synth")
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "lighthand_tpu_torch.cli.make_synth_data",
          "--out", out, *SYNTH_ARGS], cwd=REPO, capture_output=True,
         text=True, timeout=600)
-    wall = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-2000:], proc.stderr[-4000:])
         fail(f"make_synth_data exited {proc.returncode}")
@@ -2320,48 +1608,35 @@ def synth_tree_phase(tmp: str) -> tuple:
         want = json.load(f)["make_synth_data"]["files"]
     got = tree_digests(out)
     wrong = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
-    n_img = sum(int(v) for v in SYNTH_ARGS[1::2])
     print(f"[synth tree] {len(got)} files, {len(got) - len(wrong)} equal to "
-          f"the JAX CLI's digests; {n_img} images rendered and written in "
-          f"{wall:.2f} s = {n_img / wall:.1f} img/s on the host (one "
-          "process, its start included)")
+          "the JAX CLI's digests")
     if wrong:
         fail(f"make_synth_data's tree differs from the JAX CLI's in "
              f"{len(wrong)} files, e.g. {wrong[:5]}")
-    return out, {"img_s": n_img / wall, "seconds": wall}
+    return out
 
 
-def encode_phase(codec_ms: dict) -> dict:
-    """Phase 9b: host ms of one 224x224 RGB JPEG encode at quality 95 (a
-    fixture image) and of one decode of its bytes, one thread, beside
-    phase 1b's figures."""
+def encode_phase() -> None:
+    """Phase 9b: a 224x224 RGB fixture JPEG encoded at quality 95 decodes
+    to its shape."""
     from lighthand_tpu_torch.data import imageio
 
-    img = imageio.imread_rgb(_square_jpegs()[0]["path"])
+    img = imageio.imread_rgb(next(e for e in load_manifest()
+                                  if e["kind"] == "jpeg")["path"])
     data = imageio.encode_jpeg_rgb(img, 95)
     back = imageio.imdecode_rgb(data)
+    print(f"[jpeg] {img.shape} at quality 95: {len(data)} bytes, decoded "
+          f"{back.shape}")
     if back.shape != img.shape:
         fail(f"the encoder's JPEG decodes to {back.shape}")
-    times = {}
-    for name, fn in (("encode_224_q95", lambda: imageio.encode_jpeg_rgb(
-            img, 95)), ("decode_224", lambda: imageio.imdecode_rgb(data))):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        times[name] = (time.perf_counter() - t0) / 200 * 1e3
-    print(f"[jpeg] host ms per call, one thread: {times} (phase 1b: "
-          f"{codec_ms}); {len(data)} bytes")
-    return times
 
 
-def overlay_cli_phase(counters, tmp: str, synth: str) -> tuple:
+def overlay_cli_phase(counters, tmp: str, synth: str) -> None:
     """Phase 9c: ``cli.train`` (SimpleBaseline ResNet-50, bs32, bf16, 1
     epoch) on 9a's LightHand tree with overlays on (the default): the done
     line, finite losses, K1 2 and K2 1 launches, the train overlays at
-    iterations {0, 1} and the val overlay at 0, each decoding to 256x512x3.
-    Returns the launches and the epoch's seconds and host ms per
-    overlay."""
+    iterations {0, 1} and the val overlay at 0, each decoding to 256x512x3,
+    each logged once."""
     from lighthand_tpu_torch.data import imageio
 
     argv = ["--root", "simplebaseline/ours", "--name", "overlay",
@@ -2373,7 +1648,7 @@ def overlay_cli_phase(counters, tmp: str, synth: str) -> tuple:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, text, wall, counts = run_cli(argv, counters, "cli overlay")
+        rc, text, counts = run_cli(argv, counters, "cli overlay")
     finally:
         os.chdir(cwd)
     rows = _scalars(run_dir)
@@ -2398,25 +1673,21 @@ def overlay_cli_phase(counters, tmp: str, synth: str) -> tuple:
     with open(os.path.join(run_dir, "log.txt")) as f:
         ms = [float(v) for v in re.findall(r"overlay \w+ \d+ \d+: ([0-9.]+) ms",
                                            f.read())]
-    secs = _by_epoch(rows, "perf/epoch_seconds")
-    print(f"[cli overlay] {wall:.1f} s in main; epoch wall s {secs}; "
-          f"overlays {files}; host ms per overlay (draw, encode, write) "
-          f"{ms}; launches {counts}")
+    print(f"[cli overlay] overlays {files}; launches {counts}")
     if len(ms) != len(expect):
         fail(f"overlay CLI logged {len(ms)} overlay times")
-    return counts, {"epoch_s": secs[0], "overlay_ms": ms}
 
 
-def plt_eval_phase(counters, tmp: str, synth: str) -> dict:
+def plt_eval_phase(counters, tmp: str, synth: str) -> None:
     """Phase 9d: ``cli.eval --plt --plt_max 8`` on 9a's Armo tree (32
     records) with 9c's checkpoint: exactly 8 overlay JPEGs, and
-    evaluation.json holding all 32 rows. Returns the launches."""
+    evaluation.json holding all 32 rows."""
     run_dir = os.path.join(tmp, "output", "simplebaseline", "ours",
                            "overlay")
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, _, wall, counts = run_cli(
+        rc, _, counts = run_cli(
             ["--root", "simplebaseline/ours", "--name", "overlay", "--eval",
              "--dataset-root", synth, "--batch_size", str(B_TRAIN), "--plt",
              "--plt_max", "8"], counters, "eval plt", entry="eval")
@@ -2426,13 +1697,12 @@ def plt_eval_phase(counters, tmp: str, synth: str) -> dict:
         store = json.load(f)[0]
     n_rows = sum(len(v["gt"]) for v in store.values())
     jpgs = sorted(os.listdir(os.path.join(run_dir, "eval_image", "0_epoch")))
-    print(f"[eval plt] rc {rc}, {wall:.2f} s; {len(jpgs)} overlays "
+    print(f"[eval plt] rc {rc}; {len(jpgs)} overlays "
           f"{jpgs}; {n_rows} rows in evaluation.json; launches {counts}")
     if rc != 0 or n_rows != 32:
         fail(f"cli.eval --plt: rc {rc}, {n_rows} rows (expected 32)")
     if jpgs != [f"iter_{i}.jpg" for i in sorted(range(8), key=str)]:
         fail(f"cli.eval --plt --plt_max 8 wrote {jpgs}")
-    return counts
 
 
 def make_lighthand_phase(tmp: str) -> None:
@@ -2466,25 +1736,21 @@ def drawing_phase(tmp: str) -> None:
     thick line, outline circle and arrow): every drawing and written JPEG of
     ``overlay_drawings`` equal to the stored digests of what the JAX package
     and cv2 5.0.0 draw (this machine's cv2 differs and is not used); the
-    ``.png`` route's file decodes (the port's decoder) to the drawn pixels;
-    host ms of each overlay."""
+    ``.png`` route's file decodes (the port's decoder) to the drawn pixels."""
     import numpy as np
 
     from lighthand_tpu_torch.data import imageio
     from lighthand_tpu_torch.utils import landmarks, vis3d
     from lighthand_tpu_torch.utils import visualize as v
 
-    t0 = time.perf_counter()
     drawings = overlay_drawings(v.draw_line, v.draw_circle,
                                 v.draw_arrowed_line, landmarks, vis3d, tmp)
-    wall = time.perf_counter() - t0
     with open(OVERLAY_DIGESTS) as f:
         want = json.load(f)["files"]
     got = overlay_digests(drawings)
     wrong = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
     print(f"[drawing] {len(got)} drawings and files, {len(got) - len(wrong)} "
-          f"equal to the digests of the JAX package's cv2 5.0.0 drawings; "
-          f"{wall * 1e3:.1f} host ms for all")
+          "equal to the digests of the JAX package's cv2 5.0.0 drawings")
     if wrong:
         fail(f"the port's overlays differ from the JAX package's: {wrong}")
     path = os.path.join(tmp, "kp.png")
@@ -2494,137 +1760,10 @@ def drawing_phase(tmp: str) -> None:
                                  vis3d.hand_skeleton_21(), filename=path)
     if not np.array_equal(imageio.imread_rgb(path), canvas):
         fail("the .png route's file does not decode to the drawn pixels")
-    times = {}
-    for name, fn in (
-            ("draw_landmarks", lambda: landmarks.draw_landmarks(
-                img.copy(), np.random.default_rng(6).uniform(0, 1, (21, 4)),
-                landmarks.HAND_CONNECTIONS)),
-            ("vis_keypoints", lambda: vis3d.vis_keypoints(
-                img, kps, np.ones(21), vis3d.hand_skeleton_21()))):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        times[name] = (time.perf_counter() - t0) / 20 * 1e3
-    print(f"[drawing] .png route decodes to its pixels; host ms per 224x224 "
-          f"overlay, one thread: {times}")
+    print("[drawing] .png route decodes to its pixels")
     print("[drawing] plot_landmarks and vis_3d_keypoints (Matplotlib "
           "figures) are tested on the CPU only (tests/test_torch_landmarks.py"
           ", tests/test_torch_vis3d.py): this machine has no matplotlib")
-
-
-def procedural_hand_mesh(n: int = 28, seed: int = 0, dup: int = 60):
-    """A MANO-sized mesh: a closed ellipsoid of 2 n (n - 1) faces (1512 at
-    n = 28, MANO has 1538) with seeded bumps, then ``dup`` of its faces again
-    over copies of their vertices (the same positions, other colours):
-    coplanar faces of equal depth, whose pixels the face first in index
-    order keeps. Returns (vertices [V, 3], faces [F, 3], vertex colours
-    [V, 3]), numpy f64 and int64."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    th = np.linspace(0.05, np.pi - 0.05, n)
-    ph = np.linspace(0, 2 * np.pi, n, endpoint=False)
-    t, p = np.meshgrid(th, ph, indexing="ij")
-    rad = 0.08 * (1 + 0.1 * rng.normal(size=t.shape))
-    v = np.stack([rad * np.sin(t) * np.cos(p), 1.6 * rad * np.cos(t),
-                  rad * np.sin(t) * np.sin(p)], -1).reshape(-1, 3)
-    faces = []
-    for i in range(n - 1):
-        for j in range(n):
-            a, b = i * n + j, i * n + (j + 1) % n
-            faces += [[a, a + n, b], [b, a + n, b + n]]
-    faces = np.array(faces)
-    picked = faces[rng.choice(len(faces), dup, replace=False)]
-    used = np.unique(picked)
-    remap = {int(k): len(v) + i for i, k in enumerate(used)}
-    copies = np.vectorize(remap.get)(picked)
-    v = np.concatenate([v, v[used]])
-    colors = rng.uniform(0, 1, size=(len(v), 3))
-    return v, np.concatenate([faces, copies]), colors
-
-
-def raster_edge_cases(tile=(16, 16), cap: int = 256, seed: int = 5) -> dict:
-    """{label: (verts_px [V, 2], verts_z [V], faces [F, 3], vertex colours
-    [V, 3], background [H, W, 3], far)}, numpy f64 and int64, drawn from
-    ``seed``: the rasterizer's edge cases for a kernel of ``tile`` (W, H)
-    pixels a block and a list of ``cap`` faces (a geometry of
-    ``ops/kernels/rasterize.py``), near 1.0:
-
-    - "crowded": 3 cap + 7 faces that each have a corner in the first tile,
-      then 40 of them again over copies of their vertices (coplanar ties,
-      other colours), on an image of 3 x 2 tiles and a bit: one tile meets
-      more faces than its list holds;
-    - "large": a face larger than a tile and than the image, between small
-      faces before and after it in index order;
-    - "off-screen": faces partly off every edge, some wholly off, under a
-      finite far (per-pixel far test and far cull);
-    - "1x1": a 1x1 image under faces that cover its pixel and one that
-      does not;
-    - "17x13": an image of less than a tile under a small seeded hand mesh.
-
-    Colours span [-0.5, 1.5] and backgrounds [-0.2, 1.2]: the clip acts."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    tw, th = tile
-    cases = {}
-
-    def finish(label, px, z, faces, w, h, far=float("inf")):
-        colors = rng.uniform(-0.5, 1.5, size=(len(px), 3))
-        bg = rng.uniform(-0.2, 1.2, size=(h, w, 3))
-        cases[label] = (np.asarray(px, np.float64), np.asarray(z, np.float64),
-                        np.asarray(faces, np.int64), colors, bg, far)
-
-    w, h = 3 * tw + 5, 2 * th + 3
-    nf = 3 * cap + 7
-    px = rng.uniform([-5, -5], [w + 5, h + 5], size=(nf, 3, 2))
-    px[:, 0] = rng.uniform([0, 0], [tw, th], size=(nf, 2))
-    z = rng.choice(np.linspace(1.5, 6.0, 10), size=(nf, 3))
-    faces = np.arange(3 * nf).reshape(nf, 3)
-    picked = faces[rng.choice(nf, 40, replace=False)]
-    faces = np.concatenate([faces, 3 * nf + np.arange(120).reshape(40, 3)])
-    px = np.concatenate([px.reshape(-1, 2), px.reshape(-1, 2)[picked.ravel()]])
-    z = np.concatenate([z.ravel(), z.ravel()[picked.ravel()]])
-    finish("crowded", px, z, faces, w, h)
-
-    w, h = 2 * tw + 9, th + 7
-    small = rng.uniform([0, 0], [w, h], size=(30, 1, 2)) + rng.uniform(
-        -4, 4, size=(30, 3, 2))
-    big = np.array([[[-50.0, -40.0], [w + 60.0, -30.0], [w / 2, h + 80.0]]])
-    px = np.concatenate([small[:15], big, small[15:]]).reshape(-1, 2)
-    z = np.concatenate([rng.uniform(2.0, 6.0, (15, 3)), [[3.9, 4.1, 4.0]],
-                        rng.uniform(2.0, 6.0, (15, 3))]).ravel()
-    finish("large", px, z, np.arange(93).reshape(31, 3), w, h)
-
-    w, h = 37, 29
-    px = rng.uniform([-30, -30], [w + 30, h + 30], size=(60, 3, 2))
-    px[:6, :, 0] -= w + 40  # wholly left of the image
-    z = rng.uniform(1.2, 5.0, size=(60, 3))
-    z[6:10] = 4.8  # beyond far: culled
-    finish("off-screen", px.reshape(-1, 2), z.ravel(),
-           np.arange(180).reshape(60, 3), w, h, far=4.5)
-
-    px = np.array([[-1.0, -1.0], [3.0, -1.0], [-1.0, 3.0],
-                   [-2.0, -2.0], [4.0, 0.2], [0.3, 4.0],
-                   [0.7, 0.7], [2.0, 0.7], [0.7, 2.0]])
-    finish("1x1", px, [3.0, 3.0, 3.0, 2.5, 3.5, 2.0, 1.5, 1.5, 1.5],
-           [[0, 1, 2], [3, 4, 5], [0, 1, 2], [6, 7, 8]], 1, 1)
-
-    v, f, _ = procedural_hand_mesh(n=10, seed=seed, dup=8)
-    depth = v[:, 2] + 2.0
-    px = 60.0 * v[:, :2] / depth[:, None] + np.array([17 / 2, 13 / 2])
-    finish("17x13", px, depth, f, 17, 13)
-    return cases
-
-
-# f64 operations of the rasterizer: at each pixel of a drawn face's box,
-# two barycentrics (12), w0 (2), the inside test (3), 1/z (5), the depth
-# (2) and its two compares (2); at each covered pixel, three channels of
-# three (w * c) / z terms summed (24) and times the depth (3)
-RASTER_OPS_PER_BOX_PIXEL = 26
-RASTER_OPS_PER_COVERED_PIXEL = 27
-RENDER_SIZES = ((800, 600, 5000.0), (224, 224, 1500.0))  # W, H, focal
 
 
 def _bits_equal(a, b) -> bool:
@@ -2635,36 +1774,14 @@ def _bits_equal(a, b) -> bool:
         a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
 
 
-def _kernel_device_ms(fn, prefixes, calls: int = 20) -> tuple:
-    """(the profiler's device ms per call, kernels launched per call) of the
-    kernels whose names hold one of ``prefixes`` (the wrapper's checks and
-    copies left out)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if any(p in e.key for p in prefixes)]
-    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    return us / 1e3 / calls, sum(e.count for e in events) / calls
-
-
-def text_phase() -> float:
+def text_phase() -> None:
     """Phase 9i: the captions on the host that runs the script
     (``utils/vis3d.py:draw_text`` and ``utils/visualize.py:put_text`` over
     ``utils/font.py`` and ``csrc/text.cpp``, built there by g++): every
     drawing of
     ``text_drawings`` equal to the stored digests of what the JAX package
     and cv2 5.0.0 draw, which shows that the host's compiler and CPU give
-    cv2's bytes; returns the host ms of one ``draw_text`` call (a
-    256x256 image, three rows), median of 20."""
-    import numpy as np
-
+    cv2's bytes."""
     from lighthand_tpu_torch.utils import vis3d
     from lighthand_tpu_torch.utils import visualize as v
 
@@ -2677,29 +1794,25 @@ def text_phase() -> float:
           f"digests of the JAX package's and cv2 5.0.0's")
     if wrong:
         fail(f"the port's captions differ from cv2 5.0.0's: {wrong}")
-    img = np.random.default_rng(7).uniform(0, 1, (256, 256, 3))
-    content = {"pck": 0.8812, "auc": 0.5, "epoch": 3}
-    vis3d.draw_text(img, content)
-    # what the host was doing, beside the time: its CPU, the cores this
-    # process may use and the load averages
-    model = "unknown"
-    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
-        model = next((line.split(":", 1)[1].strip() for line in f
-                      if line.startswith("model name")), model)
-    print(f"[text] host: {model}, {len(os.sched_getaffinity(0))} cores, "
-          f"load {' '.join(f'{x:.2f}' for x in os.getloadavg())}")
-    times = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        vis3d.draw_text(img, content)
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = float(np.median(times))
-    print(f"[text] draw_text host ms (256x256, 3 rows, one thread): median "
-          f"{ms:.3f} of 20 (min {min(times):.3f}, max {max(times):.3f})")
-    return ms
 
 
-def render_phase(kind: str) -> tuple:
+def kernels_a_call(fn, name: str = "", calls: int = 5) -> float:
+    """The profiler's count of device kernels (those whose names hold
+    ``name``) a call of ``fn``, over ``calls`` calls after one more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and name in e.key) / calls
+
+
+def render_phase() -> None:
     """Phase 9h: the mesh renderer on the card. The rasterizer kernel
     (``csrc/rasterize.cu``) against its plain twin run on the card on the
     same inputs, equal bit for bit: ``procedural_hand_mesh`` (with its 60
@@ -2710,11 +1823,9 @@ def render_phase(kind: str) -> tuple:
     Then ``Renderer.render`` and ``render_vertex_color`` end to end on the
     card at both sizes, every count zeroed just before and read just after
     (one rasterizer launch a render), each image against the same render on
-    the CPU. Then, at each size, the kernel's eager and device ms and its
-    device kernels a call (at most 2) beside the twin's ms and the bound
-    (bytes, or the f64 operations of the drawn faces' box pixels), and the
-    bytes a call allocates (nothing a pixel but the image). Returns (the
-    kernels-line row at 800x600, the render path's launches)."""
+    the CPU. Then, at each size, the kernel's device kernels a call (at
+    most 2) and the bytes a call asks for (nothing a pixel but the
+    image)."""
     import numpy as np
     import torch
 
@@ -2724,8 +1835,6 @@ def render_phase(kind: str) -> tuple:
         LARGE,
         SMALL,
         _face_setup,
-        _sm_count,
-        choose_geometry,
         rasterize_mesh_cuda,
         rasterize_mesh_plain,
     )
@@ -2765,7 +1874,7 @@ def render_phase(kind: str) -> tuple:
               f"drawn, {box_px} box pixels, {covered} covered): kernel "
               "equal to its twin bit for bit, shaded over an image and "
               "vertex colours over NaN")
-        inputs[w, h] = (px, z, faces, shaded, image, far, box_px, covered)
+        inputs[w, h] = (px, z, faces, shaded, image, 1.0, far)
     for geometry in (LARGE, SMALL):
         tile, sub, cap = geometry
         for label, case in raster_edge_cases(tile, cap).items():
@@ -2805,13 +1914,9 @@ def render_phase(kind: str) -> tuple:
     if any(e > 1e-9 or n > 50 for e, n in renders.values()):
         fail(f"the card's renders differ from the CPU's: {renders}")
 
-    row = None
-    for w, h, _ in RENDER_SIZES:
-        px, z, faces, shaded, image, far, box_px, covered = inputs[w, h]
-        args = (px, z, faces, shaded, image, 1.0, far)
-        ms = eager_ms(lambda: rasterize_mesh_cuda(*args))
-        dev_ms, per_call = _kernel_device_ms(
-            lambda: rasterize_mesh_cuda(*args), ("raster_",))
+    for (w, h), args in inputs.items():
+        per_call = kernels_a_call(lambda: rasterize_mesh_cuda(*args),
+                                  "raster_")
         if per_call > 2:
             fail(f"the rasterizer launches {per_call} kernels a call")
         # the bytes the call asks the allocator for (its cached blocks may
@@ -2826,49 +1931,15 @@ def render_phase(kind: str) -> tuple:
         torch.cuda.synchronize()
         extra = (torch.cuda.memory_stats()["requested_bytes.all.peak"]
                  - before)
-        n_f = faces.shape[0]
+        n_f, image = args[2].shape[0], args[4]
         allowed = (image.numel() * 8 + n_f * FACE_BYTES
                    + -(-n_f // 32) * GROUP_BYTES + n_f * 12 + 65536)
         if extra > allowed:
             fail(f"a rasterizer call at {w}x{h} asks for {extra} bytes, "
                  f"more than the image, the face scratch, the faces' copy "
                  f"and 64 KiB ({allowed})")
-        plain_ms = eager_ms(lambda: rasterize_mesh_plain(*args), calls=3,
-                            warmup=1)
-        n_v = px.shape[0]
-        nbytes = (n_v * (2 + 1 + 3) * 8 + faces.numel() * 8
-                  + 2 * image.numel() * 8)
-        ops = (box_px * RASTER_OPS_PER_BOX_PIXEL
-               + covered * RASTER_OPS_PER_COVERED_PIXEL)
-        bound, by = bound_ms(nbytes, ops, kind, f64=True)
-        geometry = choose_geometry(h, w, _sm_count(dev.index or 0))
-        print(f"[rasterize] {w}x{h}, geometry {geometry}: eager {ms:.4f} "
-              f"ms/call, device {dev_ms:.4f} ms (profiler, {per_call:g} "
-              "kernels a call), "
-              f"{extra} bytes requested a call, plain twin "
-              f"{plain_ms:.2f} ms, bound {bound * 1e3:.2f} us by {by} "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mop f64), "
-              f"{100 * bound / dev_ms:.1f} % of bound on device time")
-        if row is None:
-            row = {"name": "rasterize", "route": "cuda",
-                   "source": "lighthand_tpu_torch/csrc/rasterize.cu",
-                   "replaces": "lighthand_tpu/utils/mesh_render.py:119",
-                   "launches": launches["rasterize"],
-                   "launches_by_path": {"render": launches["rasterize"]},
-                   "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
-                   "kernels_a_call": per_call, "geometry": geometry,
-                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                   "library_ms": None, "shape": f"{w}x{h}, {len(f)} faces"}
-        else:
-            row["at_224"] = {"ms": ms, "device_ms": dev_ms,
-                             "kernels_a_call": per_call, "geometry": geometry,
-                             "plain_ms": plain_ms, "bound_ms": bound}
-    return row, launches
-
-
-# the CPU tests' tolerances (tests/test_torch_geometry.py)
-GEOMETRY_RTOL, GEOMETRY_ATOL = 1e-5, 1e-6
-PROCRUSTES_ATOL = 1e-4
+        print(f"[rasterize] {w}x{h}: {per_call:g} kernels a call, {extra} "
+              f"bytes requested a call (at most {allowed})")
 
 
 def geometry_phase() -> None:
@@ -2933,265 +2004,13 @@ def geometry_phase() -> None:
           f"{PROCRUSTES_ATOL:g}): {errs}")
 
 
-def int8_times(kind: str, shape, seed: int) -> tuple:
-    """Phase 8b at one conv shape, batch 32, bf16 activations (the int8_fwd
-    policy's): for the conv and for the weight kernel, the eager and device
-    time (CUDA graph replay), the twin's time and the bound; for the conv
-    also the time of ``torch._int_mm`` on the pre-quantized im2col of the
-    same operands, K zero-padded to a multiple of 8 in both (the GEMM
-    alone, the same sums; checked equal to the kernel), and of cuDNN's bf16
-    conv of the shape, which the bf16 policy runs. Returns (conv figures,
-    weight kernel figures)."""
-    import torch
-    import torch.nn.functional as F
-
-    from lighthand_tpu_torch.ops.kernels.int8_conv import (
-        conv_plan,
-        int8_conv2d_cuda,
-        out_size,
-        quantize_activation,
-        quantize_weight_cuda,
-        quantize_weight_plain,
-    )
-
-    cin, h, w, cout, k, stride = shape
-    pad = k // 2
-    x, wt = int8_inputs(B_TRAIN, shape, seed)
-    w_q, _, scale = quantize_weight_cuda(wt, ACT_CLIP)
-    fn = lambda: int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, stride,  # noqa
-                                  pad)
-    ms = eager_ms(fn)
-    graph = capture(fn)
-    dev_ms, how = device_ms(fn, graph)
-    del graph
-    plain_ms = eager_ms(lambda: int8_twin(x, w_q, scale, stride, pad,
-                                          torch.bfloat16), calls=5)
-    ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
-    m = B_TRAIN * ho * wo
-    ops = conv_ops(B_TRAIN, shape)
-    # bf16 activations in, s8 weights and f32 scales, bf16 out
-    nbytes = 2 * x.numel() + w_q.numel() + 4 * cout + 2 * m * cout
-    bound, by = bound_ms(nbytes, ops, kind, int8=True)
-
-    kk = cin * k * k
-    kp = -(-kk // 8) * 8  # K padded with zeros: _int_mm takes K % 8 == 0
-    library_ms = lib_dev = None
-    if cout % 8 == 0 and m > 16:
-        x_q = quantize_activation(x, ACT_CLIP)
-        cols = F.unfold(x_q.float(), k, padding=pad, stride=stride)
-        a = torch.zeros((m, kp), dtype=torch.int8, device=x.device)
-        a[:, :kk] = cols.transpose(1, 2).reshape(m, kk).to(torch.int8)
-        del cols, x_q
-        b = torch.zeros((cout, kp), dtype=torch.int8, device=x.device)
-        b[:, :kk] = w_q.permute(0, 3, 1, 2).reshape(cout, kk)
-        b = b.t()
-        try:
-            acc = torch._int_mm(a, b)
-        except RuntimeError as exc:  # a yardstick only; the port never calls it
-            print(f"note: torch._int_mm refused {shape} (K {kk} -> {kp}): "
-                  f"{exc}")
-        else:
-            ref = (acc.float() * scale).to(torch.bfloat16)
-            got = fn().permute(0, 2, 3, 1).reshape(m, cout)
-            if not torch.equal(ref, got):
-                fail(f"torch._int_mm and the int8 kernel disagree at {shape}")
-            library_ms = eager_ms(lambda: torch._int_mm(a, b))
-            graph = capture(lambda: torch._int_mm(a, b))
-            lib_dev, _ = device_ms(lambda: torch._int_mm(a, b), graph)
-            del graph, acc, ref
-        del a, b
-    x16 = x.contiguous(memory_format=torch.channels_last)
-    w16 = wt.to(torch.bfloat16)
-    conv = lambda: F.conv2d(x16, w16, None, stride, pad)  # noqa: E731
-    cudnn_ms = eager_ms(conv)
-    graph = capture(conv)
-    cudnn_dev, _ = device_ms(conv, graph)
-    del graph
-    plan = conv_plan(x, w_q, stride, pad)
-    print(f"[int8_conv] N={B_TRAIN} Cin={cin} {h}x{w} Cout={cout} k={k} "
-          f"s={stride} {plan}: eager {ms:.4f} ms, device {dev_ms:.4f} ms "
-          f"({how}), plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by "
-          f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop), "
-          f"{100 * bound / dev_ms:.1f} % of bound; torch._int_mm "
-          + (f"(K {kk} -> {kp}) {library_ms:.4f} ms eager, {lib_dev:.4f} "
-             "ms device" if library_ms is not None else "not timed")
-          + f"; cuDNN bf16 conv {cudnn_ms:.4f} ms eager, {cudnn_dev:.4f} ms "
-          "device")
-    conv_fig = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": lib_dev,
-                "library_eager_ms": library_ms, "cudnn_bf16_ms": cudnn_dev,
-                "cudnn_bf16_eager_ms": cudnn_ms, "shape": list(shape),
-                "plan": plan}
-
-    wf = lambda: quantize_weight_cuda(wt, ACT_CLIP)  # noqa: E731
-    w_ms = eager_ms(wf)
-    graph = capture(wf)
-    w_dev, w_how = device_ms(wf, graph)
-    del graph
-    w_plain = eager_ms(lambda: quantize_weight_plain(wt, ACT_CLIP))
-    nw = wt.numel()
-    # f32 in, s8 out, s_w and scale out; |w|, max, divide, round, clamp
-    w_bytes, w_ops = 5 * nw + 8 * cout, WEIGHT_OPS_PER_VALUE * nw
-    w_bound, w_by = bound_ms(w_bytes, w_ops, kind)
-    print(f"[quantize_weight] {cout}x{cin}x{k}x{k}: eager {w_ms:.4f} ms, "
-          f"device {w_dev:.4f} ms ({w_how}), plain {w_plain:.4f} ms, bound "
-          f"{w_bound * 1e3:.3f} us by {w_by} ({w_bytes / 1e6:.2f} MB), "
-          f"{100 * w_bound / w_dev:.1f} % of bound")
-    weight_fig = {"ms": w_ms, "device_ms": w_dev, "plain_ms": w_plain,
-                  "bound_ms": w_bound, "bound_by": w_by, "library_ms": None,
-                  "shape": [cout, cin, k, k]}
-    return conv_fig, weight_fig
-
-
-def host_us(fn, calls: int = 400) -> float:
-    """Host microseconds a call: ``calls`` calls between two clock reads
-    (the card keeps up at the small shape it is used at), synchronised
-    around."""
-    import torch
-
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t / calls * 1e6
-
-
-def grouped_times(kind: str) -> dict:
-    """Phase 8d, the grouped weight kernel over each whole model's weights
-    (``model_quant_weights``, channels_last): eager ms (events around 20
-    calls) and device ms (one call captured in a CUDA graph, replayed),
-    its byte bound (5 bytes a weight, 8 a channel), the plain twin's ms, a
-    call's host us; beside the per-conv launches of the same weights (a
-    group of one each, a launch a conv as before the grouped kernel), eager
-    and device ms of the loop over them. Returns {model: figures}."""
-    import torch
-
-    from lighthand_tpu_torch.ops.kernels.int8_conv import (
-        quantize_weight_cuda,
-        quantize_weights_cuda,
-        quantize_weights_plain,
-    )
-
-    out = {}
-    for name in ("hrnet_w32", "resnet50"):
-        ws = model_quant_weights(name, torch.channels_last)
-        group = lambda: quantize_weights_cuda(ws, ACT_CLIP)  # noqa: E731
-        per_conv = lambda: [quantize_weight_cuda(w, ACT_CLIP)  # noqa: E731
-                            for w in ws]
-        ms = eager_ms(group)
-        dev_ms, how = device_ms(group, capture(group))
-        per_ms = eager_ms(per_conv, calls=5)
-        per_dev, _ = device_ms(per_conv, capture(per_conv), calls=5)
-        plain_ms = eager_ms(lambda: quantize_weights_plain(ws, ACT_CLIP),
-                            calls=3, warmup=1)
-        values = sum(w.numel() for w in ws)
-        channels = sum(w.shape[0] for w in ws)
-        nbytes = 5 * values + 8 * channels
-        bound, by = bound_ms(nbytes, WEIGHT_OPS_PER_VALUE * values, kind)
-        host = host_us(group, calls=50)
-        print(f"[quantize_weights] {name}: {len(ws)} weights, {values} "
-              f"values, {channels} channels in one launch: eager {ms:.4f} "
-              f"ms, device {dev_ms:.4f} ms ({how}), bound {bound * 1e3:.2f} "
-              f"us by {by} ({nbytes / 1e6:.1f} MB), {100 * bound / dev_ms:.1f}"
-              f" % of bound, plain {plain_ms:.4f} ms, host {host:.1f} us a "
-              f"call; the same weights a launch a conv ({len(ws)} launches):"
-              f" eager {per_ms:.4f} ms, device {per_dev:.4f} ms")
-        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None,
-                     "host_us": host, "per_conv_ms": per_ms,
-                     "per_conv_device_ms": per_dev,
-                     "shape": f"{name}: {len(ws)} weights, {values} values"}
-        del ws
-    return out
-
-
-def quant_conv_breakdown(shapes: dict, grouped: dict) -> dict:
-    """Phase 8d: a forward's quantized convs, every distinct shape of
-    ResNet-50 and HRNet-W32 at batch 32 with bf16 activations: the device
-    time (CUDA graph replay) of ``ops/quant.py:quant_forward`` with a
-    conv's own weight quantize (a group of one, as a ``QuantConv2d`` called
-    on its own) and of the conv alone, times the shape's uses, summed a
-    forward, with each shape's plan; a forward's quantized convs are the
-    convs alone and one grouped weight quantize (``grouped``, from
-    ``grouped_times``). Then the host microseconds a call of
-    ``quant_forward``, with its weights quantized already (as in a model's
-    forward) and quantizing its own, and of a bf16 conv with its weight
-    cast (4 x 32 x 16 x 16, 3x3), the host work a quantized conv adds to an
-    eager forward."""
-    import torch
-    import torch.nn.functional as F
-
-    from lighthand_tpu_torch.ops import quant
-    from lighthand_tpu_torch.ops.kernels.int8_conv import (
-        conv_plan,
-        int8_conv2d_cuda,
-        quantize_weight_cuda,
-    )
-
-    result = {}
-    for name, uses in sorted(shapes.items()):
-        rows = []
-        for shape, u in sorted(uses.items()):
-            cin, h, w, cout, k, s = shape
-            x, wt = int8_inputs(B_TRAIN, shape, 7)
-            w_q, _, scale = quantize_weight_cuda(wt, ACT_CLIP)
-
-            def whole():
-                return quant.quant_forward(x, wt, s, k // 2, ACT_CLIP,
-                                           torch.bfloat16)
-
-            def conv():
-                return int8_conv2d_cuda(x, w_q, scale, ACT_CLIP, s, k // 2)
-            rows.append((shape, u, device_ms(whole, capture(whole))[0],
-                         device_ms(conv, capture(conv))[0],
-                         conv_plan(x, w_q, s, k // 2)))
-            del x, wt, w_q, scale
-        total = sum(u * ms for _, u, ms, _, _ in rows)
-        conv_total = sum(u * ms for _, u, _, ms, _ in rows)
-        forward = conv_total + grouped[name]["device_ms"]
-        result[name] = {"quantized_conv_ms": forward, "conv_ms": conv_total,
-                        "per_conv_quantize_ms": total}
-        print(f"[int8 convs] {name} bs{B_TRAIN}: {forward:.4f} ms device "
-              f"time a forward in quantized convs ({len(rows)} shapes, "
-              f"{sum(u for _, u, _, _, _ in rows)} convs): the conv kernel "
-              f"{conv_total:.4f} ms and one grouped weight quantize "
-              f"{grouped[name]['device_ms']:.4f} ms; with a quantize a conv "
-              f"{total:.4f} ms; the heaviest (shape x uses: ms a call with "
-              "its quantize / conv, plan):")
-        for shape, u, ms, c_ms, plan in sorted(
-                rows, key=lambda r: -r[1] * r[2])[:6]:
-            print(f"    {shape} x{u}: {ms:.4f} / {c_ms:.4f} ms {plan}")
-    x = torch.randn(4, 32, 16, 16, device="cuda").to(
-        torch.bfloat16, memory_format=torch.channels_last)
-    wt = torch.randn(32, 32, 3, 3, device="cuda").contiguous(
-        memory_format=torch.channels_last)
-    made = quant.quantize_group([wt], ACT_CLIP)[0]
-    result["host_us"] = {
-        "quant_forward": host_us(lambda: quant.quant_forward(
-            x, wt, 1, 1, ACT_CLIP, torch.bfloat16, made)),
-        "quant_forward_own_quantize": host_us(lambda: quant.quant_forward(
-            x, wt, 1, 1, ACT_CLIP, torch.bfloat16)),
-        "bf16_cast_and_conv": host_us(lambda: F.conv2d(
-            x, wt.to(torch.bfloat16), None, 1, 1))}
-    print(f"[int8 convs] host us a call: {result['host_us']}")
-    return result
-
-
-def forward_times() -> None:
+def forward_launch_phase() -> None:
     """Phase 8c: the eval-mode forward of ResNet-50 and HRNet-W32 at bs32,
-    256x256, under bf16 and under int8_fwd (the same random weights):
-    CUDA events around 10 forwards after 3 warm-ups; then the profiler's
-    device time of 3 forwards by kernel, its sum over the event time (the
-    device's busy share), the kernels that take the most and the count of
-    device kernels a forward, which must not be larger under int8_fwd (a
-    quantized conv launches two kernels, the weight quantize and the conv;
-    a bf16 conv launches a weight cast and cuDNN's conv)."""
+    256x256, under bf16 and under int8_fwd (the same random weights): the
+    profiler's count of device kernels a forward must not be larger under
+    int8_fwd (a quantized conv launches two kernels, the weight quantize
+    and the conv; a bf16 conv launches a weight cast and cuDNN's conv)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from lighthand_tpu_torch.core.dtypes import DTypePolicy
     from lighthand_tpu_torch.models import get_model
@@ -3200,35 +2019,17 @@ def forward_times() -> None:
     x = torch.randn(B_TRAIN, 3, SIZE, SIZE, device="cuda").to(
         torch.bfloat16, memory_format=torch.channels_last)
     for name in ("resnet50", "hrnet_w32"):
-        times, launches = {}, {}
+        launches = {}
         for tag, policy in (("bf16", DTypePolicy()),
                             ("int8_fwd", DTypePolicy.int8_fwd())):
             model = get_model(name, policy=policy)
             init_weights(model, torch.Generator().manual_seed(0))
             model = model.eval().to("cuda", memory_format=torch.channels_last)
             with torch.no_grad():
-                times[tag] = eager_ms(lambda: model(x), calls=10, warmup=3)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(3):
-                        model(x)
-                    torch.cuda.synchronize()
-            kernels = sorted(((e.self_device_time_total / 3e3, e.count // 3,
-                               e.key) for e in prof.key_averages()
-                              if e.self_device_time_total > 0), reverse=True)
-            busy = sum(ms for ms, _, _ in kernels)
-            launches[tag] = sum(n for _, n, _ in kernels)
-            wq = sum(ms for ms, _, key in kernels if "quantize_weight" in key)
-            print(f"[forward] {name} {tag}: {times[tag]:.3f} ms a forward "
-                  f"(events), {busy:.3f} ms of kernels (profiler) = "
-                  f"{100 * busy / times[tag]:.1f} % busy, {launches[tag]} "
-                  f"device kernels a forward; weight quantize {wq:.3f} ms "
-                  f"({100 * wq / times[tag]:.2f} % of the forward); top "
-                  "kernels (ms a forward, launches): " + "; ".join(
-                      f"{key[:48]} {ms:.3f} x{n}"
-                      for ms, n, key in kernels[:6]))
-        print(f"[forward] {name} bs{B_TRAIN} {SIZE}x{SIZE} eval: bf16 "
-              f"{times['bf16']:.3f} ms, int8_fwd {times['int8_fwd']:.3f} ms "
-              f"per forward; device kernels {launches}")
+                launches[tag] = kernels_a_call(lambda: model(x), calls=3)
+            del model
+        print(f"[forward] {name} bs{B_TRAIN} {SIZE}x{SIZE} eval: device "
+              f"kernels a forward {launches}")
         if launches["int8_fwd"] > launches["bf16"]:
             fail(f"{name}: int8_fwd launches {launches['int8_fwd']} device "
                  f"kernels a forward, bf16 {launches['bf16']}")
@@ -3253,9 +2054,8 @@ def _pck_margin(norm, thresholds) -> float:
     return float((np.abs(norm - t) / t).min())
 
 
-def finetune_phase(weights: dict, batch: dict, counters, card: str,
-                   k1_step_ms: float, name: str = "hrnet_w32",
-                   dev=None) -> tuple:
+def finetune_phase(weights: dict, batch: dict, counters,
+                   name: str = "hrnet_w32", dev=None) -> None:
     """Phase 10a: fine-tuning with a frozen stem, then the full metric set.
     Phase 4's trained ``name`` (``weights``) in a state built with
     ``trainable=freeze_mask(model, FREEZE)``; 3 fused steps (K1 3, K2 0):
@@ -3265,8 +2065,8 @@ def finetune_phase(weights: dict, batch: dict, counters, card: str,
     (equal), ``soft_argmax_preds`` (within SOFT_ATOL_PX), ``pck_2d``
     (proportion and mm), ``pck_2d_visible``, ``pck_curve`` over the offline
     eval's two grids, ``pck_3d`` on a lifted copy of the joints (all equal),
-    ``keypoint_2d_loss`` and ``keypoint_3d_loss`` (within SCORE_LOSS_RTOL).
-    Returns the steps' launches and the figures."""
+    ``keypoint_2d_loss`` and ``keypoint_3d_loss`` (within
+    SCORE_LOSS_RTOL)."""
     import numpy as np
     import torch
 
@@ -3291,12 +2091,10 @@ def finetune_phase(weights: dict, batch: dict, counters, card: str,
     step = make_fused_train_step(scan_steps=1, device=dev)
     gen = torch.Generator(device=dev).manual_seed(10)
     zero(counters)
-    losses, step_s = [], []
+    losses = []
     for _ in range(3):
-        t0 = time.perf_counter()
         state, out = step(state, gen, batch)
-        losses.append(float(out["loss"]))  # synchronises
-        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
     counts = read(counters)
     want = {"fused_aug_targets": 3, "heatmap_targets": 0, "int8_conv": 0,
             "quantize_weight": 0}
@@ -3314,14 +2112,11 @@ def finetune_phase(weights: dict, batch: dict, counters, card: str,
             fail(f"trainable parameter {k} did not move")
     if param_count(state) != n_params:
         fail(f"param_count moved: {n_params} -> {param_count(state)}")
-    ms_step = step_s[-1] * 1e3  # the replayed step (the second captures)
     n_frozen = sum(start[k].numel() for k in frozen)
     print(f"[finetune] {name} 256x256 bs{B_TRAIN} bf16, {len(frozen)} of "
           f"{len(mask)} parameters frozen ({n_frozen} of {n_params} "
-          f"elements): losses {losses}; step ms "
-          f"{[round(s * 1e3, 2) for s in step_s]}; steady {ms_step:.2f} "
-          f"ms/step against phase 4's {k1_step_ms:.2f} on {card}; "
-          f"launches {counts}; frozen bit-equal with no gradient, every "
+          f"elements): losses {losses}; launches {counts}; frozen "
+          "bit-equal with no gradient, every "
           "trainable parameter moved")
 
     # the predict step, then its heatmaps scored on the card and the CPU
@@ -3391,16 +2186,14 @@ def finetune_phase(weights: dict, batch: dict, counters, card: str,
     if not all(math.isfinite(float(v)) for k, v in card_s.items()
                if v.ndim == 0):
         fail("non-finite scores")
-    return counts, {"step_ms": ms_step, "pck": pck}
 
 
-def single_target_phase(counters, dev=None) -> tuple:
+def single_target_phase(dev=None) -> None:
     """Phase 10b: ``generate_target`` (one sample) on CUDA joints, through
     K2 with B=1: J=21, H=64, stride 4, [J, 2] joints, and H=50, stride 3.0,
     [J, 3] joints with one joint off the map. Each call launches K2 once;
     its maps within F32_ATOL of the plain twin on the card and of the CPU's,
-    its weights equal to the CPU's, the off-map joint's 0. Returns the
-    launches and the largest error."""
+    its weights equal to the CPU's, the off-map joint's 0."""
     import numpy as np
     import torch
 
@@ -3414,8 +2207,6 @@ def single_target_phase(counters, dev=None) -> tuple:
 
     dev = dev or torch.device("cuda")
     rng = np.random.default_rng(21)
-    zero(counters)
-    worst = 0.0
     for hm, stride, cols in ((HM, 4.0, 2), (50, 3.0, 3)):
         joints = rng.uniform(0, hm * stride, size=(JOINTS, cols)).astype(
             np.float32)
@@ -3439,27 +2230,21 @@ def single_target_phase(counters, dev=None) -> tuple:
                 or not torch.equal(weight.cpu(), cpu_weight)
                 or float(weight[3]) != 0.0 or float(weight.sum()) < 10):
             fail(f"generate_target on the card is wrong at H={hm}")
-        worst = max(worst, err)
-    return read(counters), worst
 
 
-def preprocessor_phase(counters, card: str, dev=None) -> dict:
+def preprocessor_phase(counters, dev=None) -> None:
     """Phase 10c: ``DevicePreprocessor(jitter=True)`` on a u8 bs32 256x256
     batch on the card and on the CPU with the same injected draws (CPU
     ``draw_jitter``, every op order): f32 outputs within CHAIN_IMAGE_ATOL in
     normalised units (the chain's bound: the same jitter and normalize,
     each image's contrast mean summed in another order); no kernel
     launches; the default bf16 call with its own draws from a generator on
-    the card; device ms of that call (the profiler's kernel sum) beside
-    K1's at the same batch. Returns the figures."""
+    the card."""
     import numpy as np
     import torch
 
     from lighthand_tpu_torch.data import DevicePreprocessor
     from lighthand_tpu_torch.ops.color import draw_jitter
-    from lighthand_tpu_torch.ops.kernels.fused_aug import (
-        fused_aug_targets_cuda,
-    )
 
     dev = dev or torch.device("cuda")
     rng = np.random.default_rng(31)
@@ -3487,52 +2272,13 @@ def preprocessor_phase(counters, card: str, dev=None) -> dict:
             or any(counts.values()) or bf16.dtype != torch.bfloat16
             or not torch.isfinite(bf16.float()).all()):
         fail("DevicePreprocessor on the card disagrees with the CPU")
-    pre = DevicePreprocessor(device=dev)
-    factors, order = factors.to(dev), order.to(dev)
-    k1_images, k1_joints, params = k1_inputs(B_TRAIN, 34, device=dev)
-
-    def plain():
-        return pre(images, aug, factors=factors, order=order)
-
-    def k1():
-        return fused_aug_targets_cuda(k1_images, k1_joints, params)
-
-    figures = {}
-    for tag, fn, graph in (("preprocessor", plain, None),
-                           ("K1", k1, capture(k1))):
-        figures[f"{tag}_eager_ms"] = eager_ms(fn)
-        figures[f"{tag}_device_ms"], how = device_ms(fn, graph)
-        print(f"[preprocess] {tag} B={B_TRAIN} {SIZE}x{SIZE} bf16: eager "
-              f"{figures[f'{tag}_eager_ms']:.4f} ms, device "
-              f"{figures[f'{tag}_device_ms']:.4f} ms ({how}) on {card}")
-    return figures
 
 
 # ------------------------------------------------------------- batch norm
 
-# the cells' models and batches: HRNet-W32 at bs128 (w32.train.b128,
-# w32.eval.b128), ResNet-50 at bs32 (r50.train.b32, r50.eval.b32.int8)
-BN_MODELS = (("hrnet_w32", 128), ("resnet50", 32))
 # ... and with w48.train.b32's HRNet-W48 at bs32, the residual shapes
 RESIDUAL_MODELS = BN_MODELS + (("hrnet_w48", 32),)
 N_BN = {"hrnet_w32": 292, "resnet50": 56}  # BatchNorms a forward
-# the BatchNorm wrappers, as the counters of main() name them
-BN_COUNTERS = ("batch_norm_train", "batch_norm_eval", "batch_norm_backward")
-# bytes an element a stage moves in 2-byte elements (the f32 variant
-# twice as many): x once for the statistics; x in, y out; dy and x for the
-# sums; dy and x in, dx out; x in, y out from the running statistics
-BN_STAGE_BYTES = {"lh_bn_fw_partials": 2, "lh_bn_fw_apply": 4,
-                  "lh_bn_bw_partials": 4, "lh_bn_bw_apply": 6,
-                  "lh_bn_fw_eval": 4, "lh_bn_fw_finalize": 0,
-                  "lh_bn_bw_finalize": 0}
-# bytes an element of a residual block's end, training forward + backward
-# and eval, in 2-byte elements. The one pass: x for the statistics; x and r
-# in, o out; dy, x and o for the sums; dy, x and o in, dx and dr out; eval
-# x and r in, o out. The chain: the stages without the ReLU, the add (y and
-# r in, the sum out), the ReLU (the sum in, o out), its backward (dy and o
-# in, dy' out).
-RESIDUAL_BYTES = {"fused": (2 + 6 + 6 + 10, 6),
-                  "chain": (2 + 4 + 6 + 4 + 6 + 4 + 6, 4 + 6 + 4)}
 # The kernels against their twins: |kernel - twin| <= one ulp of the twin's
 # value in the output's type + 2^-16 of the tensor's largest value. The
 # ulp: the output is rounded once, and the f32 value it rounds differs in
@@ -3543,51 +2289,6 @@ RESIDUAL_BYTES = {"fused": (2 + 6 + 6 + 10, 6),
 # few-rows channels (3 rows: 1.2e-6 seen). Statistics, running statistics,
 # dw and db: within 2^-16 of the largest value.
 BN_FLOOR = 2.0 ** -16
-
-
-def bn_shapes(name: str) -> dict:
-    """{(C, H, W, relu, residual): uses} of the BatchNorms of one forward
-    of ``name`` at 256x256, read by forward hooks on a batch of one
-    (``residual``: the call ends a residual block)."""
-    import torch
-
-    from lighthand_tpu_torch.models import get_model
-    from lighthand_tpu_torch.models.layers import BatchNorm2d
-
-    model = get_model(name).cuda().eval()
-    uses = {}
-
-    def hook(module, inputs, kwargs, output):
-        _, c, h, w = inputs[0].shape
-        key = (c, h, w, module.relu, kwargs.get("residual") is not None)
-        uses[key] = uses.get(key, 0) + 1
-
-    handles = [m.register_forward_hook(hook, with_kwargs=True)
-               for m in model.modules() if isinstance(m, BatchNorm2d)]
-    with torch.no_grad():
-        model(torch.zeros(1, 3, SIZE, SIZE, device="cuda"))
-    for h in handles:
-        h.remove()
-    return uses
-
-
-def bn_inputs(n: int, c: int, h: int, w: int, dtype, seed: int):
-    """x and dy in ``channels_last`` memory, f32 weight, bias and running
-    statistics, made from ``seed``."""
-    import torch
-
-    g = torch.Generator().manual_seed(seed)
-
-    def act(mean, std):
-        t = torch.randn(n, c, h, w, generator=g) * std + mean
-        return t.to(dtype).cuda().contiguous(memory_format=torch.channels_last)
-
-    x, dy = act(0.7, 2.0), act(0.0, 1.0)
-    weight = (torch.rand(c, generator=g) + 0.5).cuda()
-    bias = (torch.randn(c, generator=g) * 0.3).cuda()
-    rm = (torch.randn(c, generator=g) * 0.1).cuda()
-    rv = (torch.rand(c, generator=g) + 0.5).cuda()
-    return x, dy, weight, bias, rm, rv
 
 
 def bn_excess(got, want) -> float:
@@ -3715,65 +2416,18 @@ def bn_residual_check(n, c, h, w, dtype, seed: int) -> dict:
     return out
 
 
-def bn_residual_times(n, c, h, w, kind: str) -> dict:
-    """Device ms (CUDA graph replays between events) of a residual block's
-    end, bf16: its training forward + backward and its eval forward, in
-    the kernels' one pass and in the chain it replaced (the kernels with
-    ``relu=False``, the add, ``relu``, ``threshold_backward``), each beside
-    its byte bound (``RESIDUAL_BYTES``)."""
-    import torch
-
-    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
-
-    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, torch.bfloat16, 12)
-    r, _, _, _, _, _ = bn_inputs(n, c, h, w, torch.bfloat16, 13)
-    nb = torch.zeros((), dtype=torch.long, device="cuda")
-
-    def fused_train():
-        o, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
-                                             False, r)
-        bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, True, 1e-5, False,
-                                    out=o)
-
-    def chain_train():
-        y, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
-                                             False)
-        o = torch.relu(y + r)
-        dyp = torch.ops.aten.threshold_backward(dy, o, 0)
-        bn.batch_norm_backward_cuda(dyp, x, wt, b, s0, s1, True, 1e-5, False)
-
-    def fused_eval():
-        bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False, r)
-
-    def chain_eval():
-        torch.relu(bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, False) + r)
-
-    el = n * c * h * w
-    row = {"shape": (n, c, h, w), "elements": el}
-    for form, train, evaluate in (("fused", fused_train, fused_eval),
-                                  ("chain", chain_train, chain_eval)):
-        for mode, fn, nbytes in zip(("train", "eval"), (train, evaluate),
-                                    RESIDUAL_BYTES[form]):
-            row[f"{form}_{mode}_device_ms"] = device_ms(fn, capture(fn))[0]
-            row[f"{form}_{mode}_bound_ms"] = (nbytes * el / peaks(kind)[0]
-                                              * 1e3)
-    return row
-
-
-def bn_residual_phase(kind: str) -> dict:
+def bn_residual_phase() -> None:
     """The residual block's end in phase 2d: ``bn_residual_check`` at every
-    residual shape of ``RESIDUAL_MODELS`` (bf16 and f32), then
-    ``bn_residual_times`` at HRNet-W32's and ResNet-50's largest."""
+    residual shape of ``RESIDUAL_MODELS``, bf16 and f32."""
     import torch
 
-    by_model = {}
+    shapes = set()
     for name, batch in RESIDUAL_MODELS:
         ends = {(batch, c, h, w): k for (c, h, w, relu, res), k
                 in bn_shapes(name).items() if res}
         print(f"[bn residual] {name}: {sum(ends.values())} block ends at "
               f"{sorted(ends)}")
-        by_model[name] = set(ends)
-    shapes = set().union(*by_model.values())
+        shapes |= set(ends)
     for i, (n, c, h, w) in enumerate(sorted(shapes)):
         for dtype in (torch.bfloat16, torch.float32):
             got = bn_residual_check(n, c, h, w, dtype, seed=300 + i)
@@ -3783,117 +2437,9 @@ def bn_residual_phase(kind: str) -> dict:
     print(f"[bn residual] one pass == the chain (torch.equal: output, dx, "
           f"dw, db, dr, statistics) at {len(shapes)} shapes, bf16 and f32, "
           f"training and eval")
-    rows = {}
-    for name, _ in BN_MODELS:
-        n, c, h, w = max(by_model[name],
-                         key=lambda s: s[0] * s[1] * s[2] * s[3])
-        t = bn_residual_times(n, c, h, w, kind)
-        rows[name] = t
-        print(f"[bn residual time] {name} {t['shape']}: train fw + bw "
-              f"device ms one pass {t['fused_train_device_ms']:.4f} (bound "
-              f"{t['fused_train_bound_ms']:.4f}), chain "
-              f"{t['chain_train_device_ms']:.4f} (bound "
-              f"{t['chain_train_bound_ms']:.4f}); eval one pass "
-              f"{t['fused_eval_device_ms']:.4f} (bound "
-              f"{t['fused_eval_bound_ms']:.4f}), chain "
-              f"{t['chain_eval_device_ms']:.4f} (bound "
-              f"{t['chain_eval_bound_ms']:.4f})")
-    return {"shapes": len(shapes), "largest": rows}
 
 
-def bn_stage_ms(fn, calls: int = 10) -> dict:
-    """{kernel name: device ms a call} of the lh_bn_ kernels ``fn``
-    launches, over replays of ``fn`` captured in a CUDA graph."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    graph = capture(fn)
-    if graph is None:
-        fail("a BatchNorm call could not be captured in a CUDA graph")
-    graph.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            graph.replay()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in prof.key_averages():
-        for stage in BN_STAGE_BYTES:
-            if stage in e.key:
-                ms[stage] = ms.get(stage, 0.0) + getattr(
-                    e, "self_device_time_total", 0) / 1e3 / calls
-    return ms
-
-
-def bn_times(n, c, h, w, kind: str) -> dict:
-    """Device ms of each stage (graph replays, the profiler's kernel
-    times) beside its byte bound; device and eager ms of the training
-    forward + backward and of the eval forward; the device ms of the same
-    two through the twin (the port's chain before the kernels: the f32
-    copy, ``var_mean``, ``F.batch_norm``, the cast back, ``relu``) and
-    through the library's one call as the yardstick: ``F.batch_norm`` on
-    the bf16 activation with the f32 parameters, its own statistics pass,
-    then ``relu`` (a timing only: it updates the running variance with the
-    unbiased variance, not Flax's biased one). bf16, ReLU on."""
-    import torch
-    import torch.nn.functional as F
-
-    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
-
-    x, dy, wt, b, rm, rv = bn_inputs(n, c, h, w, torch.bfloat16, 11)
-    nb = torch.zeros((), dtype=torch.long, device="cuda")
-
-    def train():
-        y, s0, s1 = bn.batch_norm_train_cuda(x, wt, b, rm, rv, nb, 0.1, 1e-5,
-                                             True)
-        bn.batch_norm_backward_cuda(dy, x, wt, b, s0, s1, True, 1e-5, True)
-
-    def evaluate():
-        bn.batch_norm_eval_cuda(x, wt, b, rm, rv, 1e-5, True)
-
-    def chain(fn):
-        def run():
-            with torch.enable_grad():
-                xg = x.detach().requires_grad_()
-                out = fn(xg)
-                torch.autograd.grad(out, xg, dy)
-        return run
-
-    def plain(xg):
-        return bn.batch_norm_train_plain(xg, wt, b, rm, rv, nb, 0.1, 1e-5,
-                                         True)[0]
-
-    def library(xg):
-        return torch.relu(F.batch_norm(xg, rm, rv, wt, b, True, 0.1, 1e-5))
-
-    def plain_eval():
-        bn.batch_norm_eval_plain(x, wt, b, rm, rv, 1e-5, True)
-
-    def library_eval():
-        torch.relu(F.batch_norm(x, rm, rv, wt, b, False, 0.0, 1e-5))
-
-    el = n * c * h * w
-    stages = bn_stage_ms(train)
-    stages.update(bn_stage_ms(evaluate))
-    row = {"shape": (n, c, h, w), "elements": el, "stages": {}}
-    for stage, ms in stages.items():
-        bound = BN_STAGE_BYTES[stage] * el / peaks(kind)[0] * 1e3
-        row["stages"][stage] = (round(ms, 5), round(bound, 5))
-    fw_bw = [s for s in stages if s != "lh_bn_fw_eval"]
-    row["train_device_ms"] = sum(stages[s] for s in fw_bw)
-    row["train_bound_ms"] = 16 * el / peaks(kind)[0] * 1e3
-    row["train_eager_ms"] = eager_ms(train)
-    row["eval_device_ms"] = stages["lh_bn_fw_eval"]
-    row["eval_bound_ms"] = 4 * el / peaks(kind)[0] * 1e3
-    row["eval_eager_ms"] = eager_ms(evaluate)
-    for name, fn in (("plain", chain(plain)), ("library", chain(library)),
-                     ("plain_eval", plain_eval),
-                     ("library_eval", library_eval)):
-        row[f"{name}_device_ms"] = device_ms(fn, capture(fn))[0]
-    return row
-
-
-def bn_path_phase() -> dict:
+def bn_path_phase() -> None:
     """One graphed HRNet-W32 bs128 training microbatch (the fused step,
     K=1) and one bs128 eval batch: each replay launches each training stage
     once a BatchNorm (3 x 292 forward, 3 x 292 backward launches) and the
@@ -3982,99 +2528,15 @@ def bn_path_phase() -> dict:
     if foreign or not bn_kernels:
         fail(f"the batch norm family holds other kernels: {foreign}")
     del state, step
-    return replay
 
 
-def bn_route_ms(batch: dict, route, calls: int = 10) -> tuple:
-    """(ms a training microbatch, ms an eval batch) of HRNet-W32 with its
-    BatchNorms through ``route`` (``ops/kernels/batch_norm.py:batch_norm``'s
-    signature), both steps graphed: host wall over ``calls`` replays after
-    the eager call and the capture, synchronised at both ends."""
-    import torch
-
-    from lighthand_tpu_torch.models import get_model, layers
-    from lighthand_tpu_torch.train import (
-        create_train_state,
-        make_eval_step,
-        make_fused_train_step,
-    )
-
-    kept = layers.batch_norm
-    layers.batch_norm = route
-    try:
-        state = create_train_state(get_model("hrnet_w32"),
-                                   torch.Generator().manual_seed(0), lr=1e-3)
-        step, eval_step = make_fused_train_step(scan_steps=1), make_eval_step()
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        b = batch["joints"].shape[0]
-        ev = {"image": torch.randn(b, SIZE, SIZE, 3, device="cuda"),
-              "joints": batch["joints"], "valid": torch.ones(b, device="cuda")}
-        ms = []
-        for run in (lambda: step(state, gen, batch),
-                    lambda: eval_step(state, ev)):
-            for _ in range(2):  # eager, capture
-                run()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                run()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3 / calls)
-    finally:
-        layers.batch_norm = kept
-    del state, step, eval_step
-    torch.cuda.empty_cache()
-    return tuple(ms)
-
-
-def bn_routes_phase() -> dict:
-    """HRNet-W32 bs128, graphed: a training microbatch and an eval batch
-    with the BatchNorms through the kernels and through the library's one
-    call (``F.batch_norm`` on the bf16 activation with the f32 parameters,
-    then ``relu``; a timing only, as in ``bn_times``), in the order
-    kernels, library, library, kernels. Returns {route: [(train ms, eval
-    ms), ...]}."""
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
-
-    from lighthand_tpu_torch.ops.kernels import batch_norm as bn
-
-    def library(x, weight, bias, running_mean, running_var,
-                num_batches_tracked, training, momentum, eps, relu=False,
-                residual=None):
-        y = F.batch_norm(x, running_mean, running_var, weight, bias,
-                         training, momentum, eps)
-        return bn.activate(y, relu, residual)
-
-    b = B_KERNEL
-    rng = np.random.default_rng(20)
-    batch = {
-        "image_u8": torch.from_numpy(rng.integers(
-            0, 256, size=(b, SIZE, SIZE, 3), dtype=np.uint8)),
-        "joints": torch.from_numpy(rng.uniform(
-            16, SIZE - 16, size=(b, JOINTS, 2)).astype(np.float32)),
-        "aug_enabled": torch.ones(b), "noise_enabled": torch.ones(b)}
-    batch = {k: v.cuda() for k, v in batch.items()}
-    routes = {"kernels": bn.batch_norm, "library": library}
-    ms = {name: [] for name in routes}
-    for name in ("kernels", "library", "library", "kernels"):
-        ms[name].append(bn_route_ms(batch, routes[name]))
-    print(f"[bn routes] HRNet-W32 bs{b} graphed, ms a training microbatch "
-          f"and an eval batch (host wall over 10 replays): {ms}")
-    return ms
-
-
-def batch_norm_phase(kind: str) -> dict:
+def batch_norm_phase() -> None:
     """Phase 2d: the BatchNorm kernels (``csrc/batch_norm.cu``) against
     their twins on the card at every distinct BatchNorm shape of the
     cells' models (HRNet-W32 bs128, ResNet-50 bs32), bf16 and f32, ReLU on
     and off, training and eval (``bn_check``), and ragged cases (C = 4, 12,
-    100; NCHW input; a misaligned x: the one-element path); each stage's
-    device ms beside its byte bound at every shape, weighted by uses into
-    each model's ms a microbatch; the kernel table's rows at each model's
-    largest and smallest shape; then ``bn_path_phase`` and
-    ``bn_routes_phase``. Returns the rows."""
+    100; NCHW input; a misaligned x: the one-element path); then
+    ``bn_residual_phase`` and ``bn_path_phase``."""
     import torch
 
     worst, n_checks = {}, 0
@@ -4083,10 +2545,10 @@ def batch_norm_phase(kind: str) -> dict:
         uses = bn_shapes(name)
         print(f"[bn] {name}: {sum(uses.values())} BatchNorms, "
               f"{len(uses)} distinct (C, H, W, relu)")
-        for (c, h, w, relu, _), k in uses.items():
-            shapes.setdefault((name, batch, c, h, w), []).append((relu, k))
-    cases = [(batch, c, h, w) for (_, batch, c, h, w) in shapes]
-    cases += [(8, 4, 9, 7), (4, 12, 10, 10), (4, 100, 8, 8), (3, 256, 1, 1)]
+        for c, h, w, _, _ in uses:
+            shapes[batch, c, h, w] = None
+    cases = list(shapes) + [(8, 4, 9, 7), (4, 12, 10, 10), (4, 100, 8, 8),
+                            (3, 256, 1, 1)]
     for i, (n, c, h, w) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             for relu in (False, True):
@@ -4129,49 +2591,8 @@ def batch_norm_phase(kind: str) -> dict:
           f"(y, dx: of the tolerance; statistics, dw, db: relative; gates "
           f"bit for bit): { {k: v for k, v in sorted(worst.items())} }")
 
-    rows, per_model = [], {}
-    for (name, batch, c, h, w), relus in shapes.items():
-        t = bn_times(batch, c, h, w, kind)
-        t["model"], t["uses"] = name, sum(k for _, k in relus)
-        rows.append(t)
-        m = per_model.setdefault(name, {})
-        for key in ("train_device_ms", "train_bound_ms", "eval_device_ms",
-                    "eval_bound_ms", "plain_device_ms", "library_device_ms",
-                    "plain_eval_device_ms", "library_eval_device_ms"):
-            m[key] = m.get(key, 0.0) + t["uses"] * t[key]
-        print(f"[bn time] {name} {t['shape']} x{t['uses']}: stages (device "
-              f"ms, bound ms) {t['stages']}; train {t['train_device_ms']:.4f}"
-              f" (eager {t['train_eager_ms']:.4f}, bound "
-              f"{t['train_bound_ms']:.4f}); eval {t['eval_device_ms']:.4f} "
-              f"(eager {t['eval_eager_ms']:.4f}); plain "
-              f"{t['plain_device_ms']:.4f} / {t['plain_eval_device_ms']:.4f}"
-              f", library {t['library_device_ms']:.4f} / "
-              f"{t['library_eval_device_ms']:.4f} (device, train fw + bw / "
-              "eval)")
-    for name, m in per_model.items():
-        print(f"[bn time] {name}: a microbatch's BatchNorms, device ms: "
-              f"train {m['train_device_ms']:.3f} (bound "
-              f"{m['train_bound_ms']:.3f}, "
-              f"{100 * m['train_bound_ms'] / m['train_device_ms']:.1f} %), "
-              f"eval {m['eval_device_ms']:.3f} (bound "
-              f"{m['eval_bound_ms']:.3f}, "
-              f"{100 * m['eval_bound_ms'] / m['eval_device_ms']:.1f} %); "
-              f"plain train {m['plain_device_ms']:.3f}, eval "
-              f"{m['plain_eval_device_ms']:.3f}; library train "
-              f"{m['library_device_ms']:.3f}, eval "
-              f"{m['library_eval_device_ms']:.3f}")
-    table = {}
-    for name, _ in BN_MODELS:
-        mine = sorted((r for r in rows if r["model"] == name),
-                      key=lambda r: r["elements"])
-        table[name] = {"smallest": mine[0], "largest": mine[-1],
-                       "microbatch_ms": per_model[name]}
-    residual = bn_residual_phase(kind)
-    replay = bn_path_phase()
-    return {"launches_by_path": {"w32_bs128_microbatch": sum(
-        replay[f"{k}_cuda"] for k in BN_COUNTERS)},
-            "w32_bs128_ms_by_route": bn_routes_phase(),
-            "by_model": table, "residual": residual}
+    bn_residual_phase()
+    bn_path_phase()
 
 
 # ------------------------------------------------ the measurement entry points
@@ -4188,17 +2609,12 @@ def _tools():
             importlib.import_module("profile_step_torch"))
 
 
-def _gib(nbytes) -> str:
-    return f"{nbytes / 2**30:.2f} GiB"
-
-
-def bench_phase(counters, n_quant: int) -> tuple:
+def bench_phase(counters, n_quant: int) -> None:
     """Phases 11a-11b: ``bench_torch.measure`` on the headline with 2
     measured dispatches, then every ``EXTRA_CONFIGS`` entry at one warm-up,
     one measured and one blocked dispatch. img/s finite and positive, every
     loss finite, K1 once a microbatch, under int8_fwd the int8 conv once a
-    quantized conv and the grouped weight quantize once a forward. Returns
-    the launches of both and the figures."""
+    quantized conv and the grouped weight quantize once a forward."""
     import gc
 
     import torch
@@ -4209,9 +2625,7 @@ def bench_phase(counters, n_quant: int) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
         zero(counters)
-        t0 = time.perf_counter()
         m = bt.measure(name, batch, size, precision, target_style=style, **kw)
-        wall = time.perf_counter() - t0
         counts = read(counters)
         dispatches = (kw.get("warmup", bt.WARMUP) + kw.get("measure")
                       + kw.get("blocked", bt.BLOCKED))
@@ -4221,41 +2635,28 @@ def bench_phase(counters, n_quant: int) -> tuple:
                 "int8_conv": forwards * n_quant if int8 else 0,
                 "quantize_weight": forwards if int8 else 0}
         tag = f"{name}@{size} bs{batch} {precision} {style}"
-        print(f"[bench] {tag}: {m.img_per_sec:.2f} img/s (pipelined "
-              f"{m.pipelined_img_per_sec:.2f}, blocked "
-              f"{m.blocked_img_per_sec:.2f}); {m.device_ms:.2f} device ms a "
-              f"dispatch of {bt.SCAN_STEPS} steps (events), events span "
-              f"{100 * m.events_over_wall:.1f} % of the wall; peak "
-              f"{_gib(m.peak_bytes)}; loss {m.loss:.6f}; {wall:.1f} s in "
-              f"all; launches {counts}")
+        print(f"[bench] {tag}: {m.img_per_sec:.2f} img/s; loss "
+              f"{m.loss:.6f}; launches {counts}")
         if not (math.isfinite(m.img_per_sec) and m.img_per_sec > 0
                 and math.isfinite(m.loss)):
             fail(f"bench {tag}: img/s {m.img_per_sec}, loss {m.loss}")
         if off(counts, want):
             fail(f"bench {tag}: launches {counts}, expected {want}")
-        return m, counts
 
-    head, launches = run("hrnet_w32", bt.BATCH, bt.SIZE, "bf16", "msra",
-                         measure=2)
-    figures = {"headline": head, "configs": {}}
+    run("hrnet_w32", bt.BATCH, bt.SIZE, "bf16", "msra", measure=2)
     for cfg in bt.EXTRA_CONFIGS:
-        m, counts = run(*cfg, measure=1, warmup=1, blocked=1)
-        figures["configs"][cfg] = m
-        launches = {k: launches[k] + counts[k] for k in launches}
-    return launches, figures
+        run(*cfg, measure=1, warmup=1, blocked=1)
 
 
-def serving_phase(counters, n_quant: int) -> tuple:
+def serving_phase(counters, n_quant: int) -> None:
     """Phase 11c: the serving bench's predict (HRNet-W32, 256x256, bs128)
     under bf16 and int8_fwd at 2 warm-up calls (the eager one and the
     capture), 1 measured and 1 blocked call:
     finite predictions; under int8_fwd 4 x the quantized convs and 4
-    weight-quantize launches, under bf16 none. Returns the launches and
-    the figures."""
+    weight-quantize launches, under bf16 none."""
     import torch
 
     serving, _ = _tools()
-    figures, launches = {}, {name: 0 for name in counters}
     for precision in ("bf16", "int8_fwd"):
         zero(counters)
         m = serving.measure_predict(precision, warmup=2, measure=1,
@@ -4266,24 +2667,19 @@ def serving_phase(counters, n_quant: int) -> tuple:
                 "int8_conv": 4 * n_quant if int8 else 0,
                 "quantize_weight": 4 if int8 else 0}
         print(f"[serving] predict hrnet_w32@256 bs128 {precision}: "
-              f"{m.img_per_sec:.2f} img/s, {m.device_ms:.3f} device ms a call"
-              f" (events); launches {counts}")
+              f"{m.img_per_sec:.2f} img/s; launches {counts}")
         if not (bool(torch.isfinite(m.joints).all()) and m.img_per_sec > 0):
             fail(f"serving {precision}: bad predictions or rate")
         if off(counts, want):
             fail(f"serving {precision}: launches {counts}, expected {want}")
-        figures[precision] = m
-        launches = {k: launches[k] + counts[k] for k in launches}
-    return launches, figures
 
 
-def profile_phase(counters) -> tuple:
+def profile_phase(counters) -> None:
     """Phase 11d: ``profile_step_torch`` on the headline, 1 warm-up and 2
     profiled dispatches (the warm-up's first microbatch eager, its second
     captured: the profiled ones replay): K1 in the kernel ranking (its
     count printed: 8 unless the profiler dropped events), the families,
-    the busy share, the graph launches and the dropped-event share.
-    Returns the launches and the summary."""
+    the busy share, the graph launches and the dropped-event share."""
     _, profile = _tools()
     zero(counters)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
@@ -4308,7 +2704,6 @@ def profile_phase(counters) -> tuple:
     if counts["fused_aug_targets"] != 3 * 4:
         fail(f"profile workload launched K1 {counts['fused_aug_targets']} "
              "times, expected 12")
-    return counts, summary
 
 
 def prewarm_phase() -> None:
@@ -4332,13 +2727,11 @@ def prewarm_phase() -> None:
                 "except SystemExit as e:\n"
                 "    assert not e.code, e.code\n"
                 "print('cuda initialised', torch.cuda.is_initialized())\n")
-        t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-c", code,
              os.path.join(REPO, "tools", "prewarm_cache_torch.py"), *argv,
              "--batch", "64"], capture_output=True, text=True, timeout=300,
             cwd=tmp)
-        wall = time.perf_counter() - t0
         print("\n".join(f"[prewarm] {line}"
                         for line in out.stdout.splitlines()))
         if out.returncode != 0:
@@ -4347,8 +2740,7 @@ def prewarm_phase() -> None:
             fail("prewarm_cache_torch initialised CUDA")
         fractions = [c.hit_fraction() for src in build_dataset(
             parse_args(argv)) for c in cached_sources(src)]
-    print(f"[prewarm] {wall:.1f} s in the subprocess; hit fractions "
-          f"afterwards {fractions}")
+    print(f"[prewarm] hit fractions afterwards {fractions}")
     if fractions != [1.0, 1.0]:
         fail(f"prewarm left the caches at {fractions}")
 
@@ -4392,12 +2784,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # 1. device and build -------------------------------------------------
-    card = card_line()
-    print(card)
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-    t0 = time.perf_counter()
     logs = _build.build_all()
-    print(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {sorted(logs)}")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4408,11 +2798,10 @@ def main() -> int:
         fail(f"libraries not built: {missing}")
 
     # 1b. the host image codec against cv2's stored results ---------------
-    codec_ms = codec_phase()
+    codec_phase()
 
     # 2. K2 against its plain twin -----------------------------------------
     rng = np.random.default_rng(0)
-    k2_err = 0.0
     for b, hm, stride, cols in ((B_KERNEL, HM, 4.0, 2), (B_TRAIN, HM, 4.0, 2),
                                 (5, 50, 3.0, 3)):
         joints = torch.from_numpy(rng.uniform(-40, 300, size=(b, JOINTS, cols))
@@ -4425,7 +2814,6 @@ def main() -> int:
               f"max|kernel - plain| = {err:.3g} (atol 1e-5)")
         if got.shape != want.shape or not err <= 1e-5:
             fail(f"K2 disagrees with its plain twin at B={b}, hm={hm}: {err}")
-        k2_err = max(k2_err, err)
 
     # 3. K1 against its plain twin -----------------------------------------
     mismatches = count_div_mismatches(dev)
@@ -4433,7 +2821,6 @@ def main() -> int:
           "1,065,353,217 numerators differ from IEEE division")
     if mismatches:
         fail("K1's constant division differs from IEEE division")
-    k1_err = 0.0
     ragged_order = [[-1, 5, 1, 1], [1, 2, 5, 1], [3, 0, 2, 1]]
     k1_cases = (
         # (B, seed, H, W, joint columns, op orders, hm, stride, joints)
@@ -4457,22 +2844,11 @@ def main() -> int:
         want_img, want_hm = fused_aug_targets_plain(images, joints, params,
                                                     **kw)
         torch.cuda.synchronize()
-        g, w_ = got_img.float(), want_img.float()
-        diff = (g - w_).abs()
-        ulp = bf16_ulp(w_)
-        fine = ulp < F32_ATOL
-        ulps = float((diff / ulp * ~fine).max())
-        near0 = float((diff * fine).max())
-        equal = float((diff == 0).float().mean())
-        hm_err = float((got_hm - want_hm).abs().max())
+        ok, desc = k1_agrees(got_img, want_img, got_hm, want_hm)
         tag = f"B={b} {h}x{w} hm={hm} J={nj} {launch_geometry(h, w)}"
-        print(f"[K1] {tag} bf16: max|diff| {float(diff.max()):.3g}, "
-              f"{ulps:.3g} ulp where a ulp >= {F32_ATOL:g}, {near0:.3g} "
-              f"below; equal {100 * equal:.4f} %; targets {hm_err:.3g}")
-        if not (got_img.shape == want_img.shape and ulps <= 1.0
-                and near0 <= F32_ATOL and equal >= 0.999 and hm_err <= 1e-5):
+        print(f"[K1] {tag} bf16: {desc}")
+        if not ok:
             fail(f"K1 disagrees with its plain twin at {tag}")
-        k1_err = max(k1_err, float(diff.max()), hm_err)
         if b != B_KERNEL:
             got32, _ = fused_aug_targets_cuda(images, joints, params,
                                               out_dtype=torch.float32, **kw)
@@ -4485,7 +2861,7 @@ def main() -> int:
                 fail(f"K1 f32 variant disagrees with its plain twin at {tag}: "
                      f"{err32}")
 
-    # 2b. the int8 conv against its plain twin ----------------------------
+    # 2b-2d. the int8 kernels; a QuantConv2d card vs CPU; BatchNorm -------
     shapes = {name: quant_conv_shapes(name)
               for name in ("resnet50", "hrnet_w32")}
     n_quant = {name: sum(uses.values()) for name, uses in shapes.items()}
@@ -4493,12 +2869,10 @@ def main() -> int:
           f"{ {name: len(uses) for name, uses in shapes.items()} }")
     if n_quant != {"resnet50": 53, "hrnet_w32": 292}:
         fail(f"quantized conv counts {n_quant}, expected 53 and 292")
-    weight_err, int8_err = int8_check_phase(shapes)
-    weight_err = max(weight_err, grouped_check_phase())
-    # 2c. fault 3: the weight scale on the card is the CPU's
+    int8_check_phase(shapes)
+    grouped_check_phase()
     quant_module_phase()
-    # 2d. the BatchNorm kernels
-    bn_figures = batch_norm_phase(kind)
+    batch_norm_phase()
     counters = {"fused_aug_targets": fused_aug_targets_cuda,
                 "heatmap_targets": generate_target_batch_cuda,
                 "int8_conv": int8_conv2d_cuda,
@@ -4526,16 +2900,11 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
 
     zero(counters)
-    losses, step_s = [], []
+    losses = []
     for _ in range(3):
-        t0 = time.perf_counter()
         state, metrics = step(state, gen, batch)
-        losses.append(float(metrics["loss"]))  # synchronises
-        step_s.append(time.perf_counter() - t0)
-    ms_step = step_s[-1] * 1e3  # the replayed step (the second captures)
-    print(f"[train] HRNet-W32 256x256 bs{B_TRAIN} bf16: losses {losses}; "
-          f"step ms {[round(s * 1e3, 2) for s in step_s]}; steady "
-          f"{ms_step:.2f} ms/step = {B_TRAIN / ms_step * 1e3:.1f} img/s")
+        losses.append(float(metrics["loss"]))
+    print(f"[train] HRNet-W32 256x256 bs{B_TRAIN} bf16: losses {losses}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite train loss: {losses}")
 
@@ -4545,18 +2914,13 @@ def main() -> int:
     valid[-4:] = 0.0
     eval_batch = {"image": images, "joints": batch["joints"], "valid": valid}
     eval_step = make_eval_step()
-    eval_s = []
     for _ in range(2):
-        t0 = time.perf_counter()
         out = eval_step(state, eval_batch)
-        torch.cuda.synchronize()
-        eval_s.append(time.perf_counter() - t0)
     joints_px, maxvals = make_predict_step()(state, images)
     torch.cuda.synchronize()
     launches = read(counters)
     scalars = {k: float(v) for k, v in out.items() if v.ndim == 0}
-    print(f"[eval] {scalars}; eval ms {[round(s * 1e3, 2) for s in eval_s]}"
-          f" = {B_TRAIN / eval_s[-1]:.1f} img/s")
+    print(f"[eval] {scalars}")
     print(f"[path] launches {launches}")
     if launches["fused_aug_targets"] != 3:
         fail(f"K1 launched {launches['fused_aug_targets']} times in 3 steps")
@@ -4583,115 +2947,53 @@ def main() -> int:
                    for k, v in state.model.state_dict().items()}
 
     # 4b-5b. the int8_fwd policy: training, then serving phase 4's weights
-    int8_launches = int8_train_phase(batch, counters, n_quant["hrnet_w32"])
-    serve_launches = int8_serving_phase(state, images, counters,
-                                        n_quant["hrnet_w32"])
-
+    int8_train_phase(batch, counters, n_quant["hrnet_w32"])
+    int8_serving_phase(state, images, counters, n_quant["hrnet_w32"])
     # 4c. the flip / rotation route: the chain and K2 instead of K1
-    aug_launches, aug_fig, aug_k2_err = aug_route_phase(counters, card,
-                                                        ms_step)
-
+    aug_route_phase(counters)
     # 4d. the steps as CUDA graphs against their eager forms
-    graph_launches = graph_phase(counters)
-
-    # 6. the training entry point -------------------------------------------
-    cli_launches, synth_fig = cli_phase(counters)
-
+    graph_phase(counters)
+    # 6. the training entry point
+    cli_phase(counters)
     # 6b-6d. the real-data path: a LightHand tree through the CLI, then a
     # FreiHAND TSV tree and a GAN + LightHand mix through fused steps, then
     # the eval entry point on 6b's run over an Armo tree
     with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
-        real_launches, real_fig = real_tree_phase(counters, tmp)
-        mix_launches = frei_and_mix_phase(state, counters, tmp)
-        eval_launches, eval_ips = eval_cli_phase(counters, tmp,
-                                                 n_quant["resnet50"])
+        real_tree_phase(counters, tmp)
+        frei_and_mix_phase(state, counters, tmp)
+        eval_cli_phase(counters, tmp, n_quant["resnet50"])
     # 6e-6f. the training CLI with --flip --rot-aug, then under the
     # environment contract at world size 1 (NCCL) against a plain run
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aug_") as tmp:
-        aug_cli_launches = aug_cli_phase(counters, tmp)
-        dist_launches, dist_gaps, dist_ms = dist_phase(counters, tmp)
+        aug_cli_phase(counters, tmp)
+        dist_phase(counters, tmp)
     # 9a-9f. the tree-making CLIs, JPEG writing, overlays, geometry
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp:
-        synth, tree_fig = synth_tree_phase(tmp)
-        jpeg_ms = encode_phase(codec_ms)
-        overlay_launches, overlay_fig = overlay_cli_phase(counters, tmp,
-                                                          synth)
-        plt_launches = plt_eval_phase(counters, tmp, synth)
+        synth = synth_tree_phase(tmp)
+        encode_phase()
+        overlay_cli_phase(counters, tmp, synth)
+        plt_eval_phase(counters, tmp, synth)
         make_lighthand_phase(tmp)
     geometry_phase()
-    # 9g-9h. the landmark and skeleton overlays; the mesh renderer
+    # 9g-9i. the landmark and skeleton overlays; the captions; the mesh
+    # renderer
     with tempfile.TemporaryDirectory(prefix="chip_smoke_draw_") as tmp:
         drawing_phase(tmp)
-    # 9i. the captions (draw_text, put_text) on the host
-    text_ms = text_phase()
-    raster_row, render_launches = render_phase(kind)
+    text_phase()
+    render_phase()
     # 10a-10c. fine-tuning with a frozen stem and the metric set; single
     # sample targets through K2; the jittering preprocessor
-    ft_launches, ft_fig = finetune_phase(w32_weights, batch, counters, card,
-                                         ms_step)
+    finetune_phase(w32_weights, batch, counters)
     del w32_weights
-    target_launches, target_err = single_target_phase(counters)
-    pre_fig = preprocessor_phase(counters, card)
+    single_target_phase()
+    preprocessor_phase(counters)
     # 11a-11e. the measurement entry points: the bench (headline, then
     # every EXTRA_CONFIGS entry), the serving bench, the step profiler and
     # the cache pre-warmer
-    bench_launches, bench_fig = bench_phase(counters, n_quant["hrnet_w32"])
-    serving_launches, serving_fig = serving_phase(counters,
-                                                  n_quant["hrnet_w32"])
-    profile_launches, profile_sum = profile_phase(counters)
+    bench_phase(counters, n_quant["hrnet_w32"])
+    serving_phase(counters, n_quant["hrnet_w32"])
+    profile_phase(counters)
     prewarm_phase()
-    print(f"[figures] {card}: make_synth_data {tree_fig['img_s']:.1f} img/s "
-          f"(host); JPEG ms {jpeg_ms}; overlay CLI (ResNet-50 bs{B_TRAIN}, "
-          f"64 train images, 1 epoch) epoch {overlay_fig['epoch_s']:.2f} s, "
-          f"host ms per overlay {overlay_fig['overlay_ms']}")
-    print(f"[figures] {card}: draw_text (phase 9i) host ms, 256x256, 3 "
-          f"rows: {text_ms:.3f}")
-    print(f"[figures] {card}: flip + rotation 15 (phase 4c): HRNet-W32 "
-          f"bs{B_TRAIN} step {aug_fig['step_ms']:.2f} ms against K1's "
-          f"{aug_fig['k1_step_ms']:.2f} ms; at B={B_KERNEL} the chain "
-          f"{aug_fig['chain_device_ms']:.4f} ms device "
-          f"({aug_fig['chain_eager_ms']:.4f} ms eager) against K1's "
-          f"{aug_fig['K1_device_ms']:.4f} ms ({aug_fig['K1_eager_ms']:.4f} "
-          f"ms eager); world-size-1 NCCL run against the plain run "
-          f"(ResNet-50 f32, 1 epoch): relative loss gaps {dist_gaps}; "
-          f"HRNet-W32 bs{B_TRAIN} bf16 step plain {dist_ms['plain']:.2f} ms, "
-          f"on a 1 x 1 mesh {dist_ms['mesh']:.2f} ms (Adam alone "
-          f"{dist_ms['plain_adam']:.2f} / {dist_ms['mesh_adam']:.2f} ms)")
-    print(f"[figures] {card}: fine-tune (phase 10a): HRNet-W32 "
-          f"bs{B_TRAIN} step with the stem and layer1 frozen "
-          f"{ft_fig['step_ms']:.2f} ms against phase 4's {ms_step:.2f} ms; "
-          f"PCK {ft_fig['pck']}; DevicePreprocessor(jitter=True) (phase "
-          f"10c) B={B_TRAIN} {pre_fig['preprocessor_device_ms']:.4f} ms "
-          f"device ({pre_fig['preprocessor_eager_ms']:.4f} ms eager) "
-          f"against K1's {pre_fig['K1_device_ms']:.4f} ms "
-          f"({pre_fig['K1_eager_ms']:.4f} ms eager)")
-    print(f"[figures] {card}: epoch wall s and img/s (bs{B_TRAIN}, 128 "
-          f"train images, SimpleBaseline ResNet-50, bf16; overlays on, a "
-          f"predict step and a JPEG at 3 train and up to 3 val iterations "
-          f"an epoch, in 6, 6b and 6e too): synthetic "
-          f"{synth_fig['epoch_s']} / {synth_fig['img_s']}; LightHand tree "
-          f"of fixture JPEGs {real_fig['epoch_s']} / {real_fig['img_s']}; "
-          f"host codec ms {codec_ms}; eval CLI img/s (ResNet-50, 64 Armo "
-          f"images) {eval_ips}")
-
-    head = bench_fig["headline"]
-    print(f"[figures] {card}: bench_torch headline (HRNet-W32 256x256 bs"
-          f"{B_KERNEL} bf16, 4 steps a dispatch, 2 measured) "
-          f"{head.img_per_sec:.2f} img/s, {head.device_ms:.2f} device ms a "
-          f"dispatch, peak {_gib(head.peak_bytes)}; one measured dispatch "
-          "each: " + "; ".join(
-              f"{name}@{size} bs{batch} {prec} {style} "
-              f"{m.img_per_sec:.2f} img/s, peak {_gib(m.peak_bytes)}"
-              for (name, batch, size, prec, style), m
-              in bench_fig["configs"].items()))
-    print(f"[figures] {card}: serving predict bs{B_KERNEL} img/s bf16 "
-          f"{serving_fig['bf16'].img_per_sec:.2f}, int8_fwd "
-          f"{serving_fig['int8_fwd'].img_per_sec:.2f}; profiler (2 "
-          f"dispatches of the headline): kernel sum "
-          f"{profile_sum['kernel_ms']:.2f} ms a dispatch, over events "
-          f"{profile_sum['busy']:.4f}, families "
-          + ", ".join(f"{f} {v['ms']:.2f} ms" for f, v in
-                      profile_sum["families"].items()))
 
     # 7. reference: the trained weights in f32, card vs CPU, with both TF32
     # switches on outside the f32 policy's own context ---------------------
@@ -4720,131 +3022,11 @@ def main() -> int:
           f"{rel16:.3g}")
     if not ok:
         fail("the port's W32 forward on the card disagrees with the CPU")
-    # the phases from here on only time kernels, with f32 math full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 8. kernel times and bounds -------------------------------------------
-    def cases(b, seed):
-        """(name, source, replaces, kernel call, plain call, bytes, ops) at
-        batch b: each input read once, each output written once."""
-        images, joints, params = k1_inputs(b, seed)
-        n_px, n_hm = b * SIZE * SIZE, b * JOINTS * HM * HM
-        return (
-            ("fused_aug_targets", "lighthand_tpu_torch/csrc/fused_aug.cu",
-             "lighthand_tpu/ops/pallas/fused_aug.py:151",
-             lambda: fused_aug_targets_cuda(images, joints, params),
-             lambda: fused_aug_targets_plain(images, joints, params),
-             n_px * 3 + params.numel() * 4 + joints.numel() * 4
-             + n_px * 3 * 2 + n_hm * 4,
-             n_px * K1_OPS_PER_PIXEL + n_hm * TARGET_OPS_PER_ELEMENT),
-            ("heatmap_targets", "lighthand_tpu_torch/csrc/heatmap.cu",
-             "lighthand_tpu/ops/pallas/heatmap.py:66",
-             lambda: generate_target_batch_cuda(joints),
-             lambda: generate_target_batch(joints),
-             joints.numel() * 4 + n_hm * 4, n_hm * TARGET_OPS_PER_ELEMENT),
-        )
-
-    paths = {"steps": launches, "int8_steps": int8_launches,
-             "int8_serving": serve_launches, "cli": cli_launches,
-             "real_tree_cli": real_launches,
-             "frei_and_mix_steps": mix_launches, "eval_cli": eval_launches,
-             "aug_route_steps": aug_launches, "graph_steps": graph_launches,
-             "aug_route_cli": aug_cli_launches,
-             "dist_cli_world1": dist_launches,
-             "overlay_cli": overlay_launches, "plt_eval_cli": plt_launches,
-             "finetune_steps": ft_launches,
-             "single_sample_targets": target_launches,
-             "bench": bench_launches, "serving": serving_launches,
-             "profile": profile_launches}
-    errs = {"fused_aug_targets": k1_err,
-            "heatmap_targets": max(k2_err, aug_k2_err, target_err)}
-    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    rows = []
-    for b, seed in ((B_TRAIN, 2), (B_KERNEL, 1)):
-        for name, src, replaces, fn, plain, nbytes, ops in cases(b, seed):
-            ms, plain_ms = eager_ms(fn), eager_ms(plain)
-            graph = capture(fn)
-            dev_ms, how = device_ms(fn, graph)
-            bound, by = bound_ms(nbytes, ops, kind)
-            print(f"[{name}] B={b}: eager {ms:.4f} ms/call, device {dev_ms:.4f}"
-                  f" ms ({how}), plain {plain_ms:.4f} ms, bound "
-                  f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.2f} Gop), {100 * bound / dev_ms:.1f} % of "
-                  f"bound on device time")
-            if b == B_TRAIN:
-                cold = flushed_ms(fn, flush_buf.zero_)
-                cold_dev = ("not measured (no graph)" if graph is None else
-                            f"{flushed_ms(graph.replay, flush_buf.zero_):.4f}"
-                            " ms (cuda graph)")
-                print(f"[{name}] B={b}, L2 flushed before each call: eager "
-                      f"{cold:.4f} ms, device {cold_dev}")
-            del graph
-            if b == B_KERNEL:
-                by_path = {p: c[name] for p, c in paths.items()}
-                rows.append({
-                    "name": name, "route": "cuda", "source": src,
-                    "replaces": replaces,
-                    "launches": sum(by_path.values()),
-                    "launches_by_path": by_path,
-                    "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
-                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                    "library_ms": None})
-
-    # 8b-8c. the two int8 kernels at the heaviest conv shape of each net,
-    # and the nets' forward under bf16 and int8_fwd
-    timed = {}
-    for i, (name, uses) in enumerate(sorted(shapes.items())):
-        heavy = heaviest_shape(uses)
-        print(f"[int8_conv] {name}'s heaviest shape (Cin, H, W, Cout, k, s)"
-              f" {heavy}: {uses[heavy]} uses, "
-              f"{conv_ops(B_TRAIN, heavy) * uses[heavy] / 1e9:.1f} Gop a "
-              "forward at bs32")
-        timed[name] = int8_times(kind, heavy, 900 + i)
-    stem_figs = {}
-    for i, (name, uses) in enumerate(sorted(shapes.items())):
-        stem = next(key for key in uses if key[0] % 32)
-        print(f"[int8_conv] {name}'s stem (Cin, H, W, Cout, k, s) {stem}: "
-              f"{uses[stem]} use, {conv_ops(B_TRAIN, stem) / 1e9:.2f} Gop a "
-              "forward at bs32")
-        stem_figs[name], _ = int8_times(kind, stem, 910 + i)
-    forward_times()
-    grouped = grouped_times(kind)
-    breakdown = quant_conv_breakdown(shapes, grouped)
-    conv_row, _ = max(
-        timed.values(), key=lambda t: conv_ops(B_TRAIN, t[0]["shape"]))
-    weight_row = {**grouped["hrnet_w32"],
-                  "resnet50": grouped["resnet50"],
-                  "heaviest_shape": {name: fig for name, (_, fig)
-                                     in timed.items()}}
-    for name, fig, err, replaces in (
-            ("int8_conv", conv_row, int8_err,
-             "lighthand_tpu/ops/quant.py:54"),
-            ("quantize_weight", weight_row, weight_err,
-             "lighthand_tpu/ops/quant.py:45")):
-        by_path = {p: c[name] for p, c in paths.items()}
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "lighthand_tpu_torch/csrc/int8_conv.cu",
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": err, **fig})
-    rows[-2]["forward_ms_by_model"] = breakdown
-    rows[-2]["stems"] = stem_figs
-    rows.append(raster_row)
-    # the three wrappers' launches summed, on each path that counts them
-    bn_by_path = {p: sum(c[k] for k in BN_COUNTERS)
-                  for p, c in paths.items() if BN_COUNTERS[0] in c}
-    bn_by_path.update(bn_figures.pop("launches_by_path"))
-    rows.append({"name": "batch_norm", "route": "cuda",
-                 "source": "lighthand_tpu_torch/csrc/batch_norm.cu",
-                 "replaces": None, "launches": sum(bn_by_path.values()),
-                 "launches_by_path": bn_by_path, **bn_figures})
-    print(f"[figures] {card}: rasterize at {raster_row['shape']}: eager "
-          f"{raster_row['ms']:.4f} ms, device {raster_row['device_ms']:.4f} "
-          f"ms, plain twin {raster_row['plain_ms']:.2f} ms, bound "
-          f"{raster_row['bound_ms'] * 1e3:.2f} us by {raster_row['bound_by']}"
-          f"; launches on the render path {render_launches}")
-    print(json.dumps({"kernels": rows}))
+    # 8c. an int8_fwd forward launches no more device kernels than bf16's
+    forward_launch_phase()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Write ``text_digests.json``: the SHA-256 of every caption of
-``chip_smoke.text_drawings`` made by the JAX package's ``draw_text`` and by
+``torch_fixtures.text_drawings`` made by the JAX package's ``draw_text`` and by
 cv2's FontFace ``putText`` with the installed cv2, which the port's
 ``draw_text`` and ``put_text`` must reproduce bit for bit on any machine.
 
@@ -15,10 +15,11 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+sys.path.insert(0, os.path.dirname(HERE))
 
 import cv2  # noqa: E402
 
-import chip_smoke  # noqa: E402
+import torch_fixtures  # noqa: E402
 from lighthand_tpu.utils import vis3d  # noqa: E402
 
 
@@ -34,9 +35,9 @@ def cv2_put_text(img, text, org, color, size, weight):
 def main() -> None:
     if not cv2.__version__.startswith("5."):
         raise SystemExit(f"needs cv2 5.x, found {cv2.__version__}")
-    drawings = chip_smoke.text_drawings(vis3d.draw_text, cv2_put_text)
+    drawings = torch_fixtures.text_drawings(vis3d.draw_text, cv2_put_text)
     payload = {"cv2": cv2.__version__,
-               "files": chip_smoke.overlay_digests(drawings)}
+               "files": torch_fixtures.overlay_digests(drawings)}
     with open(os.path.join(HERE, "text_digests.json"), "w") as f:
         json.dump(payload, f, indent=1)
         f.write("\n")

@@ -116,7 +116,7 @@ def test_build_dataset_stb_and_unknown_raise(tmp_path):
 
 def _write_tree(tmp_path, route):
     """The tree(s) a route reads, under ``{tmp_path}/datasets``."""
-    import chip_smoke
+    import torch_fixtures
     from test_torch_sources import (
         write_armo_tree,
         write_interhand_tree,
@@ -125,9 +125,9 @@ def _write_tree(tmp_path, route):
 
     root = str(tmp_path / "datasets")
     if route in ("ours", "mix"):
-        chip_smoke.write_lighthand_tree(root, 12, 5)
+        torch_fixtures.write_lighthand_tree(root, 12, 5)
     if route in ("frei", "mix"):
-        chip_smoke.write_freihand_tree(root, 20)
+        torch_fixtures.write_freihand_tree(root, 20)
         (tmp_path / "datasets" / "train.yaml").rename(
             tmp_path / "datasets" / "frei.yaml")
     if route in ("rhd", "mix"):
@@ -137,7 +137,7 @@ def _write_tree(tmp_path, route):
         for mode in ("train", "val"):
             write_interhand_tree(root, mode)
     if route == "gan":
-        chip_smoke.write_gan_tree(root, 10)
+        torch_fixtures.write_gan_tree(root, 10)
     if route == "eval":
         write_armo_tree(root)
 

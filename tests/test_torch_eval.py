@@ -3,7 +3,7 @@
 
 The harness's arithmetic is numpy in both packages, so the curves, AUCs,
 EPEs and stores are held equal value for value. The CLIs are run end to
-end on one Armo tree of the fixture JPEGs (``chip_smoke.write_armo_tree``)
+end on one Armo tree of the fixture JPEGs (``torch_fixtures.write_armo_tree``)
 with the same hrnet_tiny weights: a JAX orbax checkpoint for the JAX CLI,
 a port checkpoint (``utils/weights.py:hrnet_from_flax``) for the port's.
 Categories, counts, GT and ``bb`` must be identical. Predictions could
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu.cli import eval as jax_cli
 from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
 from lighthand_tpu.data import Loader as JaxLoader
@@ -135,7 +135,7 @@ def test_pred_test_matches_jax(tmp_path, regime):
 @pytest.fixture(scope="module")
 def armo_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("armo"))
-    chip_smoke.write_armo_tree(root, N_ARMO)
+    torch_fixtures.write_armo_tree(root, N_ARMO)
     return root
 
 

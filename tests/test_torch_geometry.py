@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu.data.pipeline import IterationLoader as JaxIterationLoader
 from lighthand_tpu.data.pipeline import Loader as JaxLoader
 from lighthand_tpu.data.synthetic import SyntheticHands as JaxHands
@@ -30,8 +30,8 @@ from lighthand_tpu_torch.data.pipeline import IterationLoader
 from lighthand_tpu_torch.ops import geometry as tg
 from lighthand_tpu_torch.ops import procrustes as tp
 
-RTOL = chip_smoke.GEOMETRY_RTOL
-PROCRUSTES_ATOL = chip_smoke.PROCRUSTES_ATOL
+RTOL = torch_fixtures.GEOMETRY_RTOL
+PROCRUSTES_ATOL = torch_fixtures.PROCRUSTES_ATOL
 T = torch.from_numpy
 
 
@@ -41,7 +41,7 @@ def _cam(rng, n=21):
     return cam
 
 
-def _close(got, want, rtol=RTOL, atol=chip_smoke.GEOMETRY_ATOL):
+def _close(got, want, rtol=RTOL, atol=torch_fixtures.GEOMETRY_ATOL):
     want = np.asarray(want)
     got = got.detach().numpy()
     assert got.shape == want.shape and got.dtype == np.float32

@@ -20,10 +20,10 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu_torch.data import imageio
 
-MANIFEST = chip_smoke.load_manifest()
+MANIFEST = torch_fixtures.load_manifest()
 SETTINGS = settings(max_examples=20, deadline=None, derandomize=True)
 
 
@@ -341,9 +341,9 @@ def test_manifest_joints_lie_in_their_images():
 
 
 def test_manifest_was_made_by_the_generator():
-    with open(os.path.join(chip_smoke.FIXTURES, "manifest.json")) as f:
+    with open(os.path.join(torch_fixtures.FIXTURES, "manifest.json")) as f:
         assert json.load(f)["cv2"]
-    assert os.path.isfile(os.path.join(os.path.dirname(chip_smoke.FIXTURES),
+    assert os.path.isfile(os.path.join(os.path.dirname(torch_fixtures.FIXTURES),
                                        "make_images.py"))
 
 

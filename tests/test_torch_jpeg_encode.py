@@ -15,10 +15,10 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu_torch.data import imageio
 
-JPEGS = [e for e in chip_smoke.load_manifest() if e["kind"] == "jpeg"]
+JPEGS = [e for e in torch_fixtures.load_manifest() if e["kind"] == "jpeg"]
 QUALITIES = [1, 10, 50, 75, 90, 95, 100]
 SIZES = [(1, 1), (7, 9), (15, 17), (224, 224), (517, 771)]
 SETTINGS = settings(max_examples=40, deadline=None, derandomize=True)

@@ -470,13 +470,13 @@ def test_trainer_on_a_real_tree_fills_then_reads_the_cache(tmp_path, route):
     fills the decoded-crop cache, the second reads every row from it, which
     the log reports as hit_fraction 1. On a GAN tree (max targets, no cache
     on that route, as in the JAX package) the log reports no cache."""
-    import chip_smoke
+    import torch_fixtures
 
     root = tmp_path / "datasets"
     if route == "ours":
-        chip_smoke.write_lighthand_tree(str(root), 16, 5)
+        torch_fixtures.write_lighthand_tree(str(root), 16, 5)
     else:
-        chip_smoke.write_gan_tree(str(root), 20)
+        torch_fixtures.write_gan_tree(str(root), 20)
     cfg = _cfg(Config, tmp_path, f"real_{route}", data__synthetic=False,
                data__dataset=route, data__dataset_root=str(root))
     trainer = loop.Trainer(cfg)

@@ -19,7 +19,7 @@ import cv2
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu.cli import make_lighthand as jax_ml
 from lighthand_tpu.cli import make_synth_data as jax_synth
 from lighthand_tpu.data.tsv import img_to_base64 as jax_b64
@@ -31,14 +31,14 @@ SMALL = ["--n-train", "3", "--n-eval", "2", "--n-armo", "5", "--n-frei", "3"]
 
 
 def _digests():
-    with open(chip_smoke.DIGESTS) as f:
+    with open(torch_fixtures.DIGESTS) as f:
         return json.load(f)
 
 
 def _same_tree(got_root: str, want_root: str) -> list:
     """Files of the two trees, asserted equal (JSON up to the root)."""
-    got = chip_smoke.tree_digests(got_root)
-    want = chip_smoke.tree_digests(want_root)
+    got = torch_fixtures.tree_digests(got_root)
+    want = torch_fixtures.tree_digests(want_root)
     assert list(got) == list(want)
     for rel in got:
         assert got[rel] == want[rel], rel
@@ -61,13 +61,13 @@ def test_synth_tree_equals_jax_cli(tmp_path):
 
 
 def test_synth_tree_matches_stored_digests(tmp_path):
-    """``chip_smoke.SYNTH_ARGS``' tree (phase 9a's) against the digests of
+    """``torch_fixtures.SYNTH_ARGS``' tree (phase 9a's) against the digests of
     the JAX CLI's tree."""
     want = _digests()["make_synth_data"]
-    assert want["args"] == list(chip_smoke.SYNTH_ARGS)
+    assert want["args"] == list(torch_fixtures.SYNTH_ARGS)
     out = str(tmp_path / "synth")
-    assert synth.main(["--out", out, *chip_smoke.SYNTH_ARGS]) == 0
-    assert chip_smoke.tree_digests(out) == want["files"]
+    assert synth.main(["--out", out, *torch_fixtures.SYNTH_ARGS]) == 0
+    assert torch_fixtures.tree_digests(out) == want["files"]
 
 
 def test_resume_fast_path_keeps_existing_images(tmp_path, monkeypatch):
@@ -200,11 +200,11 @@ def test_process_split_matches_stored_digests(tmp_path):
     and a missing image skipped) against the JAX CLI's digests, through
     ``main``."""
     raw, out = str(tmp_path / "raw"), str(tmp_path / "out")
-    phase = chip_smoke.write_armhand_tree(raw)
+    phase = torch_fixtures.write_armhand_tree(raw)
     want = _digests()["make_lighthand"]
     assert ml.main(["--root", raw, "--out", out, "--phase", phase,
                     "--seed", str(want["seed"])]) == 0
-    assert chip_smoke.tree_digests(out) == want["files"]
+    assert torch_fixtures.tree_digests(out) == want["files"]
 
 
 @pytest.mark.parametrize("seed", range(4))

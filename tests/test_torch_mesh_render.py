@@ -10,7 +10,7 @@ over a NaN background, which the clip keeps: covered pixels are the finite
 ones), on the cases of ``tests/test_vis_extra.py`` and on a seeded
 ellipsoid of about 1.5k faces (MANO's size) with a patch of coplanar
 duplicate faces whose vertices carry other colours, and on
-``chip_smoke.raster_edge_cases`` (more faces on one tile than the kernel's
+``torch_fixtures.raster_edge_cases`` (more faces on one tile than the kernel's
 list holds, a face larger than a tile, faces off the image, 1x1 and 17x13
 images). The rasterizer keeps, at each pixel, the first face of the
 nearest depth, as the loop does. The kernel (``csrc/rasterize.cu``) is
@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import procedural_hand_mesh, raster_edge_cases
+from torch_fixtures import procedural_hand_mesh, raster_edge_cases
 from lighthand_tpu.utils import mesh_render as jm
 from lighthand_tpu_torch.ops.kernels.rasterize import (
     LARGE,
@@ -60,7 +60,7 @@ def _square(z, size=1.0):
 
 @pytest.fixture(scope="module")
 def mesh():
-    """``chip_smoke.procedural_hand_mesh``: 1512 ellipsoid faces, then 60
+    """``torch_fixtures.procedural_hand_mesh``: 1512 ellipsoid faces, then 60
     coplanar copies over copied vertices with other colours."""
     return procedural_hand_mesh()
 

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu.cli import eval as jax_cli
 from lighthand_tpu.core.dtypes import DTypePolicy as JaxPolicy
 from lighthand_tpu.models import get_model as jax_get_model
@@ -146,7 +146,7 @@ def test_converted_run_files(run):
 @pytest.fixture(scope="module")
 def armo_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("armo"))
-    chip_smoke.write_armo_tree(root, 10)
+    torch_fixtures.write_armo_tree(root, 10)
     return root
 
 

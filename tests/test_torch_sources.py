@@ -16,7 +16,7 @@ import shutil
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_fixtures
 from lighthand_tpu.data import cache as jcache
 from lighthand_tpu.data import tsv as jtsv
 from lighthand_tpu.data.armo import ArmoEvalSet as JArmo
@@ -35,7 +35,7 @@ from lighthand_tpu_torch.data.lighthand import LightHandDataset, LightHandValSet
 from lighthand_tpu_torch.data.records import Sample, Source, SubsetSource
 from lighthand_tpu_torch.data.rhd import RHDDataset
 
-MANIFEST = chip_smoke.load_manifest()
+MANIFEST = torch_fixtures.load_manifest()
 JPEGS = [e for e in MANIFEST if e["kind"] == "jpeg"]
 PNGS = [e for e in MANIFEST if e["kind"] == "png"]
 MASK = next(e for e in MANIFEST if e["kind"] == "mask")
@@ -172,7 +172,7 @@ def write_armo_tree(root, n=5):
 @pytest.mark.parametrize("num_our,ratio", [(10, 0.6), (200000, 0.25)])
 def test_lighthand_matches_jax(tmp_path, num_our, ratio):
     root = str(tmp_path)
-    chip_smoke.write_lighthand_tree(root, 12, 5)
+    torch_fixtures.write_lighthand_tree(root, 12, 5)
     # a train2 shard, read only above 150 000 (dataset.py:115-120)
     d2 = tmp_path / "LightHand" / "annotations" / "train2"
     d2.mkdir()
@@ -199,7 +199,7 @@ def test_armo_matches_jax(tmp_path, phase):
 
 @pytest.mark.parametrize("is_train", [True, False])
 def test_freihand_matches_jax(tmp_path, is_train):
-    yaml_path = chip_smoke.write_freihand_tree(str(tmp_path / "frei"), 20)
+    yaml_path = torch_fixtures.write_freihand_tree(str(tmp_path / "frei"), 20)
     got = FreiHandTSVDataset(yaml_path, is_train=is_train)
     want = JFrei(yaml_path, is_train=is_train)
     assert_same_source(got, want)
@@ -216,7 +216,7 @@ def test_freihand_matches_jax(tmp_path, is_train):
 
 def test_freihand_composite_and_linelist_match_jax(tmp_path):
     d = tmp_path / "frei"
-    chip_smoke.write_freihand_tree(str(d), 9)
+    torch_fixtures.write_freihand_tree(str(d), 9)
     (d / "train.linelist.tsv").write_text("2\n5\n8\n")
     (d / "lin.yaml").write_text("img: train.img.tsv\nlabel: train.label.tsv"
                                 "\nlinelist: train.linelist.tsv\n")
@@ -250,7 +250,7 @@ def test_interhand_matches_jax(tmp_path):
 
 
 def test_gan_matches_jax(tmp_path):
-    chip_smoke.write_gan_tree(str(tmp_path), 6)
+    torch_fixtures.write_gan_tree(str(tmp_path), 6)
     got, want = GANeratedDataset(str(tmp_path)), JGan(str(tmp_path))
     assert got.heatmap_style == "max" and len(got) == 6
     assert_same_source(got, want)
@@ -295,7 +295,7 @@ def test_tsv_concat_hw_and_linelist_match_jax(tmp_path):
         assert ((tmp_path / "p" / name).read_bytes()
                 == (tmp_path / "j" / name).read_bytes())
     imgs = str(tmp_path / "img.tsv")
-    rows = chip_smoke.write_freihand_tree(str(tmp_path / "f"), 4)
+    rows = torch_fixtures.write_freihand_tree(str(tmp_path / "f"), 4)
     shutil.copy(os.path.join(os.path.dirname(rows), "train.img.tsv"), imgs)
     got = tsv.generate_hw_file(imgs, str(tmp_path / "p.hw.tsv"))
     want = jtsv.generate_hw_file(imgs, str(tmp_path / "j.hw.tsv"))

@@ -270,10 +270,10 @@ def test_tree_making_clis_run_without_jax_or_cv2(tmp_path):
     """The two tree-making CLIs and an overlay, run to the end in a fresh
     process (their imports inside functions included), load no jax, JAX
     package, cv2 or PIL."""
-    import chip_smoke
+    import torch_fixtures
 
     raw = tmp_path / "raw"
-    phase = chip_smoke.write_armhand_tree(str(raw), n=2)
+    phase = torch_fixtures.write_armhand_tree(str(raw), n=2)
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import numpy as np\n"

@@ -307,19 +307,19 @@ def test_text_drawings_match_stored_digests(drawer):
     without cv2; and cv2 still draws them, so the fixture is current."""
     import json
 
-    import chip_smoke
+    import torch_fixtures
     sys.path.insert(0, str(REPO / "tests" / "fixtures"))
     try:
         import make_text_digests
     finally:
         sys.path.pop(0)
     if drawer == "port":
-        drawings = chip_smoke.text_drawings(tv.draw_text, put_text)
+        drawings = torch_fixtures.text_drawings(tv.draw_text, put_text)
     else:
-        drawings = chip_smoke.text_drawings(jv.draw_text,
+        drawings = torch_fixtures.text_drawings(jv.draw_text,
                                             make_text_digests.cv2_put_text)
-    got = chip_smoke.overlay_digests(drawings)
-    with open(chip_smoke.TEXT_DIGESTS) as f:
+    got = torch_fixtures.overlay_digests(drawings)
+    with open(torch_fixtures.TEXT_DIGESTS) as f:
         stored = json.load(f)
     assert stored["cv2"] == cv2.__version__ == "5.0.0"
     assert got == stored["files"] and len(got) == 13

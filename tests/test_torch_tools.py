@@ -1,7 +1,9 @@
 """The port's measurement tools beside the JAX package's: the int8 serving
 bench, the step profiler's summary and the cache pre-warmer, and the import
 rule of all four new entry points (``bench_torch.py`` and the three
-``tools/*_torch.py``).
+``tools/*_torch.py``). The tools read the benchmark's rules, never copies
+of them: the profiler's kernel families and ``kernel_breakdown.py``'s
+bounds are the benchmark's, and nothing imports the card's check script.
 
 The profiler's summary is held on a hand-made Chrome trace (ranking,
 collapsing, families, the dropped-event share). The pre-warmer runs over a
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
@@ -66,6 +68,49 @@ def test_importing_the_entry_points_loads_no_jax():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_nothing_imports_chip_smoke():
+    """The card's check script imports from the tests' fixtures and the
+    tools, never the other way round."""
+    files = (sorted((REPO / "tests").rglob("*.py"))
+             + sorted((REPO / "tools").rglob("*.py"))
+             + [REPO / "kernel_breakdown.py", REPO / "bench_torch.py"])
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            assert "chip_smoke" not in [n.split(".")[0] for n in names], path
+
+
+@pytest.mark.parametrize("kernel, work, ms", [
+    ("fused_aug_targets", lambda y: y.k1_work(128, 256, 21, 64), 0.0357),
+    ("heatmap_targets", lambda y: y.k2_work(128, 21, 64), 0.0132),
+], ids=["K1", "K2"])
+def test_kernel_breakdown_bounds_are_the_benchmarks(kernel, work, ms):
+    """``kernel_breakdown.py``'s K1 and K2 bounds at B=128, 256x256, 64x64
+    maps are the yardstick's ``bound_s`` on its ``k1_work`` / ``k2_work``
+    for the H100 row: both bound by bytes."""
+    import kernel_breakdown
+    from lhbench import yardstick
+
+    kind = "NVIDIA H100 80GB HBM3"
+    got, by = kernel_breakdown.bound_ms(
+        *kernel_breakdown.target_work(128)[kernel], kind)
+    assert got == pytest.approx(yardstick.bound_s(*work(yardstick), kind)
+                                * 1e3, rel=1e-12)
+    assert round(got, 4) == ms and by == "bytes"
+
+
+def test_profiler_bins_kernels_by_the_benchmarks_families():
+    from lhbench import trace
+
+    assert profile.FAMILIES is trace.FAMILIES
+    assert profile.family is trace.family
+    assert profile.collapse is trace.collapse
 
 
 # ------------------------------------------------------------------ serving
@@ -236,9 +281,9 @@ def _tree(tmp_path, route):
     root = tmp_path / "datasets"
     argv = ["--name", "x", "--dataset-root", str(root), "--num_our", "12"]
     if route == "ours":
-        chip_smoke.write_lighthand_tree(str(root), 12, 5)
+        torch_fixtures.write_lighthand_tree(str(root), 12, 5)
         return argv + ["--root", "simplebaseline/ours"]
-    yaml = chip_smoke.write_freihand_tree(str(root / "frei"), 20)
+    yaml = torch_fixtures.write_freihand_tree(str(root / "frei"), 20)
     return argv + ["--root", "simplebaseline/frei", "--train_yaml", yaml]
 
 

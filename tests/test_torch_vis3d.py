@@ -173,7 +173,7 @@ def test_overlay_drawings_match_stored_digests(tmp_path, drawer):
     the fixture is current."""
     import json
 
-    import chip_smoke
+    import torch_fixtures
     from lighthand_tpu.utils import landmarks as jl
     from lighthand_tpu_torch.utils import landmarks as tl
     from lighthand_tpu_torch.utils import visualize
@@ -186,9 +186,9 @@ def test_overlay_drawings_match_stored_digests(tmp_path, drawer):
                  lambda img, o, r, c, t: cv2.circle(img, o, r, c, t),
                  lambda img, a, b, c, t: cv2.arrowedLine(img, a, b, c, t),
                  jl, jv)
-    got = chip_smoke.overlay_digests(chip_smoke.overlay_drawings(
+    got = torch_fixtures.overlay_digests(torch_fixtures.overlay_drawings(
         *prims, str(tmp_path)))
-    with open(chip_smoke.OVERLAY_DIGESTS) as f:
+    with open(torch_fixtures.OVERLAY_DIGESTS) as f:
         stored = json.load(f)
     assert stored["cv2"] == cv2.__version__ == "5.0.0"
     assert got == stored["files"] and len(got) == 11

@@ -12,10 +12,11 @@ instance suffixes as ``tools/profile_step.py:summarize`` does.
 
 XLA's trace carries ``bytes_accessed`` and ``model_flops`` per op, from
 which the JAX tool builds a roofline per HLO category; torch's trace
-carries neither. So the kernels are grouped into name families instead
-(``FAMILIES``: the port's own kernels, BatchNorm, cuDNN/cuBLAS conv and
-gemm, the optimizer, reductions, elementwise/cast/copy, the rest), each
-with its ms and count a dispatch.
+carries neither. So the kernels are grouped into the benchmark's name
+families instead (``benchmark/lhbench/trace.py:FAMILIES``: the port's own
+kernels, BatchNorm, the optimizer, attention, layer norm, cuDNN/cuBLAS
+conv and gemm, elementwise/cast/copy, reductions, the rest), each with its
+ms and count a dispatch.
 
 The bench's step runs as CUDA graphs (``train/graph.py``): after the
 warm-up dispatches (the first eager, the second capturing), each
@@ -65,32 +66,21 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.append(os.path.join(REPO, "benchmark"))
 
 import bench_torch  # noqa: E402
+from lhbench.trace import DEVICE_OPS, FAMILIES, collapse, family  # noqa: E402
 from lighthand_tpu_torch.core.dtypes import numerics  # noqa: E402
 from lighthand_tpu_torch.train.profiler import trace  # noqa: E402
 
 DEFAULT_OUT = os.path.join(REPO, "lh_trace_torch")
 DROP_FLAG = 0.95
 
-# (family, pattern on the kernel's name); the first match wins
-FAMILIES = (
-    ("port kernels", r"fused_aug|heatmap_targets|int8_conv|quantize_weights"
-                     r"|raster_"),
-    ("batch norm", r"batch_norm|batchnorm|bn_fw|bn_bw|welford"),
-    ("optimizer", r"multi_tensor|adam"),
-    ("conv / gemm (cuDNN, cuBLAS)", r"conv(?!ert)|dgrad|wgrad|fprop|gemm"
-                                    r"|xmma|cutlass|cudnn|cublas|winograd"),
-    ("elementwise / cast / copy", r"elementwise|copy|cast|fill"),
-    ("reduction", r"reduce"),
-    ("other", r""),
-)
 _LAUNCH = re.compile(r"Launch(Kernel|CooperativeKernel)|cuLaunch")
 _GRAPH_LAUNCH = re.compile(r"GraphLaunch")
-# the trace's work on the device, and the host ranges that label its gaps
-# (the program's spans are cpu_op events, torch's optimizer ranges
-# user annotations)
-DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the host ranges that label the gaps between the trace's work on the
+# device (``DEVICE_OPS``): the program's spans are cpu_op events, torch's
+# optimizer ranges user annotations
 _RANGE = re.compile(r"^(lighthand\.|Optimizer\.step#)")
 
 
@@ -137,16 +127,6 @@ def trace_workload(wl, out_dir: str, steps: int, info: dict) -> dict:
     with open(os.path.join(out_dir, "window.json"), "w") as f:
         json.dump(window, f)
     return window
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    return next(f for f, pat in FAMILIES if re.search(pat, low))
-
-
-def collapse(name: str) -> str:
-    """``tools/profile_step.py``'s collapse: ``fusion.123`` -> ``fusion``."""
-    return re.sub(r"[.\-]\d+$", "", name.lstrip("%"))
 
 
 def _short(name: str, width: int = 110) -> str:
